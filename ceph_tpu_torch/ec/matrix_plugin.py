@@ -1,0 +1,130 @@
+"""Shared base for matrix-RS erasure-code plugins (isa / cuda).
+
+Port of ``ceph_tpu/ec/matrix_plugin.py``.  Wires a ``MatrixRSCodec``
+(host oracle, used by ``decode_chunks``) and the device backend
+(ops/gf_matmul.DeviceRSBackend, the GF(2^8) bit-matmul kernel) into the
+ErasureCode ABI.  ``encode_batch``, ``decode_batch`` and
+``encode_chunks`` run on the backend's device: the CUDA kernel for
+``backend=cuda``, its plain PyTorch version for ``backend=host``.
+
+Deliberately not carried over from the JAX package: the fault guard
+(injection, retry, watchdog), the circuit breaker, the host fallback on
+``DeviceUnavailable`` and the mesh hook.  A CUDA error propagates to the
+caller; the port never answers a device request from the CPU.
+"""
+from __future__ import annotations
+
+from typing import Dict, Set
+
+import numpy as np
+
+from .base import ErasureCode
+from .rs_codec import MatrixRSCodec, plan_decode
+
+
+class ErasureCodeMatrixRS(ErasureCode):
+    """A systematic matrix code with k data + m coding chunks."""
+
+    def __init__(self):
+        super().__init__()
+        self.k = 0
+        self.m = 0
+        self.codec: MatrixRSCodec | None = None
+        self._device = None  # lazy DeviceRSBackend
+
+    # -- sizing -------------------------------------------------------------
+    def get_chunk_count(self) -> int:
+        return self.k + self.m
+
+    def get_data_chunk_count(self) -> int:
+        return self.k
+
+    def get_alignment(self) -> int:
+        return 32
+
+    def get_chunk_size(self, object_size: int) -> int:
+        # isa-style: ceil(object_size / k) rounded up to alignment
+        # (reference ErasureCodeIsa.cc:65-78)
+        alignment = self.get_alignment()
+        chunk_size = (object_size + self.k - 1) // self.k
+        modulo = chunk_size % alignment
+        if modulo:
+            chunk_size += alignment - modulo
+        return chunk_size
+
+    # -- backend ------------------------------------------------------------
+    def device(self):
+        if self._device is None:
+            from ..ops.gf_matmul import DeviceRSBackend
+            self._device = DeviceRSBackend(self.codec.matrix,
+                                           self.torch_device)
+        return self._device
+
+    # -- batched stripe API (ECUtil striping, osd/ECUtil.cc:120-159) --------
+    def encode_batch(self, data: np.ndarray) -> np.ndarray:
+        """(S, k, C) uint8 -> (S, m, C) coding chunks; ONE device call for
+        all S stripes."""
+        return self.device().encode(data)
+
+    def decode_batch(self, chunks: Dict[int, np.ndarray],
+                     want) -> Dict[int, np.ndarray]:
+        """Reconstruct chunk ids in *want* for a whole batch.
+
+        chunks maps physical chunk id -> (S, C); all stripes share one
+        erasure signature (the recovery shape: one failed shard, many
+        stripes).  Missing data rows come from one survivor-matrix call,
+        missing coding rows from one re-encode.
+        """
+        if len(chunks) < self.k:
+            raise IOError(
+                f"need at least k={self.k} chunks, have {len(chunks)}")
+        # callers key by physical chunk id; the codec works in logical rows
+        n = self.k + self.m
+        p2l = {self.chunk_index(i): i for i in range(n)}
+        l2p = {l: p for p, l in p2l.items()}
+        chunks = {p2l[p]: b for p, b in chunks.items()}
+        want = [p2l[p] for p in want]
+        srcs, want_data, want_coding, missing_data = plan_decode(
+            self.k, chunks, want)
+        out: Dict[int, np.ndarray] = {i: chunks[i] for i in want
+                                      if i in chunks}
+        dev = self.device()
+        by_id: Dict[int, np.ndarray] = {}
+        if missing_data:
+            survivors = np.stack([chunks[i] for i in srcs], axis=1)
+            rec = dev.decode_data(survivors, srcs, missing_data)
+            by_id = {i: rec[:, idx] for idx, i in enumerate(missing_data)}
+            for i in want_data:
+                out[i] = by_id[i]
+        if want_coding:
+            data_full = np.stack(
+                [chunks[i] if i in chunks else by_id[i]
+                 for i in range(self.k)], axis=1)
+            coding = dev.encode(data_full)
+            for i in want_coding:
+                out[i] = coding[:, i - self.k]
+        return {l2p[i]: b for i, b in out.items()}
+
+    # -- encode/decode ------------------------------------------------------
+    def encode_chunks(self, want_to_encode: Set[int],
+                      encoded: Dict[int, np.ndarray]) -> None:
+        # buffers are keyed by *physical* index (chunk_index); the codec works
+        # in logical rows.  mapping= profiles permute the two.
+        data = np.stack([encoded[self.chunk_index(i)] for i in range(self.k)])
+        coding = self.device().encode(data[None])[0]
+        for i in range(self.m):
+            # fill in place so callers holding references see the parity
+            encoded[self.chunk_index(self.k + i)][...] = coding[i]
+
+    def decode_chunks(self, want_to_read: Set[int],
+                      chunks: Dict[int, np.ndarray],
+                      decoded: Dict[int, np.ndarray]) -> None:
+        n = self.k + self.m
+        phys_to_logical = {self.chunk_index(i): i for i in range(n)}
+        logical_chunks = {phys_to_logical[p]: buf
+                          for p, buf in chunks.items()}
+        want = sorted(phys_to_logical[p] for p in range(n)
+                      if p in want_to_read or p not in chunks)
+        out = self.codec.decode(logical_chunks, want)
+        for i, buf in out.items():
+            decoded[self.chunk_index(i)][...] = buf

@@ -1,0 +1,90 @@
+"""RS coding-matrix generation and GF(2^8) linear algebra (host numpy).
+
+A copy of the JAX package's ``gf/matrices.py`` for the isa-matrix
+family: ``gf_gen_rs_matrix`` / ``gf_gen_cauchy1_matrix`` reproduce the
+isa-l generators selected in the reference's isa plugin
+(src/erasure-code/isa/ErasureCodeIsa.cc:383-386): an (k+m) x k matrix
+whose top k rows are the identity (systematic code).  jerasure's
+Vandermonde construction comes with the jerasure slice of the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .tables import gf_mul, gf_inv, MUL_TABLE
+
+
+def gf_gen_rs_matrix(rows: int, k: int) -> np.ndarray:
+    """isa-l style systematic Vandermonde-ish matrix (rows x k).
+
+    Row k+i is [g^0, g^1, ..] evaluated with a generator that doubles per
+    row.  Only MDS for limited (k, m); the reference enforces k<=32, m<=4
+    (k<=21 when m=4) — see ErasureCodeIsa.cc:330-361.
+    """
+    a = np.zeros((rows, k), dtype=np.uint8)
+    for i in range(k):
+        a[i, i] = 1
+    gen = 1
+    for i in range(k, rows):
+        p = 1
+        for j in range(k):
+            a[i, j] = p
+            p = gf_mul(p, gen)
+        gen = gf_mul(gen, 2)
+    return a
+
+
+def gf_gen_cauchy1_matrix(rows: int, k: int) -> np.ndarray:
+    """isa-l style systematic Cauchy matrix (rows x k): coding row i, col j
+    = inv(i ^ j) for i in [k, rows)."""
+    a = np.zeros((rows, k), dtype=np.uint8)
+    for i in range(k):
+        a[i, i] = 1
+    for i in range(k, rows):
+        for j in range(k):
+            a[i, j] = gf_inv(i ^ j)
+    return a
+
+
+def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """GF(2^8) matrix product (small matrices; host-side)."""
+    n, k = a.shape
+    k2, mcols = b.shape
+    if k != k2:
+        raise ValueError(f"inner dimensions differ: {a.shape} x {b.shape}")
+    out = np.zeros((n, mcols), dtype=np.uint8)
+    for i in range(n):
+        for j in range(mcols):
+            acc = 0
+            for t in range(k):
+                acc ^= int(MUL_TABLE[a[i, t], b[t, j]])
+            out[i, j] = acc
+    return out
+
+
+def gf_invert_matrix(m: np.ndarray) -> np.ndarray:
+    """Invert a k x k matrix over GF(2^8) by Gauss-Jordan elimination."""
+    k = m.shape[0]
+    if m.shape != (k, k):
+        raise ValueError(f"matrix {m.shape} is not square")
+    a = m.astype(np.uint8).copy()
+    inv = np.eye(k, dtype=np.uint8)
+    for col in range(k):
+        pivot = col
+        while pivot < k and a[pivot, col] == 0:
+            pivot += 1
+        if pivot == k:
+            raise np.linalg.LinAlgError("singular GF(2^8) matrix")
+        if pivot != col:
+            a[[col, pivot]] = a[[pivot, col]]
+            inv[[col, pivot]] = inv[[pivot, col]]
+        piv = gf_inv(int(a[col, col]))
+        if piv != 1:
+            a[col] = MUL_TABLE[piv][a[col]]
+            inv[col] = MUL_TABLE[piv][inv[col]]
+        for r in range(k):
+            if r != col and a[r, col]:
+                f = int(a[r, col])
+                a[r] ^= MUL_TABLE[f][a[col]]
+                inv[r] ^= MUL_TABLE[f][inv[col]]
+    return inv

@@ -1,0 +1,146 @@
+"""GF(2^8) bit-matmul: the hand-written CUDA kernel, its wrapper and its
+plain PyTorch version.
+
+Port of the TPU kernel ``ceph_tpu/ops/gf_pallas.py::_kernel`` (K1).  The
+file keeps its name so that each counterpart is easy to find; the kernel
+itself is ``csrc/gf_bit_matmul.cu`` (sm_90a, loaded through ctypes), and
+computes what K1 computes without K1's C % 128 restriction.
+
+- ``BitMatrix`` holds one (8k, 8r) 0/1 matrix on one device, both as
+  0/1 bytes (for the plain version) and as the packed (8r, ceil(k/8))
+  u64 column masks the kernel reads.  Build it once per coding or
+  decode matrix and reuse it.
+- ``gf_bit_matmul_kernel(data, bm)`` launches the kernel for a CUDA
+  tensor, or raises.  Only a tensor that lies on the CPU takes the plain
+  version.  ``launches.n`` counts kernel launches.
+- ``gf_bit_matmul_plain(data, bitmat)`` is the reference: unpack bits,
+  matmul, ``& 1``, pack.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+_SIGNATURES = {
+    "gf_bit_matmul_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+# float32 unpacked planes the plain version materialises per chunk of
+# stripes (the whole smoke batch would be 8 GiB at once)
+_PLAIN_CHUNK_BYTES = 256 << 20
+
+
+class LaunchCounter:
+    """Kernel launches since the last ``reset()``."""
+
+    def __init__(self):
+        self.n = 0
+
+    def reset(self) -> None:
+        self.n = 0
+
+
+launches = LaunchCounter()
+
+
+def pack_masks(bits: np.ndarray) -> np.ndarray:
+    """(8k, 8r) 0/1 -> (8r, ceil(k/8)) int64 words: bit t of word w of row
+    j is bits[64*w + t, j] (the column vector of output bit j)."""
+    k8, r8 = bits.shape
+    nw = (k8 // 8 + 7) // 8
+    cols = np.zeros((r8, nw * 64), dtype=np.uint8)
+    cols[:, :k8] = bits.T
+    packed = np.packbits(cols, axis=1, bitorder="little")   # (8r, nw*8)
+    return np.ascontiguousarray(packed).view("<u8").view(np.int64)
+
+
+class BitMatrix:
+    """A (8k, 8r) GF(2) matrix on one device, ready for either version."""
+
+    def __init__(self, bits: np.ndarray, device):
+        bits = np.asarray(bits)
+        if bits.ndim != 2 or bits.shape[0] % 8 or bits.shape[1] % 8 or \
+                not bits.size:
+            raise ValueError(f"bit matrix shape {bits.shape} is not (8k, 8r)")
+        if np.any((bits != 0) & (bits != 1)):
+            raise ValueError("bit matrix holds values other than 0 and 1")
+        self.device = torch.device(device)
+        self.k = bits.shape[0] // 8
+        self.r = bits.shape[1] // 8
+        self.bits = torch.as_tensor(bits.astype(np.uint8), device=self.device)
+        self.masks = torch.as_tensor(pack_masks(bits), device=self.device)
+
+
+def gf_bit_matmul_plain(data: torch.Tensor,
+                        bitmat: torch.Tensor) -> torch.Tensor:
+    """data (S, k, C) uint8, bitmat (8k, 8r) 0/1 -> (S, r, C) uint8.
+
+    The product runs in float32 on either device: 0/1 sums of at most 8k
+    terms are exact there, which int8 (wraps on the CPU) and int32 (no
+    CUDA matmul) are not.  Stripes are walked in chunks so the unpacked
+    planes (32x the data in float32) stay bounded."""
+    s, k, c = data.shape
+    r = bitmat.shape[1] // 8
+    if data.is_cuda:
+        # The check of the kernel rests on this product being exact.
+        # Full float32 is (integer sums < 2^24); TF32 mode hands the
+        # product to tensor-core paths whose rounding PyTorch does not
+        # specify, so keep it off explicitly rather than trust the default.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    w = bitmat.to(device=data.device, dtype=torch.float32)
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=data.device))
+    out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
+    step = max(1, _PLAIN_CHUNK_BYTES // max(1, c * k * 8 * 4))
+    for s0 in range(0, s, step):
+        d = data[s0:s0 + step].transpose(1, 2)             # (n, C, k)
+        n = d.shape[0]
+        bits = ((d.unsqueeze(-1) >> shifts) & 1).reshape(n, c, k * 8)
+        acc = bits.to(torch.float32) @ w                   # (n, C, 8r)
+        par = acc.to(torch.int32) & 1
+        packed = (par.reshape(n, c, r, 8) * weights).sum(-1)
+        out[s0:s0 + n] = packed.to(torch.uint8).transpose(1, 2)
+    return out
+
+
+def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
+    """data (S, k, C) uint8 -> (S, r, C) uint8 through the CUDA kernel.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel on the current stream or raises; any other device raises."""
+    if data.dim() != 3 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be (S, k, C) uint8, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    s, k, c = data.shape
+    if k != bm.k:
+        raise ValueError(f"data has k={k}, bit matrix has k={bm.k}")
+    if data.device.type == "cpu":
+        return gf_bit_matmul_plain(data, bm.bits.cpu())
+    if data.device.type != "cuda":
+        raise RuntimeError(f"gf_bit_matmul: no kernel for device "
+                           f"{data.device}")
+    if bm.masks.device != data.device:
+        raise ValueError(f"bit matrix on {bm.masks.device}, data on "
+                         f"{data.device}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    out = torch.empty((s, bm.r, c), dtype=torch.uint8, device=data.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("gf_bit_matmul", _SIGNATURES)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = lib.gf_bit_matmul_launch(
+        data.data_ptr(), bm.masks.data_ptr(), out.data_ptr(),
+        s, k, bm.r, c, bm.masks.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"gf_bit_matmul launch failed: cudaError {rc}")
+    launches.n += 1
+    return out

@@ -1,0 +1,143 @@
+"""The port stands alone and never hides the device.
+
+- importing every module of ``ceph_tpu_torch`` in a fresh interpreter
+  leaves ``jax`` and ``ceph_tpu`` out of ``sys.modules``;
+- no source file of the port imports ``jax`` or ``ceph_tpu``;
+- asking for CUDA where there is none raises, and a tensor on a device
+  other than the CPU never reaches the plain version.
+"""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import ceph_tpu_torch
+from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
+from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
+from ceph_tpu_torch.ops import _build, gf_pallas
+from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
+
+PKG = Path(ceph_tpu_torch.__file__).parent
+REPO = PKG.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="ceph_tpu_torch."))
+
+
+def test_fresh_import_leaves_jax_out():
+    mods = _modules()
+    assert "ceph_tpu_torch.ops.gf_pallas" in mods
+    assert "ceph_tpu_torch.osd.ecutil" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'ceph_tpu' or "
+        "m.startswith('ceph_tpu.'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*.py")))
+def test_source_imports_no_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "ceph_tpu"), (path, n)
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "ceph_tpu"), n
+
+
+def test_cuda_backend_without_device_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.ec import create_erasure_code
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_erasure_code({"plugin": "cuda"})
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_erasure_code({"plugin": "isa", "k": "4", "m": "2"})
+    with pytest.raises(RuntimeError):
+        DeviceRSBackend(gf_gen_rs_matrix(6, 4), "cuda")
+
+
+def test_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """A tensor off the CPU goes to the kernel or raises: the plain
+    version is not called, and no launch is counted."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    monkeypatch.setattr(gf_pallas, "gf_bit_matmul_plain", boom)
+    bm = gf_pallas.BitMatrix(
+        expand_to_bitmatrix(gf_gen_rs_matrix(6, 4)[4:]), "cpu")
+    before = gf_pallas.launches.n
+    data = torch.empty((2, 4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises((RuntimeError, ValueError)):
+        gf_pallas.gf_bit_matmul_kernel(data, bm)
+    assert gf_pallas.launches.n == before
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build("gf_bit_matmul")
+    with pytest.raises(FileNotFoundError):
+        _build.build("no_such_kernel")
+    assert _build.sources() == ["gf_bit_matmul"]
+
+
+def test_build_path_tracks_source(monkeypatch, tmp_path):
+    """The library name hashes the source and flags: an edited source
+    gets a new build, an unchanged one reuses the old."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// a\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    a = _build.library_path("k")
+    assert a == _build.library_path("k")
+    (src / "k.cu").write_text("// b\n")
+    assert _build.library_path("k") != a
+    a.parent.mkdir(parents=True)
+    _build.library_path("k").write_bytes(b"")
+    assert _build.build("k") == _build.library_path("k")   # reused
+
+
+def test_bitmatrix_validates():
+    with pytest.raises(ValueError):
+        gf_pallas.BitMatrix(np.zeros((7, 8), np.uint8), "cpu")
+    with pytest.raises(ValueError):
+        gf_pallas.BitMatrix(np.full((8, 8), 2, np.uint8), "cpu")
+    bm = gf_pallas.BitMatrix(np.eye(16, 8, dtype=np.uint8), "cpu")
+    with pytest.raises(ValueError):
+        gf_pallas.gf_bit_matmul_kernel(
+            torch.zeros((1, 3, 8), dtype=torch.uint8), bm)
+    with pytest.raises(ValueError):
+        gf_pallas.gf_bit_matmul_kernel(
+            torch.zeros((1, 2, 8), dtype=torch.int16), bm)
