@@ -11,23 +11,43 @@
 // (erasure-code encode with the coding rows, reconstruction with the
 // inverted survivor rows).
 //
-// Design.  The Pallas kernel unpacks (k, T) bytes into (8k, T) int8 planes for
-// a 128x128 MXU; here the work stays in bits.  One thread owns VEC
-// neighbouring byte columns of one stripe.  It loads each of the k data rows
-// with one VEC-byte load (16 B when k <= 8), gathers each column's k bytes
-// into W = ceil(k/8) 64-bit words, and forms every output bit as
-// popc( XOR_w (vec[w] & mask[j][w]) ) & 1.  The masks are B's columns packed
-// on the host into (8r, W) u64 words and cached with the matrix; every thread
-// of a warp reads the same mask word, so the loads broadcast from L1.  Any
-// k <= 256, any r >= 1 and any C >= 1 are taken: a ragged tail of columns and
-// misaligned rows fall back to byte loads inside the same kernel.
+// Design: nibble tables in shared memory.  The product is linear over GF(2)
+// in each data byte, for any 0/1 matrix B: with T_i[b] the XOR of the rows
+// 8i+t of B over the set bits t of b, output column c is XOR_i
+// T_i[data[i, c]], and T_i[b] = L_i[b & 15] ^ H_i[b >> 4].  The host packs L_i
+// and H_i once per matrix (ops/gf_pallas.py::pack_tables) for each group of
+// four output rows, one u32 per entry holding the four output bytes of a
+// column: 128 B per data row and group.  Each block stages its groups'
+// tables into shared memory once, then walks a grid-stride loop over
+// (stripe, 16-column) items: a thread loads 16 bytes of each data row (one
+// 16-byte load, eight rows issued together), does two shared lookups per
+// row and column, XORs them, and transposes the sixteen u32 results back
+// into four 16-byte output rows with byte permutes.  A 16-entry table spans
+// 16 banks and every lane of a warp reads the same table, so each lookup is
+// one shared-memory wavefront whatever the data.  Any k <= 256, r >= 1 and
+// C >= 1 are taken: groups whose tables do not fit in one block's shared
+// memory go to more blocks along grid y, and a ragged tail of columns and
+// misaligned rows take byte loads and stores inside the same kernel.
 //
 // Bound on this card: bytes.  The function must read S*k*C bytes and write
-// S*r*C bytes; at 3.35 TB/s (H100 SXM) the smoke shape S=8192, k=8, r=4,
-// C=4096 (402,653,184 B) takes at least ~0.120 ms.  The arithmetic is 8r
-// AND/popc per column, so at small k this simple kernel is limited by the
-// integer pipes (popc issues at a quarter of the ALU rate) before it reaches
-// the memory bound; a tensor-core or table-driven redesign is queued.
+// S*r*C bytes; at 3.35 TB/s (H100 SXM) the main shape S=8192, k=8, r=4,
+// C=4096 (402,653,184 B) takes at least ~0.120 ms.  Against it stand two
+// pipes.  Shared memory: 2k lookups per column, 16.8e6 warp wavefronts at
+// that shape, ~0.064 ms at one wavefront per clock on 132 SMs at 1.98 GHz.
+// The integer pipe, 64 lanes per SM: per row and column two byte permutes
+// that each yield a lookup's whole shared address (below), one three-way
+// XOR and a share of the nibble masks, about 4 operations, 1.07e9 at that
+// shape, ~0.064 ms.  An address add per lookup would make that 6 and the
+// integer pipe the bound, which is why the addresses are built by the
+// permutes.  The popcount pipe of the first design (below) is off the path,
+// and at 80 registers three blocks stay resident per SM, enough 16-byte
+// loads in flight to keep memory busy.
+//
+// The first design stays as gf_bit_matmul_popc_launch, reached only by the
+// chip smoke's A/B: one thread per VEC byte columns gathers each column's k
+// bytes into ceil(k/8) u64 words and forms every output bit as
+// popc(XOR_w vec[w] & mask[j][w]) & 1, which at k=8, r=4 costs 32 __popcll
+// per column and bounds it on the popcount pipe.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,13 +113,14 @@ __device__ __forceinline__ void store_bytes(uint8_t* __restrict__ p, int n_valid
     if (v < n_valid) p[v] = uint8_t(b.get(v));
 }
 
-// W: 64-bit words per column vector (exact for W <= 4; W = 32 serves any
-// k <= 256 with nw = ceil(k/8) words live).  VEC: byte columns per thread.
+// First design.  W: 64-bit words per column vector (exact for W <= 4; W = 32
+// serves any k <= 256 with nw = ceil(k/8) words live).  VEC: byte columns
+// per thread.
 template <int W, int VEC>
 __global__ void __launch_bounds__(kThreads)
-gf_bit_matmul_kernel(const uint8_t* __restrict__ data, const u64* __restrict__ masks,
-                     uint8_t* __restrict__ out, long long S, int k, int r, long long C,
-                     int nw, bool aligned) {
+gf_popc_kernel(const uint8_t* __restrict__ data, const u64* __restrict__ masks,
+               uint8_t* __restrict__ out, long long S, int k, int r, long long C, int nw,
+               bool aligned) {
   const long long groups = (C + VEC - 1) / VEC;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= S * groups) return;
@@ -153,26 +174,172 @@ gf_bit_matmul_kernel(const uint8_t* __restrict__ data, const u64* __restrict__ m
 }
 
 template <int W, int VEC>
-cudaError_t launch(const uint8_t* data, const u64* masks, uint8_t* out, long long S,
-                   int k, int r, long long C, int nw, cudaStream_t stream) {
+cudaError_t launch_popc(const uint8_t* data, const u64* masks, uint8_t* out, long long S,
+                        int k, int r, long long C, int nw, cudaStream_t stream) {
   const bool aligned = (C % VEC == 0) && (reinterpret_cast<uintptr_t>(data) % VEC == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % VEC == 0);
   const long long threads = S * ((C + VEC - 1) / VEC);
   const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gf_bit_matmul_kernel<W, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  gf_popc_kernel<W, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
       data, masks, out, S, k, r, C, nw, aligned);
+  return cudaGetLastError();
+}
+
+// Nibble-table design.  tables: (n_groups, k, 32) u32; entry [g][i][n] is
+// L_i[n] and [g][i][16 + n] is H_i[n], each on output rows 4g..4g+3
+// (bit 8q + b of an entry is bit b of output row 4g + q).  In shared memory
+// row i's 128 B sit at 128 i from its group's base, and each group's base is
+// 256-B aligned, so the base of every chunk of eight rows has a zero low
+// byte: one byte permute then writes a lookup's index (nibble * 4) into it
+// and yields the shared address, and the row within the chunk and L/H go
+// into the load's immediate offset.
+constexpr int kVec = 16;       // byte columns per thread: one 16-byte load a row
+constexpr int kRowChunk = 8;   // data rows whose loads are issued together
+constexpr int kTableWords = 32;
+
+template <int OFF>
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1+%2];" : "=r"(v) : "r"(addr), "n"(OFF));
+  return v;
+}
+
+// acc[b] ^= T_J[byte b of x] for the four bytes of x, where row J of the
+// chunk at shared address `base` holds L at +128 J and H at +128 J + 64.
+template <int J>
+__device__ __forceinline__ void lookup_word(uint32_t x, uint32_t base, uint32_t* acc) {
+  const uint32_t lo4 = (x << 2) & 0x3c3c3c3cu;   // low nibble * 4, per byte
+  const uint32_t hi4 = (x >> 2) & 0x3c3c3c3cu;   // high nibble * 4, per byte
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    acc[b] ^= lds<J * 128>(__byte_perm(lo4, base, 0x7650 + b)) ^
+              lds<J * 128 + 64>(__byte_perm(hi4, base, 0x7650 + b));
+}
+
+template <int J>
+__device__ __forceinline__ void lookup_rows(const Bytes<kVec>* w, int n_rows, uint32_t base,
+                                            uint32_t* acc) {
+  if constexpr (J < kRowChunk) {
+    if (J < n_rows) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) lookup_word<J>(w[J].q[q], base, acc + 4 * q);
+      lookup_rows<J + 1>(w, n_rows, base, acc);
+    }
+  }
+}
+
+// At most 80 registers: three blocks of 256 threads stay resident per SM.
+__global__ void __launch_bounds__(kThreads, 3)
+gf_nibble_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ tables,
+                 uint8_t* __restrict__ out, long long S, int k, int r, long long C,
+                 int n_groups, int chunk_groups, bool aligned) {
+  extern __shared__ __align__(256) uint32_t tab[];   // (groups of this block, gstride)
+  const int gstride = (k + 1) / 2 * 2 * kTableWords;   // words, a multiple of 256 B
+  const int g0 = blockIdx.y * chunk_groups;
+  const int ng = min(chunk_groups, n_groups - g0);
+  const uint32_t* tsrc = tables + (long long)g0 * k * kTableWords;
+  for (int t = threadIdx.x; t < ng * k * kTableWords; t += kThreads)
+    tab[t / (k * kTableWords) * gstride + t % (k * kTableWords)] = __ldg(tsrc + t);
+  __syncthreads();
+  const uint32_t tab_s = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
+
+  const long long per_s = (C + kVec - 1) / kVec;   // 16-column items per stripe
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (first >= S * per_s) return;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long ds = stride / per_s, dcg = stride - ds * per_s;
+  long long s = first / per_s, cg = first - s * per_s;
+  while (s < S) {
+    const long long col0 = cg * kVec;
+    const int n_valid = (int)(C - col0 < kVec ? C - col0 : kVec);
+    const bool full = aligned && n_valid == kVec;
+    const uint8_t* src = data + s * k * C + col0;
+    for (int gl = 0; gl < ng; ++gl) {
+      uint32_t acc[kVec];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) acc[v] = 0u;
+      for (int i0 = 0; i0 < k; i0 += kRowChunk) {
+        Bytes<kVec> w[kRowChunk];
+#pragma unroll
+        for (int j = 0; j < kRowChunk; ++j)
+          if (i0 + j < k) load_bytes<kVec>(src + (long long)(i0 + j) * C, n_valid, full, w[j]);
+        lookup_rows<0>(w, k - i0, tab_s + 4u * (gl * gstride + i0 * kTableWords), acc);
+      }
+      // transpose: byte q of acc[4c + b] is byte b of word c of output row q
+      Bytes<kVec> o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t* a = acc + 4 * c;
+        const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
+        const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
+        o[0].q[c] = __byte_perm(t0, t2, 0x5410);
+        o[1].q[c] = __byte_perm(t0, t2, 0x7632);
+        o[2].q[c] = __byte_perm(t1, t3, 0x5410);
+        o[3].q[c] = __byte_perm(t1, t3, 0x7632);
+      }
+      const int row0 = 4 * (g0 + gl);
+      uint8_t* dst = out + (s * r + row0) * C + col0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (row0 + q < r) store_bytes<kVec>(dst + (long long)q * C, n_valid, full, o[q]);
+    }
+    cg += dcg;
+    s += ds;
+    if (cg >= per_s) { cg -= per_s; ++s; }
+  }
+}
+
+cudaError_t launch_nibble(const uint8_t* data, const uint32_t* tables, uint8_t* out,
+                          long long S, int k, int r, long long C, cudaStream_t stream) {
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const int n_groups = (r + 3) / 4;
+  const int group_bytes = (k + 1) / 2 * 2 * kTableWords * (int)sizeof(uint32_t);
+  const int chunk = n_groups < optin / group_bytes ? n_groups : optin / group_bytes;
+  const int n_chunks = (n_groups + chunk - 1) / chunk;
+  if (chunk < 1 || n_chunks > 65535) return cudaErrorInvalidConfiguration;
+  const int smem = chunk * group_bytes;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(gf_nibble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf_nibble_kernel, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items = S * ((C + kVec - 1) / kVec);
+  long long blocks = (items + kThreads - 1) / kThreads;
+  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  const bool aligned = (C % kVec == 0) && (reinterpret_cast<uintptr_t>(data) % kVec == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % kVec == 0);
+  gf_nibble_kernel<<<dim3((unsigned)blocks, (unsigned)n_chunks), kThreads, smem, stream>>>(
+      data, tables, out, S, k, r, C, n_groups, chunk, aligned);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// data (S, k, C) u8, masks (8r, nw) u64 with nw = ceil(k/8), out (S, r, C) u8,
-// all contiguous on the current device.  Launches on `stream` and does not
-// synchronise.  Returns the launch's cudaError_t (0 = cudaSuccess).
-extern "C" int gf_bit_matmul_launch(const void* data, const void* masks, void* out,
-                                    long long S, int k, int r, long long C, int nw,
-                                    void* stream) {
+// data (S, k, C) u8, tables (ceil(r/4), k, 32) u32 from pack_tables, out
+// (S, r, C) u8, all contiguous on the current device.  Launches on `stream`
+// and does not synchronise.  Returns the launch's cudaError_t (0 = success).
+extern "C" int gf_bit_matmul_launch(const void* data, const void* tables, void* out,
+                                    long long S, int k, int r, long long C, void* stream) {
+  if (S < 0 || C < 0 || k < 1 || k > 256 || r < 1) return (int)cudaErrorInvalidValue;
+  if (S == 0 || C == 0) return (int)cudaSuccess;
+  return (int)launch_nibble(static_cast<const uint8_t*>(data),
+                            static_cast<const uint32_t*>(tables), static_cast<uint8_t*>(out),
+                            S, k, r, C, static_cast<cudaStream_t>(stream));
+}
+
+// The first design, for the A/B only: masks (8r, nw) u64 with nw = ceil(k/8)
+// from pack_masks, otherwise as above.
+extern "C" int gf_bit_matmul_popc_launch(const void* data, const void* masks, void* out,
+                                              long long S, int k, int r, long long C, int nw,
+                                         void* stream) {
   if (S < 0 || C < 0 || k < 1 || k > 256 || r < 1 || nw != (k + 7) / 8)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || C == 0) return (int)cudaSuccess;
@@ -181,10 +348,10 @@ extern "C" int gf_bit_matmul_launch(const void* data, const void* masks, void* o
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nw) {
-    case 1: return (int)launch<1, 16>(d, mk, o, S, k, r, C, nw, st);
-    case 2: return (int)launch<2, 8>(d, mk, o, S, k, r, C, nw, st);
-    case 3: return (int)launch<3, 4>(d, mk, o, S, k, r, C, nw, st);
-    case 4: return (int)launch<4, 4>(d, mk, o, S, k, r, C, nw, st);
-    default: return (int)launch<32, 1>(d, mk, o, S, k, r, C, nw, st);
+    case 1: return (int)launch_popc<1, 16>(d, mk, o, S, k, r, C, nw, st);
+    case 2: return (int)launch_popc<2, 8>(d, mk, o, S, k, r, C, nw, st);
+    case 3: return (int)launch_popc<3, 4>(d, mk, o, S, k, r, C, nw, st);
+    case 4: return (int)launch_popc<4, 4>(d, mk, o, S, k, r, C, nw, st);
+    default: return (int)launch_popc<32, 1>(d, mk, o, S, k, r, C, nw, st);
   }
 }

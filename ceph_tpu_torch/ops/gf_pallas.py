@@ -4,21 +4,29 @@ plain PyTorch version.
 Port of the TPU kernel ``ceph_tpu/ops/gf_pallas.py::_kernel`` (K1).  The
 file keeps its name so that each counterpart is easy to find; the kernel
 itself is ``csrc/gf_bit_matmul.cu`` (sm_90a, loaded through ctypes), and
-computes what K1 computes without K1's C % 128 restriction.
+computes what K1 computes without K1's C % 128 restriction, by lookups
+into per-row nibble tables held in shared memory.
 
 - ``BitMatrix`` holds one (8k, 8r) 0/1 matrix on one device, both as
-  0/1 bytes (for the plain version) and as the packed (8r, ceil(k/8))
-  u64 column masks the kernel reads.  Build it once per coding or
-  decode matrix and reuse it.
+  0/1 bytes (for the plain version) and as the nibble tables the kernel
+  reads (``pack_tables``).  Build it once per coding or decode matrix and
+  reuse it.
 - ``gf_bit_matmul_kernel(data, bm)`` launches the kernel for a CUDA
   tensor, or raises.  Only a tensor that lies on the CPU takes the plain
   version.  ``launches.n`` counts kernel launches.
 - ``gf_bit_matmul_plain(data, bitmat)`` is the reference: unpack bits,
   matmul, ``& 1``, pack.
+- ``gf_bit_matmul_popc(data, bm)`` launches the first design of the
+  kernel (a masked popcount per output bit, ``pack_masks``) on a CUDA
+  tensor; it is kept only as the baseline of chip_smoke.py's A/B.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -27,6 +35,11 @@ from . import _build
 
 _SIGNATURES = {
     "gf_bit_matmul_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         ctypes.c_void_p],
+        ctypes.c_int),
+    "gf_bit_matmul_popc_launch": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_void_p],
@@ -62,6 +75,32 @@ def pack_masks(bits: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(packed).view("<u8").view(np.int64)
 
 
+def pack_tables(bits: np.ndarray) -> np.ndarray:
+    """(8k, 8r) 0/1 -> (ceil(r/4), k, 32) uint32 nibble tables.
+
+    Entry [g, i, n] (n < 16) is the XOR, over the set bits t of n, of row
+    8i + t of the matrix, and [g, i, 16 + n] the same over rows 8i + 4 + t;
+    each row is taken on output columns 32g .. 32g + 31 and packed LSB
+    first, so bit 8q + b of an entry is bit b of output row 4g + q.  The
+    product for data byte x of row i is then
+    ``[g, i, x & 15] ^ [g, i, 16 + (x >> 4)]``, and an output column is
+    the XOR of that over the k rows."""
+    k8, r8 = bits.shape
+    k, groups = k8 // 8, (r8 // 8 + 3) // 4
+    cols = np.zeros((k8, groups * 32), dtype=np.uint8)
+    cols[:, :r8] = bits
+    packed = np.packbits(cols.reshape(k8, groups, 32), axis=-1,
+                         bitorder="little")                  # (8k, g, 4)
+    rows = np.ascontiguousarray(packed).view("<u4")[..., 0].astype(np.uint32)
+    rows = rows.reshape(k, 2, 4, groups)                     # row 8i + 4h + t
+    pick = ((np.arange(16)[:, None] >> np.arange(4)) & 1).astype(bool)
+    terms = np.where(pick[None, None, :, :, None], rows[:, :, None],
+                     np.uint32(0))                           # (k, 2, 16, 4, g)
+    tab = np.bitwise_xor.reduce(terms, axis=3)               # (k, 2, 16, g)
+    return np.ascontiguousarray(
+        tab.transpose(3, 0, 1, 2).reshape(groups, k, 32), dtype=np.uint32)
+
+
 class BitMatrix:
     """A (8k, 8r) GF(2) matrix on one device, ready for either version."""
 
@@ -76,7 +115,26 @@ class BitMatrix:
         self.k = bits.shape[0] // 8
         self.r = bits.shape[1] // 8
         self.bits = torch.as_tensor(bits.astype(np.uint8), device=self.device)
-        self.masks = torch.as_tensor(pack_masks(bits), device=self.device)
+        self.tables = torch.as_tensor(pack_tables(bits).view(np.int32),
+                                      device=self.device)
+
+    @functools.cached_property
+    def masks(self) -> torch.Tensor:
+        """The first design's (8r, ceil(k/8)) u64 column masks, built on
+        first use: only the A/B baseline reads them."""
+        return torch.as_tensor(pack_masks(self.bits.cpu().numpy()),
+                               device=self.device)
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """float32 matmuls without TF32 inside, the caller's setting after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def gf_bit_matmul_plain(data: torch.Tensor,
@@ -89,26 +147,60 @@ def gf_bit_matmul_plain(data: torch.Tensor,
     planes (32x the data in float32) stay bounded."""
     s, k, c = data.shape
     r = bitmat.shape[1] // 8
-    if data.is_cuda:
-        # The check of the kernel rests on this product being exact.
-        # Full float32 is (integer sums < 2^24); TF32 mode hands the
-        # product to tensor-core paths whose rounding PyTorch does not
-        # specify, so keep it off explicitly rather than trust the default.
-        torch.backends.cuda.matmul.allow_tf32 = False
     w = bitmat.to(device=data.device, dtype=torch.float32)
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
     weights = (1 << torch.arange(8, dtype=torch.int32, device=data.device))
     out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
     step = max(1, _PLAIN_CHUNK_BYTES // max(1, c * k * 8 * 4))
-    for s0 in range(0, s, step):
-        d = data[s0:s0 + step].transpose(1, 2)             # (n, C, k)
-        n = d.shape[0]
-        bits = ((d.unsqueeze(-1) >> shifts) & 1).reshape(n, c, k * 8)
-        acc = bits.to(torch.float32) @ w                   # (n, C, 8r)
-        par = acc.to(torch.int32) & 1
-        packed = (par.reshape(n, c, r, 8) * weights).sum(-1)
-        out[s0:s0 + n] = packed.to(torch.uint8).transpose(1, 2)
+    # The check of the kernel rests on this product being exact.  Full
+    # float32 is (integer sums < 2^24); TF32 mode hands the product to
+    # tensor-core paths whose rounding PyTorch does not specify, so keep
+    # it off explicitly rather than trust the default, and give the
+    # caller's setting back afterwards.
+    with _full_float32():
+        for s0 in range(0, s, step):
+            d = data[s0:s0 + step].transpose(1, 2)         # (n, C, k)
+            n = d.shape[0]
+            bits = ((d.unsqueeze(-1) >> shifts) & 1).reshape(n, c, k * 8)
+            acc = bits.to(torch.float32) @ w               # (n, C, 8r)
+            par = acc.to(torch.int32) & 1
+            packed = (par.reshape(n, c, r, 8) * weights).sum(-1)
+            out[s0:s0 + n] = packed.to(torch.uint8).transpose(1, 2)
     return out
+
+
+def _check(data: torch.Tensor, bm: BitMatrix) -> None:
+    if data.dim() != 3 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be (S, k, C) uint8, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    if data.shape[1] != bm.k:
+        raise ValueError(f"data has k={data.shape[1]}, bit matrix has "
+                         f"k={bm.k}")
+
+
+def _launch(entry: str, data: torch.Tensor, bm: BitMatrix,
+            table: torch.Tensor, *extra) -> Tuple[torch.Tensor, bool]:
+    """Launch ``entry`` of the CUDA source on a CUDA tensor, or raise.
+    Returns the output and whether a kernel ran (not for an empty one)."""
+    if data.device.type != "cuda":
+        raise RuntimeError(f"gf_bit_matmul: no kernel for device "
+                           f"{data.device}")
+    if table.device != data.device:
+        raise ValueError(f"bit matrix on {table.device}, data on "
+                         f"{data.device}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    s, k, c = data.shape
+    out = torch.empty((s, bm.r, c), dtype=torch.uint8, device=data.device)
+    if out.numel() == 0:
+        return out, False
+    lib = _build.load("gf_bit_matmul", _SIGNATURES)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = getattr(lib, entry)(data.data_ptr(), table.data_ptr(),
+                             out.data_ptr(), s, k, bm.r, c, *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    return out, True
 
 
 def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
@@ -116,31 +208,17 @@ def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel on the current stream or raises; any other device raises."""
-    if data.dim() != 3 or data.dtype != torch.uint8:
-        raise ValueError(f"data must be (S, k, C) uint8, got "
-                         f"{tuple(data.shape)} {data.dtype}")
-    s, k, c = data.shape
-    if k != bm.k:
-        raise ValueError(f"data has k={k}, bit matrix has k={bm.k}")
+    _check(data, bm)
     if data.device.type == "cpu":
         return gf_bit_matmul_plain(data, bm.bits.cpu())
-    if data.device.type != "cuda":
-        raise RuntimeError(f"gf_bit_matmul: no kernel for device "
-                           f"{data.device}")
-    if bm.masks.device != data.device:
-        raise ValueError(f"bit matrix on {bm.masks.device}, data on "
-                         f"{data.device}")
-    if not data.is_contiguous():
-        raise ValueError("data must be contiguous")
-    out = torch.empty((s, bm.r, c), dtype=torch.uint8, device=data.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("gf_bit_matmul", _SIGNATURES)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = lib.gf_bit_matmul_launch(
-        data.data_ptr(), bm.masks.data_ptr(), out.data_ptr(),
-        s, k, bm.r, c, bm.masks.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"gf_bit_matmul launch failed: cudaError {rc}")
-    launches.n += 1
+    out, launched = _launch("gf_bit_matmul_launch", data, bm, bm.tables)
+    launches.n += launched
     return out
+
+
+def gf_bit_matmul_popc(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
+    """The first design of the kernel on a CUDA tensor, for the A/B; no
+    plain version here and no launch count."""
+    _check(data, bm)
+    return _launch("gf_bit_matmul_popc_launch", data, bm, bm.masks,
+                   bm.masks.shape[1])[0]

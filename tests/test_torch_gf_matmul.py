@@ -3,7 +3,9 @@ package, byte-exact (tolerance 0: every value is an element of GF(2^8)).
 
 The port runs on the CPU here (its plain PyTorch version, ``device="cpu"``);
 the CUDA kernel is held against the same plain version on the card by
-chip_smoke.py.  Inputs come from numpy and go to both sides.
+chip_smoke.py.  Inputs come from numpy and go to both sides.  What the host
+hands the kernel (the nibble tables of ``pack_tables``) is pinned here by a
+numpy emulation of the kernel's lookups.
 """
 import itertools
 
@@ -131,6 +133,111 @@ def test_pack_masks_columns(k, r):
     got = tgp.gf_bit_matmul_plain(torch.from_numpy(data),
                                   torch.from_numpy(bits)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _emulate_kernel(data: np.ndarray, tables: np.ndarray, r: int) -> np.ndarray:
+    """The CUDA kernel's arithmetic in numpy: per group of four output
+    rows, XOR over the data rows of L[x & 15] ^ H[x >> 4], one u32 per
+    column whose byte q is output row 4g + q."""
+    acc = np.zeros((tables.shape[0],) + data[:, 0].shape, dtype=np.uint32)
+    for i in range(data.shape[1]):
+        x = data[:, i]
+        acc ^= tables[:, i, x & 15] ^ tables[:, i, 16 + (x >> 4)]
+    by = acc.view(np.uint8).reshape(acc.shape + (4,))      # (g, S, C, 4)
+    s, c = data.shape[0], data.shape[2]
+    return by.transpose(1, 0, 3, 2).reshape(s, -1, c)[:, :r]
+
+
+@pytest.mark.parametrize("k,r", [(1, 1), (2, 1), (8, 4), (9, 2), (21, 4),
+                                 (40, 3), (8, 5), (256, 8)])
+def test_pack_tables_layout(k, r):
+    """Random 0/1 matrices (not only GF(2^8) expansions): entry [g, i, n]
+    for a one-bit n is row 8i + log2(n) of the matrix on output columns
+    32g.. (H: rows 8i + 4 + t), every entry is the XOR of its one-bit
+    entries, and the kernel's lookups over the tables give the plain
+    version's bytes and the JAX function's."""
+    rng = np.random.default_rng(k * 31 + r)
+    bits = rng.integers(0, 2, (8 * k, 8 * r), dtype=np.uint8)
+    tab = tgp.pack_tables(bits)
+    groups = (r + 3) // 4
+    assert tab.shape == (groups, k, 32) and tab.dtype == np.uint32
+    pad = np.zeros((8 * k, 32 * groups), dtype=np.uint64)
+    pad[:, :8 * r] = bits
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    rows = (pad.reshape(8 * k, groups, 32) * weights).sum(-1)  # (8k, g)
+    for h in range(2):
+        for t in range(4):
+            np.testing.assert_array_equal(
+                tab[:, :, 16 * h + (1 << t)],
+                rows[8 * np.arange(k) + 4 * h + t].T)
+    for n in range(16):
+        want = np.zeros((groups, k, 2), dtype=np.uint32)
+        for t in range(4):
+            if n >> t & 1:
+                want ^= tab[:, :, [1 << t, 16 + (1 << t)]]
+        np.testing.assert_array_equal(tab[:, :, [n, 16 + n]], want)
+    data = rng.integers(0, 256, (2, k, 37), dtype=np.uint8)
+    got = _emulate_kernel(data, tab, r)
+    np.testing.assert_array_equal(got, tgp.gf_bit_matmul_plain(
+        torch.from_numpy(data), torch.from_numpy(bits)).numpy())
+    np.testing.assert_array_equal(got, _jax(data, bits))
+
+
+def test_pack_tables_matches_pallas():
+    """At the Pallas parity shape, the kernel's lookups over the tables
+    equal the Pallas kernel (interpreted on the CPU) and the port."""
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 256, (4, 8, 512), dtype=np.uint8)
+    bits = jtab.expand_to_bitmatrix(jmat.gf_gen_rs_matrix(12, 8)[8:])
+    got = _emulate_kernel(data, tgp.pack_tables(bits), 4)
+    pallas = np.asarray(gf_bit_matmul_pallas(
+        jnp.asarray(data), jnp.asarray(bits.astype(np.int8))))
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, _port(data, bits))
+
+
+def test_tables_built_once_per_bitmatrix(monkeypatch):
+    """The tables are packed when a BitMatrix is made and ride with it:
+    a decode signature costs one packing on its miss and none on its
+    hits through the LRU; the first design's masks are not built."""
+    calls = []
+    real = tgp.pack_tables
+
+    def counting(bits):
+        calls.append(bits.shape)
+        return real(bits)
+    monkeypatch.setattr(tgp, "pack_tables", counting)
+    be = tgm.DeviceRSBackend(tmat.gf_gen_rs_matrix(12, 8), "cpu")
+    assert calls == [(64, 32)]
+    srcs = (0, 2, 3, 4, 5, 6, 7, 8)
+    first = be._decode_bits_for(srcs, (1,))
+    assert calls == [(64, 32), (64, 8)]
+    again = be._decode_bits_for(srcs, (1,))
+    assert again is first and again.tables is first.tables
+    assert len(calls) == 2
+    np.testing.assert_array_equal(
+        first.tables.numpy().view(np.uint32),
+        real(first.bits.numpy()))
+    assert "masks" not in vars(first)
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_plain_leaves_tf32_flag(flag):
+    """The plain version turns TF32 off for its product and gives the
+    caller's setting back."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        with tgp._full_float32():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        data = np.random.default_rng(2).integers(0, 256, (2, 4, 16),
+                                                 dtype=np.uint8)
+        bits = jtab.expand_to_bitmatrix(jmat.gf_gen_rs_matrix(6, 4)[4:])
+        np.testing.assert_array_equal(_port(data, bits), _jax(data, bits))
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 @pytest.mark.parametrize("tech", sorted(GENS))
