@@ -25,6 +25,15 @@ from .rs_codec import MatrixRSCodec, plan_decode
 class ErasureCodeMatrixRS(ErasureCode):
     """A systematic matrix code with k data + m coding chunks."""
 
+    # True when encode_batch IS the plain row-independent bit-matmul on
+    # raw (S, k, C) chunks; the fused resident encode (ops/resident.py)
+    # models only that layout.  The JAX package's name is kept; codecs
+    # that transform the layout first (jerasure word/bitmatrix codes, not
+    # ported yet) override it to False.
+    @property
+    def mesh_row_shardable(self) -> bool:
+        return True
+
     def __init__(self):
         super().__init__()
         self.k = 0

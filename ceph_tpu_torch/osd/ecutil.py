@@ -10,13 +10,16 @@ the reference instead; results are identical either way, and each
 shard's buffer is its stripe-concatenated chunks.  Decodes always take
 ``decode_batch``, which handles the mapping itself.
 
-HashInfo (cumulative crc32c) comes with the crc slice of the port.
+``HashInfo`` (``ceph_tpu/osd/ecutil.py:227-262``) keeps the cumulative
+per-shard crc32c, hashed with the port's host ``utils/crc32c.py``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Set
 
 import numpy as np
+
+from ..utils.crc32c import crc32c
 
 
 class stripe_info_t:
@@ -150,3 +153,41 @@ def decode(sinfo: stripe_info_t, ec_impl,
                 for i, b in to_decode.items()}
     got = ec_impl.decode_batch(chunks2d, list(need))
     return {i: np.ascontiguousarray(got[i]).reshape(-1) for i in need}
+
+
+class HashInfo:
+    """Cumulative per-shard crc32c (ECUtil.cc:161-207)."""
+
+    def __init__(self, num_chunks: int = 0):
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [0xFFFFFFFF] * num_chunks
+        self.projected_total_chunk_size = 0
+
+    def has_chunk_hash(self) -> bool:
+        return bool(self.cumulative_shard_hashes)
+
+    def append(self, old_size: int,
+               to_append: Dict[int, np.ndarray]) -> None:
+        assert old_size == self.total_chunk_size
+        size = len(next(iter(to_append.values())))
+        if self.has_chunk_hash():
+            assert len(to_append) == len(self.cumulative_shard_hashes)
+            for i, buf in to_append.items():
+                assert len(buf) == size
+                self.cumulative_shard_hashes[i] = crc32c(
+                    buf, self.cumulative_shard_hashes[i])
+        self.total_chunk_size += size
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    def get_total_chunk_size(self) -> int:
+        return self.total_chunk_size
+
+    def dump(self) -> dict:
+        return {
+            "total_chunk_size": self.total_chunk_size,
+            "cumulative_shard_hashes": [
+                {"shard": i, "hash": h}
+                for i, h in enumerate(self.cumulative_shard_hashes)],
+        }

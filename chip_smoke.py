@@ -28,6 +28,31 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc``.  Phases:
    read and written (``copy_ms``), in turns, each sample 10 launches back
    to back; and the plain version.
 
+The crc32c slice adds, after phase 4 (so that phases 1-4 run as they did
+before it):
+
+3b. the crc32c kernel against its plain version on the card, byte-exact:
+   every length 0..4097 as one padded batch, 64 rows of 0..41 segments,
+   a 1-D view one byte off 16-byte alignment and rows at odd strides;
+4r. the device-resident write path, per technique, with the residency
+   budget large enough to keep every body: (d) ``encode_resident_shards``
+   of each object (S=128, 12 bodies of 512 KiB) and (e) one of all 64 as
+   one (8192, 8, 4096) batch on the card, then the device verify of every
+   stored shard (``crc32c_of_device_array``); the bit-matmul, crc32c and
+   fused-encode launch counts must all move.  After the counted run:
+   every body equals the ``ecutil.encode`` shard, every crc equals the
+   device verify and the plain crc32c, one object's 12 crcs equal a host
+   ``HashInfo``, a ``corrupted()`` data shard fails its verify while its
+   siblings pass and ``decode_concat`` of the other 11 returns the object;
+   the crc32c kernel on the 12 x 32 MiB bodies and the fused encode at
+   S=8192 against their plain versions;
+5r. times: the crc32c kernel on the 12 bodies of 32 MiB and the fused
+   encode at S=8192, each in turns with its first form (``prior_ms``: the
+   kernel's per-thread path; the bit-matmul, twelve torch copies and that
+   path) and a device copy of its bytes, 10 launches per sample; their
+   plain versions; (d) and (e) as GiB/s of object data (host clock around
+   calls that end in the crc fetch).
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -52,6 +77,9 @@ N_OBJ = 64
 ERASED = (1, 9)
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 INT8_OPS_PER_S = 1979e12          # H100 SXM dense int8 tensor-core peak
+# H100 SXM 32-bit integer throughput: 132 SMs x 64 lanes x 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+RESIDENT_BUDGET = 4 << 30         # os_memstore_device_bytes_max for 4r
 RUNS = 10
 REPS = 10                         # back-to-back launches per kernel sample
 SEED = 20261016
@@ -103,8 +131,8 @@ def sass_counts(so_path, nvcc):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(r"gf_\w+?_kernel", m.group(1))
-            args = re.findall(r"Li(\d+)E", m.group(1))
+            base = re.search(r"(?:gf_\w+?|crc32c\w*?)_kernel", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (
                 "<" + ",".join(args) + ">" if args else "")
             counts[name] = {"POPC": 0, "LDS": 0, "instructions": 0}
@@ -142,6 +170,286 @@ def bound_ms(s: int, k: int, r: int, c: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def crc_bound_ms(n_bytes: int, n_rows: int):
+    """Least time for crc32c of n_bytes in n_rows: every byte read once
+    and 4 B written per row over HBM, against one table lookup and one
+    XOR per byte at the card's 32-bit integer instruction rate."""
+    t_bytes = (n_bytes + 4 * n_rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n_bytes / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bound_ms(s: int, k: int, m: int, c: int):
+    """Least time for the fused encode: stripes read once, n bodies and n
+    crcs written once, against the product as an int8 matmul plus the
+    crc's lookups and XORs over the n bodies."""
+    n = k + m
+    t_bytes = (s * k * c + n * s * c + 4 * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * s * c * (8 * k) * (8 * m) / INT8_OPS_PER_S
+             + 2 * n * s * c / INT32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest absolute difference of two integer tensors (0 if empty)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not got.numel():
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+def crc_checks(gen, rng, dev) -> int:
+    """3b: the crc32c kernel against its plain version, byte-exact, at
+    the sweep, ragged, misaligned and odd-stride cases; returns the max
+    error (0)."""
+    from ceph_tpu_torch.ops import crc32c_device
+    crc_cases = []
+    sweep_len = np.arange(0, 4098)
+    rows = torch.randint(0, 256, (4098, 4104), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    crc_cases.append(("sweep_0_4097", rows, sweep_len))
+    rag_len = rng.integers(0, 40 * 4096 + 100, 64)
+    rag_len[:4] = (0, 40 * 4096 + 100, 32 * 4096, 4096)
+    crc_cases.append(("ragged_0_41_segments", torch.randint(
+        0, 256, (64, 40 * 4096 + 104), generator=gen, device=dev,
+        dtype=torch.uint8), rag_len))
+    buf = torch.randint(0, 256, (1 + (3 << 20) + 7,), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    one = buf[1:]                       # one byte off 16-byte alignment
+    if one.data_ptr() % 16 != 1:
+        raise AssertionError("misaligned crc case is not one byte off")
+    crc_cases.append(("misaligned_1d", one.view(1, -1), None))
+    crc_cases.append(("odd_stride_rows",
+                      buf[1:1 + 5 * 4099].view(5, 4099), None))
+    crc_err = 0
+    for name, rows, lens in crc_cases:
+        got = crc32c_device.crc32c_kernel(rows, lens)
+        want = crc32c_device.crc32c_plain(
+            rows, None if lens is None else torch.from_numpy(lens).to(dev))
+        torch.cuda.synchronize()
+        err = int_err(got, want)
+        log(f"check crc32c {name} rows={rows.shape[0]} "
+            f"max_len={rows.shape[1] if lens is None else int(lens.max())} "
+            f"max_abs_err={err}")
+        if err:
+            raise AssertionError(f"crc32c kernel disagrees with plain at "
+                                 f"{name}")
+        crc_err = max(crc_err, err)
+    if crc32c_device.crc32c_of_device_array(one) != int(
+            crc32c_device.to_u32(crc32c_device.crc32c_plain(
+                one.view(1, -1)))[0]):
+        raise AssertionError("crc32c_of_device_array disagrees at a "
+                             "misaligned view")
+    # the coalesced path (aligned rows, lengths a multiple of 16): runs
+    # with zeros in front, empty rows, and a table of 200 rows (two
+    # launches of at most 128)
+    rows = torch.randint(0, 256, (300, 3 * 4096 + 48), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    for name, got, want in (
+            ("coalesced_rows", crc32c_device.crc32c_kernel(rows),
+             crc32c_device.crc32c_plain(rows)),
+            ("coalesced_table_200", crc32c_device.crc32c_rows_kernel(
+                list(rows[:200])), crc32c_device.crc32c_plain(rows[:200])),
+            ("coalesced_empty", crc32c_device.crc32c_kernel(rows[:3, :0]),
+             crc32c_device.crc32c_plain(rows[:3, :0]))):
+        err = int_err(got, want)
+        log(f"check crc32c {name} max_abs_err={err}")
+        if err:
+            raise AssertionError(f"crc32c kernel disagrees at {name}")
+    # the gather mode (copy while hashing): C = 4099 at a pitch of 3 C,
+    # one byte off alignment, C = 24 (64 segments), both per-thread, and
+    # C = 2048 and 6144 at a pitch of 3 C, coalesced
+    for name, src in (("gather_odd", buf[1:1 + 5 * 3 * 4099].view(5, 3, 4099)),
+                      ("gather_small", buf[:40 * 3 * 24].view(40, 3, 24)),
+                      ("gather_coalesced",
+                       buf[:67 * 3 * 2048].view(67, 3, 2048)),
+                      ("gather_coalesced_6144",
+                       buf[:33 * 3 * 6144].view(33, 3, 6144))):
+        s, k, c = src.shape
+        bodies = [torch.empty(s * c, dtype=torch.uint8, device=dev)
+                  for _ in range(k)]
+        got = crc32c_device.crc32c_gather_kernel(
+            [src[:, i] for i in range(k)], bodies)
+        want = torch.stack([src[:, i].reshape(-1) for i in range(k)])
+        err = max(int_err(torch.stack(bodies), want),
+                  int_err(got, crc32c_device.crc32c_plain(want)))
+        log(f"check crc32c {name} (S,k,C)={(s, k, c)} max_abs_err={err}")
+        if err:
+            raise AssertionError(f"crc32c gather disagrees at {name}")
+    return crc_err
+
+
+def resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo, dev):
+    """4r: the device-resident write path of one technique.  Returns its
+    launch counts, the batched shards and the max error of its checks."""
+    from ceph_tpu_torch.ops import crc32c_device, gf_pallas, resident
+    from ceph_tpu_torch.os_store.device_shard import \
+        memstore_device_perf_counters
+    from ceph_tpu_torch.osd import ecutil
+    n = K + M
+    pc = memstore_device_perf_counters()
+    demotions = pc.get("demotions")
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "crc32c": crc32c_device.launches,
+                "fused_encode_crc": resident.launches}
+    for c in counters.values():
+        c.reset()
+    # (d) per object from host memory, (e) the whole batch on the card,
+    # then the read-side device verify of every stored shard
+    per_obj = [resident.encode_resident_shards(
+        codec, o.reshape(spo, K, CHUNK)) for o in objs]
+    batch = resident.encode_resident_shards(codec, objs_dev)
+    verify = [[crc32c_device.crc32c_of_device_array(sh[i].device_array())
+               for i in range(n)] for sh in per_obj + [batch]]
+    counts = {name: c.n for name, c in counters.items()}
+    log(f"resident {tech}: launches " + json.dumps(counts))
+    if min(counts.values()) == 0:
+        raise AssertionError(f"{tech}: resident path skipped a kernel")
+    if pc.get("demotions") != demotions or any(
+            not sh[i].is_resident for sh in per_obj + [batch]
+            for i in range(n)):
+        raise AssertionError(f"{tech}: a body left the card")
+
+    # -- checks, outside the counted run ----------------------------------
+    for o, sh in enumerate(per_obj):
+        want = torch.from_numpy(np.stack([shards[o][i] for i in range(n)]))
+        got = torch.stack([sh[i].device_array() for i in range(n)])
+        if not torch.equal(got, want.to(dev)):
+            raise AssertionError(f"{tech}: resident body != ecutil.encode "
+                                 f"(object {o})")
+        if [sh[i].crc for i in range(n)] != verify[o]:
+            raise AssertionError(f"{tech}: crc != device verify ({o})")
+    stored = np.array([sh[i].crc for sh in per_obj for i in range(n)],
+                      dtype=np.uint32)
+    plain = crc32c_device.to_u32(crc32c_device.crc32c_plain(torch.stack(
+        [sh[i].device_array() for sh in per_obj for i in range(n)])))
+    if not np.array_equal(plain, stored):
+        raise AssertionError(f"{tech}: crc != plain crc32c")
+    hinfo = ecutil.HashInfo(n)
+    hinfo.append(0, {i: shards[0][i] for i in range(n)})
+    if [hinfo.get_chunk_hash(i) for i in range(n)] != \
+            [per_obj[0][i].crc for i in range(n)]:
+        raise AssertionError(f"{tech}: crc != host HashInfo")
+    for i in range(n):
+        want = torch.from_numpy(np.concatenate([sh[i] for sh in shards]))
+        if not torch.equal(batch[i].device_array(), want.to(dev)):
+            raise AssertionError(f"{tech}: batched body {i} != per-object")
+    if [batch[i].crc for i in range(n)] != verify[-1]:
+        raise AssertionError(f"{tech}: batched crc != device verify")
+    log(f"resident {tech}: (d) {len(per_obj)} x {n} and (e) {n} bodies "
+        "equal ecutil.encode; crcs equal the device verify, the plain "
+        "crc32c and host HashInfo (object 0)")
+    # bitrot on one resident data shard of object 0
+    sh, victim = per_obj[0], 2
+    sh[victim].corrupted()
+    if crc32c_device.crc32c_of_device_array(
+            sh[victim].device_array()) == sh[victim].crc:
+        raise AssertionError(f"{tech}: corrupted shard passed its verify")
+    if any(crc32c_device.crc32c_of_device_array(sh[i].device_array())
+           != sh[i].crc for i in range(n) if i != victim):
+        raise AssertionError(f"{tech}: a sibling's crc moved")
+    surv = {i: np.frombuffer(sh[i].materialize(), dtype=np.uint8)
+            for i in range(n) if i != victim}
+    if not np.array_equal(ecutil.decode_concat(sinfo, codec, surv), objs[0]):
+        raise AssertionError(f"{tech}: reconstruction after bitrot failed")
+    log(f"resident {tech}: corrupted shard {victim} fails its verify, "
+        "siblings pass, decode_concat of the other 11 is byte-exact")
+    del per_obj, sh, surv
+
+    # kernels at full width against their plain versions
+    bodies = [batch[i].device_array() for i in range(n)]
+    got = crc32c_device.crc32c_rows_kernel(bodies)
+    err = int_err(got, crc32c_device.crc32c_plain(torch.stack(bodies)))
+    fb, fc = resident._fused_encode_crc(objs_dev, codec.device().enc_bits)
+    pb, pcrc = resident.fused_encode_crc_plain(objs_dev,
+                                               codec.device().enc_bits)
+    ferr = max(int_err(torch.stack(fb), pb), int_err(fc, pcrc))
+    torch.cuda.synchronize()
+    log(f"check crc32c {n} x {bodies[0].numel()} B bodies max_abs_err={err}; "
+        f"fused_encode_crc S={objs_dev.shape[0]} max_abs_err={ferr}")
+    if err or ferr:
+        raise AssertionError(f"{tech}: kernel disagrees with plain at "
+                             "full width")
+    del fb, fc, pb, pcrc
+
+    # -- (d), (e): end-to-end times ---------------------------------------
+    total = N_OBJ * OBJ_BYTES
+    td = wall_s(lambda: [resident.encode_resident_shards(
+        codec, o.reshape(spo, K, CHUNK)) for o in objs], runs=RUNS)
+    te = wall_s(lambda: resident.encode_resident_shards(codec, objs_dev),
+                runs=RUNS)
+    e2e = {"d_resident_per_object_GiBps": total / td / 2**30,
+           "e_resident_batched_GiBps": total / te / 2**30}
+    log(f"e2e {tech} " + json.dumps(e2e))
+    return {"launches": counts, "e2e": e2e, "max_abs_err": max(err, ferr),
+            "batch": batch}
+
+
+def resident_times(batch, codec, objs_dev, dev) -> dict:
+    """5r: the crc32c kernel on the batched bodies and the fused encode
+    of the whole batch, in turns with their first forms (``prior_ms``:
+    the kernel's per-thread path; the bit-matmul, twelve torch copies
+    and that path) and with a device copy of their bytes; their plain
+    versions."""
+    from ceph_tpu_torch.ops import crc32c_device, gf_pallas, resident
+    bodies = [batch[i].device_array() for i in range(K + M)]
+    enc_bits = codec.device().enc_bits
+    n_crc = sum(b.numel() for b in bodies)
+    s_b = objs_dev.shape[0]
+    n_fused = s_b * K * CHUNK + (K + M) * s_b * CHUNK
+    copies = []
+    for nbytes in (n_crc, n_fused):     # the kernel's bytes, half each way
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        copies.append((src, torch.empty_like(src)))
+    check = crc32c_device.crc32c_rows_per_thread(bodies)
+    if not torch.equal(check, crc32c_device.crc32c_rows_kernel(bodies)):
+        raise AssertionError("crc32c paths disagree")
+
+    def first_fused():
+        """The fused encode's first form: K1, twelve torch copies into the
+        bodies, then the crc32c kernel's per-thread path over them."""
+        coding = gf_pallas.gf_bit_matmul_kernel(objs_dev, enc_bits)
+        out = [torch.empty(s_b * CHUNK, dtype=torch.uint8, device=dev)
+               for _ in range(K + M)]
+        for i, b in enumerate(out):
+            b.view(s_b, CHUNK).copy_(objs_dev[:, i] if i < K
+                                     else coding[:, i - K])
+        return out, crc32c_device.crc32c_rows_per_thread(out)
+    ms4, prior4, copy4, ms5, prior5, copy5 = turns_ms([
+        lambda: crc32c_device.crc32c_rows_kernel(bodies),
+        lambda: crc32c_device.crc32c_rows_per_thread(bodies),
+        lambda: copies[0][1].copy_(copies[0][0]),
+        lambda: resident._fused_encode_crc(objs_dev, enc_bits),
+        first_fused,
+        lambda: copies[1][1].copy_(copies[1][0])], reps=REPS)
+    del copies
+    stacked = torch.stack(bodies)
+    plain4 = cuda_ms(lambda: crc32c_device.crc32c_plain(stacked), runs=3,
+                     warmup=1)
+    del stacked
+    plain5 = cuda_ms(lambda: resident.fused_encode_crc_plain(
+        objs_dev, enc_bits), runs=3, warmup=1)
+    b4, b4_by = crc_bound_ms(n_crc, K + M)
+    b5, b5_by = fused_bound_ms(s_b, K, M, CHUNK)
+    times = {}
+    times["crc32c"] = {"ms": ms4, "prior_ms": prior4, "copy_ms": copy4,
+                       "plain_ms": plain4,
+                       "bound_ms": b4, "bound_by": b4_by,
+                       "share_of_bound": b4 / ms4,
+                       "GBps": n_crc / ms4 / 1e6}
+    times["fused_encode_crc"] = {"ms": ms5, "prior_ms": prior5,
+                                 "copy_ms": copy5,
+                                 "plain_ms": plain5, "bound_ms": b5,
+                                 "bound_by": b5_by,
+                                 "share_of_bound": b5 / ms5,
+                                 "GBps": n_fused / ms5 / 1e6}
+    for name in ("crc32c", "fused_encode_crc"):
+        log(f"time {name} " + json.dumps(times[name]))
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -152,6 +460,7 @@ def main() -> int:
     from ceph_tpu_torch.gf.matrices import (gf_gen_cauchy1_matrix,
                                             gf_gen_rs_matrix)
     from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
+    from ceph_tpu_torch.common.config import g_conf
     from ceph_tpu_torch.ops import _build, gf_pallas
     from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
     from ceph_tpu_torch.osd import ecutil
@@ -317,8 +626,34 @@ def main() -> int:
             "c_decode_concat_GiBps": total / tc / 2**30,
         }
         log(f"e2e {tech} " + json.dumps(e2e[tech]))
-    results["e2e"] = e2e
+    del shards, surv_all
     results["main_path_launches"] = launches
+
+    # -- 3b. crc32c kernel against its plain version (after slice 1's phases,
+    # which run as they did before this slice) -------------------------------
+    crc_err = crc_checks(gen, rng, dev)
+    results["crc32c_checks_max_abs_err"] = crc_err
+
+    # -- 4r. the device-resident write path -----------------------------------
+    g_conf.set_val("os_memstore_device_bytes_max", RESIDENT_BUDGET)
+    res_launches = {"gf_bit_matmul": 0, "crc32c": 0, "fused_encode_crc": 0}
+    res_err = 0
+    res_batch = None
+    for tech in ("reed_sol_van", "cauchy"):
+        codec = create_erasure_code({"plugin": "cuda", "k": str(K),
+                                     "m": str(M), "technique": tech})
+        shards = [ecutil.encode(sinfo, codec, o, all_shards) for o in objs]
+        res = resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo,
+                             dev)
+        for name, v in res["launches"].items():
+            res_launches[name] += v
+        res_err = max(res_err, res["max_abs_err"])
+        e2e[tech].update(res["e2e"])
+        if res_batch is None:
+            res_batch = (res["batch"], codec)
+        del res, shards
+    results["e2e"] = e2e
+    results["resident_path_launches"] = res_launches
 
     # -- 5. kernel times ------------------------------------------------------
     times = {}
@@ -341,6 +676,10 @@ def main() -> int:
                        "GBps": (s * k * c + s * bm.r * c) / ms / 1e6}
         log(f"time {name} " + json.dumps(times[name]))
     results["kernel_times"] = times
+
+    # -- 5r. crc32c and fused-encode times -----------------------------------
+    times.update(resident_times(*res_batch, objs_dev, dev))
+    del res_batch
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -349,15 +688,35 @@ def main() -> int:
     results["clocks_after_timing"] = clocks
 
     enc = times["encode"]
+    k4, k5 = times["crc32c"], times["fused_encode_crc"]
     kernels = {"kernels": [{
         "name": "gf_bit_matmul", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + res_launches["gf_bit_matmul"],
+        "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
         "library_ms": None, "prior_ms": enc["prior_ms"],
-        "copy_ms": enc["copy_ms"]}]}
+        "copy_ms": enc["copy_ms"]}, {
+        "name": "crc32c", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crc32c.cu",
+        "replaces": "ceph_tpu/ops/crc32c_device.py:73",
+        "launches": res_launches["crc32c"],
+        "max_abs_err": max(crc_err, res_err),
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": None, "prior_ms": k4["prior_ms"],
+        "copy_ms": k4["copy_ms"]}, {
+        "name": "fused_encode_crc", "route": "cuda",
+        "source": "ceph_tpu_torch/ops/resident.py",
+        "replaces": "ceph_tpu/ops/resident.py:31",
+        "launches": res_launches["fused_encode_crc"],
+        "max_abs_err": res_err,
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None, "prior_ms": k5["prior_ms"],
+        "copy_ms": k5["copy_ms"]}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

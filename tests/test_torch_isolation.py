@@ -19,7 +19,7 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
-from ceph_tpu_torch.ops import _build, gf_pallas
+from ceph_tpu_torch.ops import _build, crc32c_device, gf_pallas, resident
 from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
 
 PKG = Path(ceph_tpu_torch.__file__).parent
@@ -47,6 +47,16 @@ def test_fresh_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_walk_sees_the_crc_slice():
+    """The package walk above reaches the crc32c / resident-write modules."""
+    mods = _modules()
+    for m in ("utils.crc32c", "ops.crc32c_device", "ops.resident",
+              "os_store.device_shard", "common.config"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert "ceph_tpu_torch/ops/resident.py" in {
+        str(p.relative_to(REPO)) for p in PKG.rglob("*.py")}
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -102,6 +112,56 @@ def test_non_cpu_tensor_never_takes_plain(monkeypatch):
     assert gf_pallas.launches.n == before
 
 
+def test_crc_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """The crc32c wrappers send a tensor off the CPU to the kernel or
+    raise: the plain version is not called and no launch is counted."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    monkeypatch.setattr(crc32c_device, "crc32c_plain", boom)
+    before = crc32c_device.launches.n
+    rows = torch.empty((3, 64), dtype=torch.uint8, device="meta")
+    with pytest.raises(RuntimeError):
+        crc32c_device.crc_core(rows)
+    with pytest.raises(RuntimeError):
+        crc32c_device.crc32c_kernel(rows, np.array([1, 2, 3]))
+    with pytest.raises(RuntimeError):
+        crc32c_device.crc32c_rows_kernel([rows[0], rows[1]])
+    with pytest.raises(RuntimeError):
+        crc32c_device.crc32c_gather_kernel(
+            [rows[:2, :32], rows[:2, 32:]],
+            [torch.empty(64, dtype=torch.uint8, device="meta")] * 2)
+    assert crc32c_device.launches.n == before
+
+
+def test_resident_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """The fused encode on a tensor off the CPU reaches neither plain
+    version and counts no launch."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    monkeypatch.setattr(gf_pallas, "gf_bit_matmul_plain", boom)
+    monkeypatch.setattr(crc32c_device, "crc32c_plain", boom)
+    bm = gf_pallas.BitMatrix(
+        expand_to_bitmatrix(gf_gen_rs_matrix(6, 4)[4:]), "cpu")
+    before = (resident.launches.n, gf_pallas.launches.n,
+              crc32c_device.launches.n)
+    data = torch.empty((2, 4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises((RuntimeError, ValueError)):
+        resident._fused_encode_crc(data, bm)
+    assert (resident.launches.n, gf_pallas.launches.n,
+            crc32c_device.launches.n) == before
+
+
+def test_crc_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    assert not crc32c_device.device_crc_available()
+    rows = np.zeros((2, 16), dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crc32c_device.crc32c_device_batch(rows)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crc32c_device.crc32c_device_padded(rows, [3, 16])
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -109,7 +169,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build("gf_bit_matmul")
     with pytest.raises(FileNotFoundError):
         _build.build("no_such_kernel")
-    assert _build.sources() == ["gf_bit_matmul"]
+    assert _build.sources() == ["crc32c", "gf_bit_matmul"]
 
 
 def test_build_path_tracks_source(monkeypatch, tmp_path):
