@@ -6,9 +6,9 @@
 //
 //   rows: n rows of L_i bytes  ->  out[i] = crc32c(0xFFFFFFFF, row i)   (u32 bits in an int32)
 //
-// and, for the fused resident encode (ops/resident.py, the body layout and CRC of
-// ceph_tpu/ops/resident.py::_fused_encode_crc), the same while copying each row out: a row
-// there is S pieces of C bytes at a pitch (chunk i of every stripe), gathered into one
+// and, for the two-launch form of the fused resident encode (ops/resident.py, at the shapes the
+// one-pass kernel csrc/fused_encode_crc.cu does not take), the same while copying each row out:
+// a row there is S pieces of C bytes at a pitch (chunk i of every stripe), gathered into one
 // contiguous body as it is hashed, so the layout costs no pass of its own.
 //
 // The JAX form walks each row in one sequential loop (slicing-by-8 over 8-byte words, then a
@@ -27,7 +27,7 @@
 //   takes a run of bytes and its lanes interleave over it in 16-byte chunks, so every load and
 //   store covers 512 contiguous bytes, and every lookup goes to a 16-entry nibble table, one
 //   shared-memory wavefront whatever the data (see crc32c_coalesced_kernel).  This is the path
-//   of the shard bodies, of the fused encode and of the device verify.
+//   of the shard bodies and of the device verify.
 // - Per-thread segments (everything else: any alignment, any length, per-row lengths): each
 //   row is cut into segments of `seg` bytes aligned to its END, so every segment but the first
 //   is whole; one thread per segment runs slicing-by-8 with byte tables in shared memory (the
@@ -47,6 +47,8 @@
 // coalesced path wherever they can.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lookup.cuh"
 
 namespace {
 
@@ -109,14 +111,6 @@ __device__ uint32_t crc_run(const uint8_t* __restrict__ p, uint8_t* __restrict__
     c = byte_step(c, b, t);
   }
   return c;
-}
-
-// x times the GF(2) matrix whose column q is m[q].
-__device__ __forceinline__ uint32_t apply(const uint32_t* m, uint32_t x) {
-  uint32_t y = 0u;
-#pragma unroll
-  for (int q = 0; q < 32; ++q) y ^= m[q] & (0u - ((x >> q) & 1u));
-  return y;
 }
 
 // Rows given by address, passed by value so that rows in separate allocations need no copy
@@ -201,27 +195,7 @@ constexpr int kLane = 32 * 32;
 // M_2048), then the 32 lane matrices M_{16 * (31 - l)} (32 x 32), then the 48 matrices M_{2^e}
 // (48 x 32) for the seed.  In shared memory table k sits at base + 64 k with base 256-byte
 // aligned, so one byte permute writes a lookup's index (nibble * 4) into the base's low byte and
-// the table goes into the load's immediate offset.
-template <int OFF>
-__device__ __forceinline__ uint32_t lds(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1+%2];" : "=r"(v) : "r"(addr), "n"(OFF));
-  return v;
-}
-
-// XOR over the four bytes b of x of table K + 2b at the low nibble and K + 2b + 1 at the high.
-template <int K>
-__device__ __forceinline__ uint32_t nib_word(uint32_t x, uint32_t base) {
-  const uint32_t lo4 = (x << 2) & 0x3c3c3c3cu, hi4 = (x >> 2) & 0x3c3c3c3cu;
-  return lds<64 * K>(__byte_perm(lo4, base, 0x7650)) ^
-         lds<64 * (K + 1)>(__byte_perm(hi4, base, 0x7650)) ^
-         lds<64 * (K + 2)>(__byte_perm(lo4, base, 0x7651)) ^
-         lds<64 * (K + 3)>(__byte_perm(hi4, base, 0x7651)) ^
-         lds<64 * (K + 4)>(__byte_perm(lo4, base, 0x7652)) ^
-         lds<64 * (K + 5)>(__byte_perm(hi4, base, 0x7652)) ^
-         lds<64 * (K + 6)>(__byte_perm(lo4, base, 0x7653)) ^
-         lds<64 * (K + 7)>(__byte_perm(hi4, base, 0x7653));
-}
+// the table goes into the load's immediate offset (nib_word, lookup.cuh).
 
 // M_{512 (3 - U)} crc(0, chunk) for chunk U of an iteration.
 template <int U>

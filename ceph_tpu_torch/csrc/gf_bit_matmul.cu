@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookup.cuh"
+
 typedef unsigned long long u64;
 
 namespace {
@@ -193,29 +195,10 @@ cudaError_t launch_popc(const uint8_t* data, const u64* masks, uint8_t* out, lon
 // 256-B aligned, so the base of every chunk of eight rows has a zero low
 // byte: one byte permute then writes a lookup's index (nibble * 4) into it
 // and yields the shared address, and the row within the chunk and L/H go
-// into the load's immediate offset.
+// into the load's immediate offset (lookup_word, lookup.cuh).
 constexpr int kVec = 16;       // byte columns per thread: one 16-byte load a row
 constexpr int kRowChunk = 8;   // data rows whose loads are issued together
 constexpr int kTableWords = 32;
-
-template <int OFF>
-__device__ __forceinline__ uint32_t lds(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1+%2];" : "=r"(v) : "r"(addr), "n"(OFF));
-  return v;
-}
-
-// acc[b] ^= T_J[byte b of x] for the four bytes of x, where row J of the
-// chunk at shared address `base` holds L at +128 J and H at +128 J + 64.
-template <int J>
-__device__ __forceinline__ void lookup_word(uint32_t x, uint32_t base, uint32_t* acc) {
-  const uint32_t lo4 = (x << 2) & 0x3c3c3c3cu;   // low nibble * 4, per byte
-  const uint32_t hi4 = (x >> 2) & 0x3c3c3c3cu;   // high nibble * 4, per byte
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    acc[b] ^= lds<J * 128>(__byte_perm(lo4, base, 0x7650 + b)) ^
-              lds<J * 128 + 64>(__byte_perm(hi4, base, 0x7650 + b));
-}
 
 template <int J>
 __device__ __forceinline__ void lookup_rows(const Bytes<kVec>* w, int n_rows, uint32_t base,
@@ -267,17 +250,13 @@ gf_nibble_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ 
         lookup_rows<0>(w, k - i0, tab_s + 4u * (gl * gstride + i0 * kTableWords), acc);
       }
       // transpose: byte q of acc[4c + b] is byte b of word c of output row q
+      uint32_t t[4][4];
+      transpose(acc, t);
       Bytes<kVec> o[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint32_t* a = acc + 4 * c;
-        const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
-        const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
-        o[0].q[c] = __byte_perm(t0, t2, 0x5410);
-        o[1].q[c] = __byte_perm(t0, t2, 0x7632);
-        o[2].q[c] = __byte_perm(t1, t3, 0x5410);
-        o[3].q[c] = __byte_perm(t1, t3, 0x7632);
-      }
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[q].q[c] = t[q][c];
       const int row0 = 4 * (g0 + gl);
       uint8_t* dst = out + (s * r + row0) * C + col0;
 #pragma unroll

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/ceph_tpu_torch/<name>-<hash>.so`` at the root of
-the checkout (git-ignored), where the hash covers the source and the
-flags: an edited source rebuilds, an unchanged one is reused.  Only
+the checkout (git-ignored), where the hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags: an edited source or header
+rebuilds, an unchanged one is reused.  Only
 sources inside this package are built.  A missing ``nvcc`` or a failed
 compile raises with the compiler's output; nothing falls back.
 
@@ -42,6 +43,8 @@ def sources() -> List[str]:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -10,17 +10,22 @@ Body i is chunk i of every stripe concatenated (``allsh[:, i, :]``
 flattened), as on the host path, so stored bytes and HashInfo digests
 equal a residency-off twin's by construction.
 
-On the card the fused call is two kernels on the current stream: the
-GF(2^8) bit-matmul (``gf_pallas.gf_bit_matmul_kernel``) into its own
-(S, m, C) output, then one crc32c launch (``crc32c_gather_kernel``) that
-reads chunk column i of the stripes or of the coding output, writes it
-into body i and hashes it in the same pass.  Each body is its own
-allocation, so that the residency budget's byte count is what the card
-frees when a shard goes (``os_store/device_shard.py``).  On the CPU the
-same steps run a plain copy and the two kernels' plain versions.
-``launches.n`` counts fused calls on the card;
-``fused_encode_crc_plain`` is the reference the card's result is held
-against.
+On the card the fused call is one launch of the one-pass kernel
+(``ops/fused_encode_crc.py``, ``csrc/fused_encode_crc.cu``) wherever it
+takes the shape: C a multiple of 2048, 16-byte aligned stripes and
+bodies, n <= 128.  ``one_pass`` decides that from shape and addresses
+before any launch.  Other shapes take the two-launch form
+(``_fused_encode_crc_two_pass``): the GF(2^8) bit-matmul
+(``gf_pallas.gf_bit_matmul_kernel``) into its own (S, m, C) output, then
+one crc32c launch (``crc32c_gather_kernel``) that reads chunk column i of
+the stripes or of the coding output, writes it into body i and hashes it.
+A failed build or launch raises in either form; neither falls back to
+the other.  Each body is its own allocation, so that the residency
+budget's byte count is what the card frees when a shard goes
+(``os_store/device_shard.py``).  On the CPU the same routes run the
+kernels' plain versions.  ``launches.n`` counts fused calls on the card
+in either form; ``fused_encode_crc.fused_encode_crc_plain`` is the
+reference the card's result is held against.
 """
 from __future__ import annotations
 
@@ -30,40 +35,50 @@ import numpy as np
 import torch
 
 from ..os_store.device_shard import DeviceShard
-from .crc32c_device import crc32c_gather_kernel, crc32c_plain, to_u32
+from .crc32c_device import crc32c_gather_kernel, to_u32
+from .fused_encode_crc import fused_encode_crc_kernel, one_pass
 from .gf_matmul import DeviceRSBackend
-from .gf_pallas import (BitMatrix, LaunchCounter, gf_bit_matmul_kernel,
-                        gf_bit_matmul_plain)
+from .gf_pallas import BitMatrix, LaunchCounter, gf_bit_matmul_kernel
 
 launches = LaunchCounter()
+
+
+def _bodies(stripes: torch.Tensor, n: int) -> List[torch.Tensor]:
+    s, _, c = stripes.shape
+    return [torch.empty(s * c, dtype=torch.uint8, device=stripes.device)
+            for _ in range(n)]
+
+
+def _fused_encode_crc_two_pass(stripes: torch.Tensor, enc_bits: BitMatrix,
+                               bodies: Optional[List[torch.Tensor]] = None) \
+        -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The two-launch form: K1 into an (S, m, C) intermediate, then the
+    crc32c gather of every chunk column into its body.  Uncounted in
+    ``launches`` (its kernels count their own)."""
+    coding = gf_bit_matmul_kernel(stripes, enc_bits)     # (S, m, C)
+    k = stripes.shape[1]
+    pieces = [stripes[:, i] for i in range(k)] + \
+        [coding[:, j] for j in range(coding.shape[1])]
+    if bodies is None:
+        bodies = _bodies(stripes, len(pieces))
+    return bodies, crc32c_gather_kernel(pieces, bodies)
 
 
 def _fused_encode_crc(stripes: torch.Tensor, enc_bits: BitMatrix) \
         -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(S, k, C) uint8 -> (n bodies of S*C bytes, (n,) int32 CRC bits),
-    all on ``stripes``' device."""
-    coding = gf_bit_matmul_kernel(stripes, enc_bits)     # (S, m, C)
+    all on ``stripes``' device: one launch of the one-pass kernel where
+    ``one_pass`` takes the shape, the two-launch form elsewhere."""
     s, k, c = stripes.shape
-    pieces = [stripes[:, i] for i in range(k)] + \
-        [coding[:, j] for j in range(coding.shape[1])]
-    bodies = [torch.empty(s * c, dtype=torch.uint8, device=stripes.device)
-              for _ in pieces]
-    crcs = crc32c_gather_kernel(pieces, bodies)
+    bodies = _bodies(stripes, k + enc_bits.r)
+    if one_pass(s, k, enc_bits.r, c,
+                [stripes.data_ptr()] + [b.data_ptr() for b in bodies]):
+        crcs = fused_encode_crc_kernel(stripes, enc_bits, bodies)
+    else:
+        crcs = _fused_encode_crc_two_pass(stripes, enc_bits, bodies)[1]
     if stripes.device.type == "cuda":
         launches.n += 1
     return bodies, crcs
-
-
-def fused_encode_crc_plain(stripes: torch.Tensor, enc_bits: BitMatrix) \
-        -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference of ``_fused_encode_crc``, as the JAX function writes
-    it: the plain bit-matmul, the (n, S*C) bodies of
-    ``concat([stripes, coding], 1)`` transposed, and the plain crc32c of
-    each row; on ``stripes``' device.  Used by the checks only."""
-    coding = gf_bit_matmul_plain(stripes, enc_bits.bits.to(stripes.device))
-    allsh = torch.cat([stripes, coding], dim=1)            # (S, n, C)
-    bodies = allsh.transpose(0, 1).reshape(allsh.shape[1], -1)
-    return bodies, crc32c_plain(bodies)
 
 
 def resident_capable(ec_impl) -> bool:

@@ -37,21 +37,31 @@ before it):
 4r. the device-resident write path, per technique, with the residency
    budget large enough to keep every body: (d) ``encode_resident_shards``
    of each object (S=128, 12 bodies of 512 KiB) and (e) one of all 64 as
-   one (8192, 8, 4096) batch on the card, then the device verify of every
-   stored shard (``crc32c_of_device_array``); the bit-matmul, crc32c and
-   fused-encode launch counts must all move.  After the counted run:
-   every body equals the ``ecutil.encode`` shard, every crc equals the
-   device verify and the plain crc32c, one object's 12 crcs equal a host
-   ``HashInfo``, a ``corrupted()`` data shard fails its verify while its
-   siblings pass and ``decode_concat`` of the other 11 returns the object;
-   the crc32c kernel on the 12 x 32 MiB bodies and the fused encode at
-   S=8192 against their plain versions;
+   one (8192, 8, 4096) batch on the card, counted alone: the one-pass fused
+   kernel (``csrc/fused_encode_crc.cu``) must launch exactly once per call
+   and the bit-matmul and crc32c kernels never; then the device verify of
+   every stored shard (``crc32c_of_device_array``), counted apart: the
+   crc32c kernel must launch.  After the counted runs: every body equals
+   the ``ecutil.encode`` shard, every crc equals the device verify and the
+   plain crc32c, one object's 12 crcs equal a host ``HashInfo``, a
+   ``corrupted()`` data shard fails its verify while its siblings pass and
+   ``decode_concat`` of the other 11 returns the object; the crc32c kernel
+   on the 12 x 32 MiB bodies and the fused encode at S=8192 against their
+   plain versions, the fused call allocating nothing beside its bodies;
 5r. times: the crc32c kernel on the 12 bodies of 32 MiB and the fused
    encode at S=8192, each in turns with its first form (``prior_ms``: the
-   kernel's per-thread path; the bit-matmul, twelve torch copies and that
-   path) and a device copy of its bytes, 10 launches per sample; their
+   kernel's per-thread path; the two-launch form, bit-matmul then crc32c
+   gather) and a device copy of its bytes, 10 launches per sample; their
    plain versions; (d) and (e) as GiB/s of object data (host clock around
    calls that end in the crc fetch).
+
+The one-pass fused encode adds, after 3b:
+
+3f. the one-pass kernel against ``fused_encode_crc_plain``, byte-exact,
+   per technique, at S = 128, 1 and 3, C = 2048 and 6144, (k, m) = (3, 2),
+   (10, 4) and (8, 5) (two parity groups); and C = 4099, which takes the
+   two-launch form (the one-pass count must stay put there, the bit-matmul
+   and crc32c counts move).
 
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -131,7 +141,8 @@ def sass_counts(so_path, nvcc):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(r"(?:gf_\w+?|crc32c\w*?)_kernel", m.group(1))
+            base = re.search(r"(?:gf_\w+?|crc32c\w*?|fused\w*?)_kernel",
+                             m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (
                 "<" + ",".join(args) + ">" if args else "")
@@ -281,10 +292,55 @@ def crc_checks(gen, rng, dev) -> int:
     return crc_err
 
 
+def fused_checks(gen, dev) -> int:
+    """3f: the one-pass fused encode against its plain version, byte-exact,
+    per technique at the shapes it takes beside the main one, and the
+    two-launch form at a tail shape; returns the max error (0)."""
+    from ceph_tpu_torch.gf.matrices import (gf_gen_cauchy1_matrix,
+                                            gf_gen_rs_matrix)
+    from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
+    from ceph_tpu_torch.ops import (crc32c_device, fused_encode_crc,
+                                    gf_pallas, resident)
+    gens = {"reed_sol_van": gf_gen_rs_matrix,
+            "cauchy": gf_gen_cauchy1_matrix}
+    shapes = [(128, K, M, CHUNK), (1, K, M, CHUNK), (3, K, M, CHUNK),
+              (64, K, M, 2048), (64, K, M, 6144), (64, 3, 2, CHUNK),
+              (64, 10, 4, CHUNK), (64, K, 5, CHUNK), (64, K, M, 4099)]
+    worst = 0
+    for tech, genm in gens.items():
+        for s, k, m, c in shapes:
+            bm = gf_pallas.BitMatrix(
+                expand_to_bitmatrix(genm(k + m, k)[k:]), dev)
+            data = torch.randint(0, 256, (s, k, c), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+            one = c % 2048 == 0
+            counts = [x.n for x in (fused_encode_crc.launches,
+                                    gf_pallas.launches, crc32c_device.launches)]
+            bodies, crcs = resident._fused_encode_crc(data, bm)
+            moved = [x.n - y for x, y in zip(
+                (fused_encode_crc.launches, gf_pallas.launches,
+                 crc32c_device.launches), counts)]
+            if moved != ([1, 0, 0] if one else [0, 1, 1]):
+                raise AssertionError(f"fused {tech} {(s, k, m, c)}: launches "
+                                     f"{moved} on the wrong route")
+            pb, pcrc = fused_encode_crc.fused_encode_crc_plain(data, bm)
+            err = max(int_err(torch.stack(bodies), pb), int_err(crcs, pcrc))
+            torch.cuda.synchronize()
+            log(f"check fused_encode_crc {tech} (S,k,m,C)={(s, k, m, c)} "
+                f"{'one-pass' if one else 'two-launch'} max_abs_err={err}")
+            if err:
+                raise AssertionError(f"fused encode disagrees with plain at "
+                                     f"{tech} {(s, k, m, c)}")
+            worst = max(worst, err)
+            del bodies, crcs, pb, pcrc, data
+    return worst
+
+
 def resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo, dev):
     """4r: the device-resident write path of one technique.  Returns its
     launch counts, the batched shards and the max error of its checks."""
-    from ceph_tpu_torch.ops import crc32c_device, gf_pallas, resident
+    from ceph_tpu_torch.ops import (crc32c_device, fused_encode_crc,
+                                    gf_pallas, resident)
     from ceph_tpu_torch.os_store.device_shard import \
         memstore_device_perf_counters
     from ceph_tpu_torch.osd import ecutil
@@ -293,20 +349,30 @@ def resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo, dev):
     demotions = pc.get("demotions")
     counters = {"gf_bit_matmul": gf_pallas.launches,
                 "crc32c": crc32c_device.launches,
-                "fused_encode_crc": resident.launches}
+                "fused_encode_crc": fused_encode_crc.launches,
+                "resident_calls": resident.launches}
     for c in counters.values():
         c.reset()
-    # (d) per object from host memory, (e) the whole batch on the card,
-    # then the read-side device verify of every stored shard
+    # (d) per object from host memory, (e) the whole batch on the card:
+    # one launch of the one-pass kernel per call, no other kernel
     per_obj = [resident.encode_resident_shards(
         codec, o.reshape(spo, K, CHUNK)) for o in objs]
     batch = resident.encode_resident_shards(codec, objs_dev)
+    counts = {name: c.n for name, c in counters.items()}
+    calls = len(per_obj) + 1
+    log(f"resident {tech}: write launches " + json.dumps(counts))
+    if counts != {"gf_bit_matmul": 0, "crc32c": 0,
+                  "fused_encode_crc": calls, "resident_calls": calls}:
+        raise AssertionError(f"{tech}: the resident write is not one "
+                             "one-pass launch per call")
+    # then the read-side device verify of every stored shard
+    crc32c_device.launches.reset()
     verify = [[crc32c_device.crc32c_of_device_array(sh[i].device_array())
                for i in range(n)] for sh in per_obj + [batch]]
-    counts = {name: c.n for name, c in counters.items()}
-    log(f"resident {tech}: launches " + json.dumps(counts))
-    if min(counts.values()) == 0:
-        raise AssertionError(f"{tech}: resident path skipped a kernel")
+    counts["crc32c"] = crc32c_device.launches.n
+    log(f"resident {tech}: verify launches crc32c {counts['crc32c']}")
+    if counts["crc32c"] == 0:
+        raise AssertionError(f"{tech}: the device verify skipped crc32c")
     if pc.get("demotions") != demotions or any(
             not sh[i].is_resident for sh in per_obj + [batch]
             for i in range(n)):
@@ -362,16 +428,27 @@ def resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo, dev):
     bodies = [batch[i].device_array() for i in range(n)]
     got = crc32c_device.crc32c_rows_kernel(bodies)
     err = int_err(got, crc32c_device.crc32c_plain(torch.stack(bodies)))
+    # the one-pass call allocates the bodies and the crcs, nothing more
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     fb, fc = resident._fused_encode_crc(objs_dev, codec.device().enc_bits)
-    pb, pcrc = resident.fused_encode_crc_plain(objs_dev,
-                                               codec.device().enc_bits)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - sum(
+        b.untyped_storage().nbytes() for b in fb)
+    pb, pcrc = fused_encode_crc.fused_encode_crc_plain(
+        objs_dev, codec.device().enc_bits)
     ferr = max(int_err(torch.stack(fb), pb), int_err(fc, pcrc))
     torch.cuda.synchronize()
     log(f"check crc32c {n} x {bodies[0].numel()} B bodies max_abs_err={err}; "
-        f"fused_encode_crc S={objs_dev.shape[0]} max_abs_err={ferr}")
+        f"fused_encode_crc S={objs_dev.shape[0]} max_abs_err={ferr}, "
+        f"{extra} B allocated beside the bodies")
     if err or ferr:
         raise AssertionError(f"{tech}: kernel disagrees with plain at "
                              "full width")
+    if extra > 1 << 20:
+        raise AssertionError(f"{tech}: the fused call allocated {extra} B "
+                             "beside its bodies")
     del fb, fc, pb, pcrc
 
     # -- (d), (e): end-to-end times ---------------------------------------
@@ -390,10 +467,9 @@ def resident_phase(tech, codec, objs, objs_dev, shards, sinfo, spo, dev):
 def resident_times(batch, codec, objs_dev, dev) -> dict:
     """5r: the crc32c kernel on the batched bodies and the fused encode
     of the whole batch, in turns with their first forms (``prior_ms``:
-    the kernel's per-thread path; the bit-matmul, twelve torch copies
-    and that path) and with a device copy of their bytes; their plain
-    versions."""
-    from ceph_tpu_torch.ops import crc32c_device, gf_pallas, resident
+    the kernel's per-thread path; the two-launch form) and with a device
+    copy of their bytes; their plain versions."""
+    from ceph_tpu_torch.ops import crc32c_device, fused_encode_crc, resident
     bodies = [batch[i].device_array() for i in range(K + M)]
     enc_bits = codec.device().enc_bits
     n_crc = sum(b.numel() for b in bodies)
@@ -406,30 +482,25 @@ def resident_times(batch, codec, objs_dev, dev) -> dict:
     check = crc32c_device.crc32c_rows_per_thread(bodies)
     if not torch.equal(check, crc32c_device.crc32c_rows_kernel(bodies)):
         raise AssertionError("crc32c paths disagree")
-
-    def first_fused():
-        """The fused encode's first form: K1, twelve torch copies into the
-        bodies, then the crc32c kernel's per-thread path over them."""
-        coding = gf_pallas.gf_bit_matmul_kernel(objs_dev, enc_bits)
-        out = [torch.empty(s_b * CHUNK, dtype=torch.uint8, device=dev)
-               for _ in range(K + M)]
-        for i, b in enumerate(out):
-            b.view(s_b, CHUNK).copy_(objs_dev[:, i] if i < K
-                                     else coding[:, i - K])
-        return out, crc32c_device.crc32c_rows_per_thread(out)
+    one = resident._fused_encode_crc(objs_dev, enc_bits)
+    two = resident._fused_encode_crc_two_pass(objs_dev, enc_bits)
+    if not (torch.equal(one[1], two[1])
+            and torch.equal(torch.stack(one[0]), torch.stack(two[0]))):
+        raise AssertionError("fused encode forms disagree")
+    del one, two
     ms4, prior4, copy4, ms5, prior5, copy5 = turns_ms([
         lambda: crc32c_device.crc32c_rows_kernel(bodies),
         lambda: crc32c_device.crc32c_rows_per_thread(bodies),
         lambda: copies[0][1].copy_(copies[0][0]),
         lambda: resident._fused_encode_crc(objs_dev, enc_bits),
-        first_fused,
+        lambda: resident._fused_encode_crc_two_pass(objs_dev, enc_bits),
         lambda: copies[1][1].copy_(copies[1][0])], reps=REPS)
     del copies
     stacked = torch.stack(bodies)
     plain4 = cuda_ms(lambda: crc32c_device.crc32c_plain(stacked), runs=3,
                      warmup=1)
     del stacked
-    plain5 = cuda_ms(lambda: resident.fused_encode_crc_plain(
+    plain5 = cuda_ms(lambda: fused_encode_crc.fused_encode_crc_plain(
         objs_dev, enc_bits), runs=3, warmup=1)
     b4, b4_by = crc_bound_ms(n_crc, K + M)
     b5, b5_by = fused_bound_ms(s_b, K, M, CHUNK)
@@ -633,10 +704,13 @@ def main() -> int:
     # which run as they did before this slice) -------------------------------
     crc_err = crc_checks(gen, rng, dev)
     results["crc32c_checks_max_abs_err"] = crc_err
+    fused_err = fused_checks(gen, dev)
+    results["fused_checks_max_abs_err"] = fused_err
 
     # -- 4r. the device-resident write path -----------------------------------
     g_conf.set_val("os_memstore_device_bytes_max", RESIDENT_BUDGET)
-    res_launches = {"gf_bit_matmul": 0, "crc32c": 0, "fused_encode_crc": 0}
+    res_launches = {"gf_bit_matmul": 0, "crc32c": 0, "fused_encode_crc": 0,
+                    "resident_calls": 0}
     res_err = 0
     res_batch = None
     for tech in ("reed_sol_van", "cauchy"):
@@ -709,10 +783,10 @@ def main() -> int:
         "library_ms": None, "prior_ms": k4["prior_ms"],
         "copy_ms": k4["copy_ms"]}, {
         "name": "fused_encode_crc", "route": "cuda",
-        "source": "ceph_tpu_torch/ops/resident.py",
+        "source": "ceph_tpu_torch/csrc/fused_encode_crc.cu",
         "replaces": "ceph_tpu/ops/resident.py:31",
         "launches": res_launches["fused_encode_crc"],
-        "max_abs_err": res_err,
+        "max_abs_err": max(res_err, fused_err),
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None, "prior_ms": k5["prior_ms"],

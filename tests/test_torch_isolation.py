@@ -19,7 +19,8 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
-from ceph_tpu_torch.ops import _build, crc32c_device, gf_pallas, resident
+from ceph_tpu_torch.ops import (_build, crc32c_device, fused_encode_crc,
+                                gf_pallas, resident)
 from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
 
 PKG = Path(ceph_tpu_torch.__file__).parent
@@ -57,6 +58,25 @@ def test_walk_sees_the_crc_slice():
         assert f"ceph_tpu_torch.{m}" in mods
     assert "ceph_tpu_torch/ops/resident.py" in {
         str(p.relative_to(REPO)) for p in PKG.rglob("*.py")}
+
+
+def test_walk_sees_the_one_pass_kernel():
+    """The package walk reaches the one-pass fused encode's module, and
+    its CUDA source is among the sources the build knows."""
+    assert "ceph_tpu_torch.ops.fused_encode_crc" in _modules()
+    assert (PKG / "csrc" / "fused_encode_crc.cu").is_file()
+    assert "fused_encode_crc" in _build.sources()
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*.cu*")))
+def test_cuda_source_includes_no_jax(path):
+    """The CUDA sources include the toolkit's headers and the package's
+    shared header only: nothing of JAX, XLA or the JAX package."""
+    for line in (REPO / path).read_text().splitlines():
+        if line.lstrip().startswith("#include"):
+            assert line.split()[1].strip('<>"') in (
+                "cuda_runtime.h", "stdint.h", "lookup.cuh"), (path, line)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -140,15 +160,41 @@ def test_resident_non_cpu_tensor_never_takes_plain(monkeypatch):
         raise AssertionError("plain version called for a device tensor")
     monkeypatch.setattr(gf_pallas, "gf_bit_matmul_plain", boom)
     monkeypatch.setattr(crc32c_device, "crc32c_plain", boom)
+    monkeypatch.setattr(fused_encode_crc, "fused_encode_crc_plain", boom)
     bm = gf_pallas.BitMatrix(
         expand_to_bitmatrix(gf_gen_rs_matrix(6, 4)[4:]), "cpu")
     before = (resident.launches.n, gf_pallas.launches.n,
-              crc32c_device.launches.n)
+              crc32c_device.launches.n, fused_encode_crc.launches.n)
     data = torch.empty((2, 4, 32), dtype=torch.uint8, device="meta")
     with pytest.raises((RuntimeError, ValueError)):
         resident._fused_encode_crc(data, bm)
     assert (resident.launches.n, gf_pallas.launches.n,
-            crc32c_device.launches.n) == before
+            crc32c_device.launches.n, fused_encode_crc.launches.n) == before
+
+
+def test_one_pass_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """At a shape the one-pass kernel takes (C = 2048), a tensor off the
+    CPU goes to that kernel or raises: no plain version, no launch
+    counted, the two-launch form not tried."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version or two-pass form called")
+    monkeypatch.setattr(fused_encode_crc, "fused_encode_crc_plain", boom)
+    monkeypatch.setattr(gf_pallas, "gf_bit_matmul_plain", boom)
+    monkeypatch.setattr(crc32c_device, "crc32c_plain", boom)
+    monkeypatch.setattr(resident, "_fused_encode_crc_two_pass", boom)
+    bm = gf_pallas.BitMatrix(
+        expand_to_bitmatrix(gf_gen_rs_matrix(6, 4)[4:]), "cpu")
+    before = (resident.launches.n, gf_pallas.launches.n,
+              crc32c_device.launches.n, fused_encode_crc.launches.n)
+    data = torch.empty((2, 4, 2048), dtype=torch.uint8, device="meta")
+    bodies = [torch.empty(4096, dtype=torch.uint8, device="meta")] * 6
+    assert fused_encode_crc.one_pass(2, 4, 2, 2048, [data.data_ptr()])
+    with pytest.raises(RuntimeError, match="meta"):
+        resident._fused_encode_crc(data, bm)
+    with pytest.raises(RuntimeError, match="meta"):
+        fused_encode_crc.fused_encode_crc_kernel(data, bm, bodies)
+    assert (resident.launches.n, gf_pallas.launches.n,
+            crc32c_device.launches.n, fused_encode_crc.launches.n) == before
 
 
 def test_crc_cuda_request_without_card_raises():
@@ -169,7 +215,10 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build("gf_bit_matmul")
     with pytest.raises(FileNotFoundError):
         _build.build("no_such_kernel")
-    assert _build.sources() == ["crc32c", "gf_bit_matmul"]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build("fused_encode_crc")
+    assert _build.sources() == ["crc32c", "fused_encode_crc",
+                                "gf_bit_matmul"]
 
 
 def test_build_path_tracks_source(monkeypatch, tmp_path):
@@ -184,6 +233,9 @@ def test_build_path_tracks_source(monkeypatch, tmp_path):
     assert a == _build.library_path("k")
     (src / "k.cu").write_text("// b\n")
     assert _build.library_path("k") != a
+    b = _build.library_path("k")
+    (src / "shared.cuh").write_text("// c\n")          # a header counts too
+    assert _build.library_path("k") != b
     a.parent.mkdir(parents=True)
     _build.library_path("k").write_bytes(b"")
     assert _build.build("k") == _build.library_path("k")   # reused
