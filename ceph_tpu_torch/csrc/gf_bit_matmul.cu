@@ -48,6 +48,27 @@
 // bytes into ceil(k/8) u64 words and forms every output bit as
 // popc(XOR_w vec[w] & mask[j][w]) & 1, which at k=8, r=4 costs 32 __popcll
 // per column and bounds it on the popcount pipe.
+//
+// gfw_bit_matmul_launch is K3, the GF(2^w) word layout of jerasure's reed_sol
+// codes at w = 16 and 32 (replaces the XLA function
+// ceph_tpu/ops/gf_matmul.py::gfw_bit_matmul):
+//
+//   data (S, k, C) uint8 read as little-endian w-bit words  x  B (k*w, r*w) 0/1
+//     ->  out (S, r, C) uint8, the same words
+//
+// With ws = w/8, bit 8b + i of word j is row j*w + 8b + i = 8(j*ws + b) + i of B,
+// so K3 is K1's product over a virtual byte layout: virtual data row j*ws + b
+// is byte b of every word of row j (bytes b, b + ws, b + 2ws, ...), and the
+// output's virtual rows interleave the same way.  The host's pack_tables is
+// unchanged (k' = k*ws virtual rows, r' = r*ws); only the addressing differs.
+// A thread takes 16 words of each data row (ws 16-byte loads), splits them
+// into ws virtual 16-byte rows with byte permutes, runs K1's lookups over the
+// virtual rows, and joins each group's four virtual output rows back into
+// 4/ws real rows of 16 words (at w = 32 a group is one output row as it
+// stands).  Bound and pipes as K1: at k=4, m=2, w=16 the bytes per lookup are
+// K1's at k=8, m=4; at w=32 each word column needs twice the lookups.  Tails
+// (C not a multiple of 16 words, a multiple of ws) and misaligned pointers
+// take byte loads and stores in the same kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -300,6 +321,162 @@ cudaError_t launch_nibble(const uint8_t* data, const uint32_t* tables, uint8_t* 
   return cudaGetLastError();
 }
 
+// K3.  Load 16 words (16 WS bytes) of one data row at p and split them into WS
+// virtual rows: byte u of v[b].q[c] is byte b of word 4c + u.  `full` as in
+// load_bytes; otherwise n_valid bytes are read one at a time, the rest zero.
+template <int WS>
+__device__ __forceinline__ void load_words(const uint8_t* __restrict__ p, int n_valid, bool full,
+                                           Bytes<kVec>* v) {
+  uint32_t x[4 * WS];
+  if (full) {
+#pragma unroll
+    for (int h = 0; h < WS; ++h) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + h);
+      x[4 * h] = t.x; x[4 * h + 1] = t.y; x[4 * h + 2] = t.z; x[4 * h + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4 * WS; ++i) x[i] = 0u;
+#pragma unroll
+    for (int b = 0; b < 16 * WS; ++b)
+      if (b < n_valid) x[b / 4] |= uint32_t(__ldg(p + b)) << ((b % 4) * 8);
+  }
+  if constexpr (WS == 2) {        // word t is bytes 0-1 or 2-3 of x[t / 2]
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      v[0].q[c] = __byte_perm(x[2 * c], x[2 * c + 1], 0x6420);
+      v[1].q[c] = __byte_perm(x[2 * c], x[2 * c + 1], 0x7531);
+    }
+  } else {                        // word t is x[t]: a 4x4 byte transpose per 4 words
+    uint32_t t[4][4];
+    transpose(x, t);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[b].q[c] = t[b][c];
+  }
+}
+
+// K3.  Store a group's products: byte u of acc[v] is virtual output row 4g + u, i.e.
+// byte (4g + u) % WS of word v of real row (4g + u) / WS.  `rows` real rows remain.
+template <int WS>
+__device__ __forceinline__ void store_words(const uint32_t* acc, uint8_t* __restrict__ dst,
+                                            int rows, long long C, int n_valid, bool full) {
+#pragma unroll
+  for (int t = 0; t < 4 / WS; ++t) {
+    if (t >= rows) return;
+    uint32_t o[4 * WS];
+    if constexpr (WS == 4) {      // the group is one output row as it stands
+#pragma unroll
+      for (int c = 0; c < 16; ++c) o[c] = acc[c];
+    } else {                      // words 2c, 2c + 1: bytes 2t, 2t + 1 of acc[2c], acc[2c + 1]
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        o[c] = __byte_perm(acc[2 * c], acc[2 * c + 1], t ? 0x7632 : 0x5410);
+    }
+    uint8_t* p = dst + (long long)t * C;
+    if (full) {
+#pragma unroll
+      for (int h = 0; h < WS; ++h)
+        reinterpret_cast<uint4*>(p)[h] = make_uint4(o[4 * h], o[4 * h + 1], o[4 * h + 2],
+                                                    o[4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16 * WS; ++b)
+        if (b < n_valid) p[b] = uint8_t(o[b / 4] >> ((b % 4) * 8));
+    }
+  }
+}
+
+// K3.  tables: (n_groups, k WS, 32) u32 from pack_tables of the (k w, r w) matrix, laid
+// out in shared memory as in gf_nibble_kernel.  An item is 16 words of one stripe;
+// a chunk of kRowChunk virtual rows is kRowChunk / WS real rows, so every chunk's
+// table base keeps a zero low byte.  At most 128 registers: two blocks per SM.
+template <int WS>
+__global__ void __launch_bounds__(kThreads, 2)
+gfw_nibble_kernel(const uint8_t* __restrict__ data, const uint32_t* __restrict__ tables,
+                  uint8_t* __restrict__ out, long long S, int k, int r, long long C,
+                  int n_groups, int chunk_groups, bool aligned) {
+  constexpr int kBytes = kVec * WS;            // bytes of a row per item
+  constexpr int kRealChunk = kRowChunk / WS;   // real data rows per chunk
+  extern __shared__ __align__(256) uint32_t tab[];
+  const int kv = k * WS;                       // virtual data rows
+  const int gstride = (kv + 1) / 2 * 2 * kTableWords;
+  const int g0 = blockIdx.y * chunk_groups;
+  const int ng = min(chunk_groups, n_groups - g0);
+  const uint32_t* tsrc = tables + (long long)g0 * kv * kTableWords;
+  for (int t = threadIdx.x; t < ng * kv * kTableWords; t += kThreads)
+    tab[t / (kv * kTableWords) * gstride + t % (kv * kTableWords)] = __ldg(tsrc + t);
+  __syncthreads();
+  const uint32_t tab_s = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
+
+  const long long per_s = (C + kBytes - 1) / kBytes;   // items per stripe
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (first >= S * per_s) return;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long ds = stride / per_s, dcg = stride - ds * per_s;
+  long long s = first / per_s, cg = first - s * per_s;
+  while (s < S) {
+    const long long col0 = cg * kBytes;
+    const int n_valid = (int)(C - col0 < kBytes ? C - col0 : kBytes);
+    const bool full = aligned && n_valid == kBytes;
+    const uint8_t* src = data + s * k * C + col0;
+    for (int gl = 0; gl < ng; ++gl) {
+      uint32_t acc[kVec];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) acc[v] = 0u;
+      for (int i0 = 0; i0 < k; i0 += kRealChunk) {
+        Bytes<kVec> w[kRowChunk];
+#pragma unroll
+        for (int j = 0; j < kRealChunk; ++j)
+          if (i0 + j < k) load_words<WS>(src + (long long)(i0 + j) * C, n_valid, full, w + j * WS);
+        lookup_rows<0>(w, (k - i0) * WS, tab_s + 4u * (gl * gstride + i0 * WS * kTableWords),
+                       acc);
+      }
+      const int row0 = (g0 + gl) * 4 / WS;
+      store_words<WS>(acc, out + (s * r + row0) * C + col0, r - row0, C, n_valid, full);
+    }
+    cg += dcg;
+    s += ds;
+    if (cg >= per_s) { cg -= per_s; ++s; }
+  }
+}
+
+template <int WS>
+cudaError_t launch_words(const uint8_t* data, const uint32_t* tables, uint8_t* out,
+                         long long S, int k, int r, long long C, cudaStream_t stream) {
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const int kv = k * WS;
+  const int n_groups = (r * WS + 3) / 4;
+  const int group_bytes = (kv + 1) / 2 * 2 * kTableWords * (int)sizeof(uint32_t);
+  const int chunk = n_groups < optin / group_bytes ? n_groups : optin / group_bytes;
+  const int n_chunks = chunk < 1 ? 0 : (n_groups + chunk - 1) / chunk;
+  if (chunk < 1 || n_chunks > 65535) return cudaErrorInvalidConfiguration;
+  const int smem = chunk * group_bytes;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(gfw_nibble_kernel<WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gfw_nibble_kernel<WS>, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items = S * ((C + kVec * WS - 1) / (kVec * WS));
+  long long blocks = (items + kThreads - 1) / kThreads;
+  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  const bool aligned = (C % kVec == 0) && (reinterpret_cast<uintptr_t>(data) % kVec == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % kVec == 0);
+  gfw_nibble_kernel<WS><<<dim3((unsigned)blocks, (unsigned)n_chunks), kThreads, smem, stream>>>(
+      data, tables, out, S, k, r, C, n_groups, chunk, aligned);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // data (S, k, C) u8, tables (ceil(r/4), k, 32) u32 from pack_tables, out
@@ -312,6 +489,24 @@ extern "C" int gf_bit_matmul_launch(const void* data, const void* tables, void* 
   return (int)launch_nibble(static_cast<const uint8_t*>(data),
                             static_cast<const uint32_t*>(tables), static_cast<uint8_t*>(out),
                             S, k, r, C, static_cast<cudaStream_t>(stream));
+}
+
+// K3: data (S, k, C) u8 of LE words of ws = w/8 bytes (ws 2 or 4, C % ws == 0),
+// tables (ceil(r ws / 4), k ws, 32) u32 from pack_tables of the (k w, r w) matrix,
+// out (S, r, C) u8, all contiguous on the current device; k ws <= 256.  Launches on
+// `stream` and does not synchronise.  Returns the launch's cudaError_t.
+extern "C" int gfw_bit_matmul_launch(const void* data, const void* tables, void* out,
+                                     long long S, int k, int r, long long C, int ws,
+                                     void* stream) {
+  if (S < 0 || C < 0 || k < 1 || r < 1 || (ws != 2 && ws != 4) || k * ws > 256 || C % ws)
+    return (int)cudaErrorInvalidValue;
+  if (S == 0 || C == 0) return (int)cudaSuccess;
+  const uint8_t* d = static_cast<const uint8_t*>(data);
+  const uint32_t* t = static_cast<const uint32_t*>(tables);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(ws == 2 ? launch_words<2>(d, t, o, S, k, r, C, st)
+                       : launch_words<4>(d, t, o, S, k, r, C, st));
 }
 
 // The first design, for the A/B only: masks (8r, nw) u64 with nw = ceil(k/8)

@@ -92,6 +92,14 @@ class ErasureCode(ErasureCodeInterface):
         except ValueError as e:
             raise ValueError(f"{name}={v} is not a valid number") from e
 
+    @staticmethod
+    def to_bool(name: str, profile: ErasureCodeProfile,
+                default: bool) -> bool:
+        v = profile.get(name, None)
+        if v is None or v == "":
+            return default
+        return str(v).lower() in ("true", "1", "yes", "on")
+
     def parse_mapping(self, profile: ErasureCodeProfile) -> None:
         m = profile.get("mapping")
         if m:

@@ -1,4 +1,4 @@
-"""Shared base for matrix-RS erasure-code plugins (isa / cuda).
+"""Shared base for matrix-RS erasure-code plugins (isa / cuda / jerasure).
 
 Port of ``ceph_tpu/ec/matrix_plugin.py``.  Wires a ``MatrixRSCodec``
 (host oracle, used by ``decode_chunks``) and the device backend
@@ -7,6 +7,15 @@ ErasureCode ABI.  ``encode_batch``, ``decode_batch`` and
 ``encode_chunks`` run on the backend's device: the CUDA kernel for
 ``backend=cuda``, its plain PyTorch version for ``backend=host``.
 
+Codecs whose device layout is not whole chunks (jerasure's word and
+bitmatrix codes) override the hooks, as in the JAX package:
+``encode_batch_device`` (the layout change and the kernel on tensors on
+the device), ``_stripe_block`` (the code block a stripe's chunk must be
+a whole number of) and ``_device_decode_supported``; where the latter is
+False, ``decode_batch`` decodes on the host codec, chosen by technique
+before any device call (``ceph_tpu/ec/jerasure.py:203-207``), and
+``decode_batch_device`` raises.
+
 Deliberately not carried over from the JAX package: the fault guard
 (injection, retry, watchdog), the circuit breaker, the host fallback on
 ``DeviceUnavailable`` and the mesh hook.  A CUDA error propagates to the
@@ -14,9 +23,10 @@ caller; the port never answers a device request from the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Set
+from typing import Dict, Sequence, Set
 
 import numpy as np
+import torch
 
 from .base import ErasureCode
 from .rs_codec import MatrixRSCodec, plan_decode
@@ -28,11 +38,15 @@ class ErasureCodeMatrixRS(ErasureCode):
     # True when encode_batch IS the plain row-independent bit-matmul on
     # raw (S, k, C) chunks; the fused resident encode (ops/resident.py)
     # models only that layout.  The JAX package's name is kept; codecs
-    # that transform the layout first (jerasure word/bitmatrix codes, not
-    # ported yet) override it to False.
+    # that transform the layout first (jerasure word/bitmatrix codes)
+    # override it to False.
     @property
     def mesh_row_shardable(self) -> bool:
         return True
+
+    # False when the device backend's data layout differs from whole
+    # chunks (jerasure word/bitmatrix codes): decode uses the host codec
+    _device_decode_supported = True
 
     def __init__(self):
         super().__init__()
@@ -69,11 +83,55 @@ class ErasureCodeMatrixRS(ErasureCode):
                                            self.torch_device)
         return self._device
 
+    def _stripe_block(self) -> int:
+        """Per-stripe chunk-size granularity (1 = pointwise byte codes;
+        jerasure overrides for packet/word layouts whose blocks must not
+        span stripe boundaries)."""
+        return 1
+
+    def _check_stripe(self, c: int) -> None:
+        if c % self._stripe_block():
+            # ECUtil's get_chunk_size always gives aligned stripes; S*C
+            # flattening would hide a misaligned one, so reject it
+            raise ValueError(
+                f"stripe chunk size {c} is not a multiple of the code "
+                f"block ({self._stripe_block()} bytes)")
+
+    # -- batched stripe API on tensors already on the backend's device ------
+    def encode_batch_device(self, data: torch.Tensor) -> torch.Tensor:
+        """(S, k, C) uint8 tensor on the backend's device -> (S, m, C)."""
+        self._check_stripe(data.shape[2])
+        return self.device().encode_device(data)
+
+    def decode_batch_device(self, survivors: torch.Tensor,
+                            srcs: Sequence[int],
+                            want_rows: Sequence[int]) -> torch.Tensor:
+        """*survivors* (S, len(srcs), C) stacked in ``srcs`` order (logical
+        chunk ids) -> the data rows ``want_rows``, (S, len(want_rows), C).
+        Raises for a codec whose decode runs on the host codec."""
+        if not self._device_decode_supported:
+            raise NotImplementedError(
+                f"{type(self).__name__} decodes on the host codec "
+                "(device layout is not whole chunks): use decode_batch")
+        return self.device().decode_data_device(survivors, tuple(srcs),
+                                                tuple(want_rows))
+
     # -- batched stripe API (ECUtil striping, osd/ECUtil.cc:120-159) --------
+    def _device_encode_batch(self, data: np.ndarray) -> np.ndarray:
+        """(S, k, C) numpy -> (S, m, C) numpy on the backend's device."""
+        t = torch.from_numpy(np.ascontiguousarray(data)).to(
+            self.torch_device)
+        return self.encode_batch_device(t).cpu().numpy()
+
+    def _device_encode(self, data: np.ndarray) -> np.ndarray:
+        """(k, C) -> (m, C) on the backend's device."""
+        return self._device_encode_batch(data[None])[0]
+
     def encode_batch(self, data: np.ndarray) -> np.ndarray:
         """(S, k, C) uint8 -> (S, m, C) coding chunks; ONE device call for
         all S stripes."""
-        return self.device().encode(data)
+        self._check_stripe(data.shape[2])
+        return self._device_encode_batch(data)
 
     def decode_batch(self, chunks: Dict[int, np.ndarray],
                      want) -> Dict[int, np.ndarray]:
@@ -93,6 +151,9 @@ class ErasureCodeMatrixRS(ErasureCode):
         l2p = {l: p for p, l in p2l.items()}
         chunks = {p2l[p]: b for p, b in chunks.items()}
         want = [p2l[p] for p in want]
+        if not self._device_decode_supported:
+            return {l2p[i]: b for i, b in self._host_decode_batch(
+                chunks, want).items()}
         srcs, want_data, want_coding, missing_data = plan_decode(
             self.k, chunks, want)
         out: Dict[int, np.ndarray] = {i: chunks[i] for i in want
@@ -114,13 +175,28 @@ class ErasureCodeMatrixRS(ErasureCode):
                 out[i] = coding[:, i - self.k]
         return {l2p[i]: b for i, b in out.items()}
 
+    def _host_decode_batch(self, chunks: Dict[int, np.ndarray],
+                           want) -> Dict[int, np.ndarray]:
+        """decode_batch on the host codec (logical ids): stripes flatten
+        into the byte axis, which is exact because each stripe's C is a
+        whole number of code blocks."""
+        some = next(iter(chunks.values()))
+        s, c = some.shape
+        self._check_stripe(c)
+        flat = {i: np.ascontiguousarray(b).reshape(s * c)
+                for i, b in chunks.items()}
+        dec = self.codec.decode(flat, list(want))
+        return {i: (chunks[i] if i in chunks
+                    else np.ascontiguousarray(dec[i]).reshape(s, c))
+                for i in want}
+
     # -- encode/decode ------------------------------------------------------
     def encode_chunks(self, want_to_encode: Set[int],
                       encoded: Dict[int, np.ndarray]) -> None:
         # buffers are keyed by *physical* index (chunk_index); the codec works
         # in logical rows.  mapping= profiles permute the two.
         data = np.stack([encoded[self.chunk_index(i)] for i in range(self.k)])
-        coding = self.device().encode(data[None])[0]
+        coding = self._device_encode(data)
         for i in range(self.m):
             # fill in place so callers holding references see the parity
             encoded[self.chunk_index(self.k + i)][...] = coding[i]

@@ -3,8 +3,9 @@
 Port of ``ceph_tpu/ec/registry.py`` (reference
 src/erasure-code/ErasureCodePlugin.cc:126-184): plugins are registered by
 name into a lock-guarded singleton, version-checked, and instantiated per
-profile.  Built in: ``isa`` and ``cuda``; the other families come with
-later slices of the port.
+profile.  Built in: ``jerasure`` (the default, as in the JAX package and
+in Ceph), ``isa``, ``cuda``, ``shec``, ``lrc`` and ``example_xor``; the
+JAX package's own ``regenerating`` code is not ported yet.
 """
 from __future__ import annotations
 
@@ -62,12 +63,24 @@ class ErasureCodePluginRegistry:
         if name in self._plugins:
             return
         factory = None
-        if name == "isa":
+        if name == "jerasure":
+            from .jerasure import ErasureCodeJerasure
+            factory = ErasureCodeJerasure
+        elif name == "isa":
             from .isa import ErasureCodeIsa
             factory = ErasureCodeIsa
         elif name == "cuda":
             from .cuda_plugin import ErasureCodeCuda
             factory = ErasureCodeCuda
+        elif name == "lrc":
+            from .lrc import ErasureCodeLrc
+            factory = ErasureCodeLrc
+        elif name == "shec":
+            from .shec import ErasureCodeShec
+            factory = ErasureCodeShec
+        elif name == "example_xor":
+            from .example_xor import ErasureCodeExampleXor
+            factory = ErasureCodeExampleXor
         if factory is not None:
             self._plugins[name] = ErasureCodePlugin(factory)
 
@@ -78,5 +91,6 @@ instance = ErasureCodePluginRegistry()
 def create_erasure_code(profile: ErasureCodeProfile) -> ErasureCodeInterface:
     """mon-style entry point (reference mon/OSDMonitor.cc:5335
     get_erasure_code): profile['plugin'] selects the codec (default
-    ``cuda``)."""
-    return instance.factory(profile.get("plugin", "cuda"), profile)
+    ``jerasure``, as in the JAX package).  The backend defaults to
+    ``cuda`` whatever the plugin."""
+    return instance.factory(profile.get("plugin", "jerasure"), profile)

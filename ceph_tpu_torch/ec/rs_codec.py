@@ -2,7 +2,9 @@
 
 A copy of ``ceph_tpu/ec/rs_codec.py`` for the port.  It is the host
 oracle of the device path (ops/gf_matmul.py), used where the JAX package
-uses it: ``decode_chunks`` of the matrix plugins.  Both consume the same
+uses it: ``decode_chunks`` of the matrix plugins, and ``decode_batch`` of
+the codecs whose device layout is not whole chunks (jerasure word and
+bitmatrix codes).  Both consume the same
 coding matrices (gf/matrices.py) and agree byte for byte.
 
 Decode strategy (semantics of isa-l matrix decoding as used by the
@@ -68,22 +70,33 @@ def gf_matvec_bytes(matrix_rows: np.ndarray, data: np.ndarray) -> np.ndarray:
 
 class MatrixRSCodec:
     """Systematic (k+m, k) matrix code executor with signature-cached
-    decode."""
+    decode.  Subclasses for other fields/layouts (gf/word_codec.py
+    GF(2^w) words) override the ``_matvec``/``_invert`` primitives and
+    inherit the encode/decode scaffolding unchanged."""
+
+    _matrix_dtype = np.uint8
 
     def __init__(self, encode_matrix: np.ndarray):
         rows, k = encode_matrix.shape
         self.k = k
         self.m = rows - k
-        self.matrix = encode_matrix.astype(np.uint8)
+        self.matrix = encode_matrix.astype(self._matrix_dtype)
         self.coding_rows = self.matrix[k:, :]
         self._decode_cache: "OrderedDict[Tuple[int, ...], np.ndarray]" = \
             OrderedDict()
         self._lock = threading.Lock()
 
+    # -- field/layout primitives (override points) ---------------------------
+    def _matvec(self, rows: np.ndarray, data: np.ndarray) -> np.ndarray:
+        return gf_matvec_bytes(rows, data)
+
+    def _invert(self, sub: np.ndarray) -> np.ndarray:
+        return gf_invert_matrix(sub)
+
     # -- encode -------------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:
         """data (k, C) uint8 -> coding (m, C) uint8."""
-        return gf_matvec_bytes(self.coding_rows, data)
+        return self._matvec(self.coding_rows, data)
 
     # -- decode -------------------------------------------------------------
     def decode_matrix_for(
@@ -100,7 +113,7 @@ class MatrixRSCodec:
             if hit is not None:
                 self._decode_cache.move_to_end(key)
                 return hit, list(key)
-        inv = gf_invert_matrix(self.matrix[list(srcs), :])
+        inv = self._invert(self.matrix[list(srcs), :])
         with self._lock:
             self._decode_cache[key] = inv
             if len(self._decode_cache) > DECODE_CACHE_ENTRIES:
@@ -122,7 +135,7 @@ class MatrixRSCodec:
         if want_data or want_coding:
             # only the data rows actually missing need the matvec; surviving
             # data rows come straight from chunks
-            rec = gf_matvec_bytes(inv[missing_data, :], src_stack)
+            rec = self._matvec(inv[missing_data, :], src_stack)
             data_by_id = dict(zip(missing_data, rec))
             for i in want_data:
                 out[i] = data_by_id[i]
@@ -130,7 +143,7 @@ class MatrixRSCodec:
                 data_full = np.stack([
                     chunks[i] if i in chunks else data_by_id[i]
                     for i in range(self.k)])
-                cod = gf_matvec_bytes(self.matrix[want_coding, :], data_full)
+                cod = self._matvec(self.matrix[want_coding, :], data_full)
                 for idx, i in enumerate(want_coding):
                     out[i] = cod[idx]
         for i in want:

@@ -4,8 +4,11 @@ A copy of the JAX package's ``gf/matrices.py`` for the isa-matrix
 family: ``gf_gen_rs_matrix`` / ``gf_gen_cauchy1_matrix`` reproduce the
 isa-l generators selected in the reference's isa plugin
 (src/erasure-code/isa/ErasureCodeIsa.cc:383-386): an (k+m) x k matrix
-whose top k rows are the identity (systematic code).  jerasure's
-Vandermonde construction comes with the jerasure slice of the port.
+whose top k rows are the identity (systematic code).
+``jerasure_reed_sol_van_matrix`` reproduces jerasure's
+``reed_sol_vandermonde_coding_matrix`` (the reed_sol_van technique,
+src/erasure-code/jerasure/ErasureCodeJerasure.cc:155): the m x k coding
+rows of an extended Vandermonde matrix reduced to systematic form.
 """
 from __future__ import annotations
 
@@ -44,6 +47,14 @@ def gf_gen_cauchy1_matrix(rows: int, k: int) -> np.ndarray:
         for j in range(k):
             a[i, j] = gf_inv(i ^ j)
     return a
+
+
+def jerasure_reed_sol_van_matrix(k: int, m: int) -> np.ndarray:
+    """m x k coding matrix matching jerasure reed_sol_van (w=8): the w=8
+    instance of gf/word_codec.reed_sol_van_matrix_w (gfw_mul(a, b, 8) is
+    gf_mul(a, b): the same 0x11D polynomial)."""
+    from .word_codec import reed_sol_van_matrix_w
+    return reed_sol_van_matrix_w(k, m, 8).astype(np.uint8)
 
 
 def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -1,0 +1,179 @@
+"""GF(2^w) word-layout RS codecs for w=16/32 (jerasure reed_sol family).
+
+A copy of ``ceph_tpu/gf/word_codec.py`` for the port.  jerasure's
+reed_sol techniques at w=16/32 work on little-endian w-bit *words*: chunk
+bytes are viewed as u16/u32 arrays and every word is multiplied in
+GF(2^w) (galois_w16/w32_region_multiply behind jerasure_matrix_encode,
+src/erasure-code/jerasure/ErasureCodeJerasure.cc:155).  This module
+supplies:
+
+- matrix generators over GF(2^w) (extended-Vandermonde systematization and
+  the RAID-6 [1..1; 1,2,4..] rows), the w=8 instance of which is
+  gf/matrices.jerasure_reed_sol_van_matrix;
+- the host codec, whose multiply uses per-coefficient byte split tables
+  (product(a, d) = XOR over bytes b of T_ab[byte b of d]), vectorized
+  numpy over whole chunks: the oracle of the device path;
+- GF(2^w) matrix inversion for decode, signature-cached like the w=8 path.
+
+The device path is ops/gf_matmul.DeviceWordRSBackend: the word-layout
+bit-matmul kernel (csrc/gf_bit_matmul.cu) over the (k*w, m*w) companion
+bitmatrix.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from ..ec.rs_codec import MatrixRSCodec
+from .bitmatrix import gfw_div, gfw_inv, gfw_mul
+
+_WORD_DTYPE = {16: np.dtype("<u2"), 32: np.dtype("<u4")}
+
+
+def extended_vandermonde_w(rows: int, cols: int, w: int) -> np.ndarray:
+    """jerasure's extended Vandermonde matrix over GF(2^w)."""
+    v = np.zeros((rows, cols), dtype=np.int64)
+    v[0, 0] = 1
+    if rows == 1:
+        return v
+    v[rows - 1, cols - 1] = 1
+    for i in range(1, rows - 1):
+        acc = 1
+        for j in range(cols):
+            v[i, j] = acc
+            acc = gfw_mul(acc, i, w)
+    return v
+
+
+def reed_sol_van_matrix_w(k: int, m: int, w: int) -> np.ndarray:
+    """m x k coding matrix matching jerasure reed_sol_van over GF(2^w)
+    (jerasure's column-elimination systematization)."""
+    rows, cols = k + m, k
+    dist = extended_vandermonde_w(rows, cols, w)
+    for i in range(1, cols):
+        j = i
+        while j < rows and dist[j, i] == 0:
+            j += 1
+        if j >= rows:
+            raise ValueError("singular extended Vandermonde matrix")
+        if j > i:
+            dist[[i, j], :] = dist[[j, i], :]
+        if dist[i, i] != 1:
+            inv = gfw_div(1, int(dist[i, i]), w)
+            for r in range(rows):
+                dist[r, i] = gfw_mul(inv, int(dist[r, i]), w)
+        for jj in range(cols):
+            t = int(dist[i, jj])
+            if jj != i and t != 0:
+                for r in range(rows):
+                    dist[r, jj] ^= gfw_mul(t, int(dist[r, i]), w)
+    return dist[k:, :].copy()
+
+
+def reed_sol_r6_matrix_w(k: int, w: int) -> np.ndarray:
+    """RAID6 rows over GF(2^w): ones and powers of 2."""
+    m = np.zeros((2, k), dtype=np.int64)
+    m[0, :] = 1
+    p = 1
+    for j in range(k):
+        m[1, j] = p
+        p = gfw_mul(p, 2, w)
+    return m
+
+
+def gfw_invert_matrix(mat: np.ndarray, w: int) -> np.ndarray:
+    """Invert a k x k matrix over GF(2^w) (Gauss-Jordan, scalar ops)."""
+    k = mat.shape[0]
+    a = mat.astype(np.int64).copy()
+    inv = np.eye(k, dtype=np.int64)
+    for col in range(k):
+        pivot = col
+        while pivot < k and a[pivot, col] == 0:
+            pivot += 1
+        if pivot == k:
+            raise np.linalg.LinAlgError("singular GF(2^w) matrix")
+        if pivot != col:
+            a[[col, pivot]] = a[[pivot, col]]
+            inv[[col, pivot]] = inv[[pivot, col]]
+        piv = gfw_inv(int(a[col, col]), w)
+        if piv != 1:
+            for c in range(k):
+                a[col, c] = gfw_mul(piv, int(a[col, c]), w)
+                inv[col, c] = gfw_mul(piv, int(inv[col, c]), w)
+        for r in range(k):
+            if r != col and a[r, col]:
+                f = int(a[r, col])
+                for c in range(k):
+                    a[r, c] ^= gfw_mul(f, int(a[col, c]), w)
+                    inv[r, c] ^= gfw_mul(f, int(inv[col, c]), w)
+    return inv
+
+
+class _SplitMul:
+    """Per-coefficient byte split tables: product = XOR_b T[b][byte_b]."""
+
+    def __init__(self, coeff: int, w: int):
+        dt = _WORD_DTYPE[w]
+        self.tables = []
+        for b in range(w // 8):
+            t = np.zeros(256, dtype=dt)
+            for v in range(256):
+                t[v] = gfw_mul(coeff, v << (8 * b), w)
+            self.tables.append(t)
+
+    def __call__(self, words: np.ndarray) -> np.ndarray:
+        acc = self.tables[0][words & 0xFF]
+        for b in range(1, len(self.tables)):
+            acc = acc ^ self.tables[b][(words >> (8 * b)) & 0xFF]
+        return acc
+
+
+class WordMatrixCodec(MatrixRSCodec):
+    """Systematic (k+m, k) GF(2^w) code executor over LE word chunks.
+
+    Inherits MatrixRSCodec's encode/decode scaffolding (signature-cached
+    inversion, plan_decode routing) and swaps the two field primitives:
+    the matvec runs split-table word multiplies, the inversion runs
+    GF(2^w) Gauss-Jordan."""
+
+    _matrix_dtype = np.int64
+
+    def __init__(self, encode_matrix: np.ndarray, w: int):
+        if w not in _WORD_DTYPE:
+            raise ValueError(f"w={w} not in {sorted(_WORD_DTYPE)}")
+        self.w = w
+        super().__init__(encode_matrix)
+        self._mul_cache: Dict[int, _SplitMul] = {}
+
+    def _mul(self, coeff: int) -> _SplitMul:
+        sm = self._mul_cache.get(coeff)
+        if sm is None:
+            sm = self._mul_cache[coeff] = _SplitMul(coeff, self.w)
+        return sm
+
+    def _matvec(self, rows: np.ndarray, data: np.ndarray) -> np.ndarray:
+        """rows (r, k) GF(2^w) x data (k, C) uint8 -> (r, C) uint8."""
+        r, k = rows.shape
+        kk, C = data.shape
+        if k != kk or C % (self.w // 8):
+            raise ValueError(f"rows {rows.shape} do not fit data {data.shape}"
+                             f" of w={self.w} words")
+        dt = _WORD_DTYPE[self.w]
+        words = np.ascontiguousarray(data).view(dt)   # (k, C/ws)
+        out = np.zeros((r, words.shape[1]), dtype=dt)
+        for i in range(r):
+            acc = out[i]
+            for j in range(k):
+                c = int(rows[i, j])
+                if c == 0:
+                    continue
+                if c == 1:
+                    acc ^= words[j]
+                else:
+                    acc ^= self._mul(c)(words[j])
+            out[i] = acc
+        return out.view(np.uint8).reshape(r, C)
+
+    def _invert(self, sub: np.ndarray) -> np.ndarray:
+        return gfw_invert_matrix(sub, self.w)

@@ -12,6 +12,11 @@ rows to bits, and the device runs the identical product.
 kernel) or ``"cpu"`` (the plain PyTorch version, for tests and for a
 caller that asks for the CPU).  Asking for CUDA without a CUDA device
 raises; nothing falls back.
+
+jerasure's reed_sol codes at w = 16/32 work on little-endian w-bit words:
+``expand_to_bitmatrix_w`` gives their (k*w, m*w) companion bitmatrix,
+``gfw_bit_matmul`` is the contract of the JAX function of that name, and
+``DeviceWordRSBackend`` encodes with it through the K3 kernel.
 """
 from __future__ import annotations
 
@@ -23,9 +28,11 @@ import numpy as np
 import torch
 
 from ..ec.rs_codec import DECODE_CACHE_ENTRIES
+from ..gf.bitmatrix import element_bitmatrix
 from ..gf.matrices import gf_invert_matrix
 from ..gf.tables import expand_to_bitmatrix
-from .gf_pallas import BitMatrix, gf_bit_matmul_kernel
+from .gf_pallas import (WORD_WIDTHS, BitMatrix, gf_bit_matmul_kernel,
+                        gfw_bit_matmul_kernel)
 
 
 def resolve_device(device) -> torch.device:
@@ -50,6 +57,57 @@ def gf_bit_matmul(data: torch.Tensor,
     if not isinstance(bitmat, BitMatrix):
         bitmat = BitMatrix(bitmat, data.device)
     return gf_bit_matmul_kernel(data, bitmat)
+
+
+def gfw_bit_matmul(data: torch.Tensor,
+                   bitmat: Union[BitMatrix, np.ndarray], w: int) -> torch.Tensor:
+    """data (S, k, C) uint8 read as LE w-bit words, bitmat (k*w, r*w) 0/1
+    -> (S, r, C) uint8: the contract of
+    ``ceph_tpu.ops.gf_matmul.gfw_bit_matmul`` for w = 16, 32."""
+    if not isinstance(bitmat, BitMatrix):
+        bitmat = BitMatrix(bitmat, data.device)
+    return gfw_bit_matmul_kernel(data, bitmat, w)
+
+
+def expand_to_bitmatrix_w(coding: np.ndarray, w: int) -> np.ndarray:
+    """(m, k) GF(2^w) coefficients -> (k*w, m*w) 0/1 matrix in the
+    d @ B convention ``gfw_bit_matmul`` consumes (gf/tables.py
+    expand_to_bitmatrix generalized via the companion representation)."""
+    mm, kk = coding.shape
+    out = np.zeros((kk * w, mm * w), dtype=np.uint8)
+    for r in range(mm):
+        for c in range(kk):
+            bm = element_bitmatrix(int(coding[r, c]), w)
+            out[c * w:(c + 1) * w, r * w:(r + 1) * w] = bm.T
+    return out
+
+
+class DeviceWordRSBackend:
+    """Encoder for one (k+m, k) GF(2^w) word-layout code on one device.
+
+    Decode of these codes runs on the host codec (gf/word_codec.py), as
+    in the JAX package: the backend encodes only."""
+
+    def __init__(self, encode_matrix: np.ndarray, w: int, device="cuda"):
+        if w not in WORD_WIDTHS:
+            raise ValueError(f"w={w} not in {WORD_WIDTHS}")
+        rows, k = encode_matrix.shape
+        self.device = resolve_device(device)
+        self.k = k
+        self.m = rows - k
+        self.w = w
+        self.matrix = np.asarray(encode_matrix).astype(np.int64)
+        self._enc = BitMatrix(expand_to_bitmatrix_w(self.matrix[k:], w),
+                              self.device)
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy)."""
+        t = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+        return self.encode_device(t).cpu().numpy()
+
+    def encode_device(self, data: torch.Tensor) -> torch.Tensor:
+        """(S, k, C) uint8 tensor on this device -> (S, m, C) tensor."""
+        return gfw_bit_matmul_kernel(data, self._enc, self.w)
 
 
 class DeviceRSBackend:
@@ -118,18 +176,25 @@ class DeviceRSBackend:
         return gf_bit_matmul_kernel(survivors, bits)
 
 
-def backend_from_matrix(encode_matrix: np.ndarray,
-                        device="cuda") -> DeviceRSBackend:
-    """The port's backend for a (k+m, k) uint8 coding matrix taken from
-    elsewhere, e.g. ``codec.matrix`` of an initialised JAX-side isa/tpu
-    plugin: in erasure coding the matrix is the whole of the weights."""
+def backend_from_matrix(encode_matrix: np.ndarray, device="cuda",
+                        w: int = 8):
+    """The port's backend for a (k+m, k) coding matrix taken from
+    elsewhere, e.g. ``codec.matrix`` of an initialised JAX-side plugin: in
+    erasure coding the matrix is the whole of the weights.  ``w`` = 8
+    takes GF(2^8) entries (isa, tpu, jerasure at w=8, or the 0/1 virtual
+    matrix of a jerasure bitmatrix code) and gives a ``DeviceRSBackend``;
+    ``w`` = 16 or 32 takes GF(2^w) entries (jerasure reed_sol at that w)
+    and gives a ``DeviceWordRSBackend``."""
     m = np.asarray(encode_matrix)
+    if w not in (8,) + WORD_WIDTHS:
+        raise ValueError(f"w={w} not in 8|16|32")
     if m.ndim != 2 or m.shape[0] <= m.shape[1]:
         raise ValueError(f"encode matrix {m.shape} is not (k+m, k)")
-    if m.dtype != np.uint8:
-        if m.min() < 0 or m.max() > 255:
-            raise ValueError("encode matrix entries outside GF(2^8)")
+    if m.size and (int(m.min()) < 0 or int(m.max()) >= 1 << w):
+        raise ValueError(f"encode matrix entries outside GF(2^{w})")
     if not np.array_equal(m[:m.shape[1]], np.eye(m.shape[1])):
         raise ValueError("encode matrix is not systematic (top k rows "
                          "are not the identity)")
-    return DeviceRSBackend(m.astype(np.uint8), device)
+    if w == 8:
+        return DeviceRSBackend(m.astype(np.uint8), device)
+    return DeviceWordRSBackend(m.astype(np.int64), w, device)

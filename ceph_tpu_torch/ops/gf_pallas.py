@@ -19,6 +19,13 @@ into per-row nibble tables held in shared memory.
 - ``gf_bit_matmul_popc(data, bm)`` launches the first design of the
   kernel (a masked popcount per output bit, ``pack_masks``) on a CUDA
   tensor; it is kept only as the baseline of chip_smoke.py's A/B.
+- ``gfw_bit_matmul_kernel(data, bm, w)`` is K3, the GF(2^w) word layout
+  (w = 16, 32) of ``ceph_tpu/ops/gf_matmul.py::gfw_bit_matmul``: ``bm``
+  holds the (k*w, r*w) companion bitmatrix, which is K1's matrix over k*w/8
+  virtual data rows, so its tables are ``pack_tables`` unchanged; the
+  kernel is ``gfw_bit_matmul_launch`` in the same source.  Same rules as
+  K1; ``word_launches.n`` counts its launches, ``gfw_bit_matmul_plain``
+  is its plain version.
 """
 from __future__ import annotations
 
@@ -44,7 +51,16 @@ _SIGNATURES = {
          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
+    "gfw_bit_matmul_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
 }
+
+# word widths K3 takes, and its limit on virtual data rows (k * w / 8)
+WORD_WIDTHS = (16, 32)
+MAX_VIRTUAL_ROWS = 256
 
 # float32 unpacked planes the plain version materialises per chunk of
 # stripes (the whole smoke batch would be 8 GiB at once)
@@ -61,7 +77,8 @@ class LaunchCounter:
         self.n = 0
 
 
-launches = LaunchCounter()
+launches = LaunchCounter()          # K1
+word_launches = LaunchCounter()     # K3
 
 
 def pack_masks(bits: np.ndarray) -> np.ndarray:
@@ -178,10 +195,11 @@ def _check(data: torch.Tensor, bm: BitMatrix) -> None:
                          f"k={bm.k}")
 
 
-def _launch(entry: str, data: torch.Tensor, bm: BitMatrix,
+def _launch(entry: str, data: torch.Tensor, r: int,
             table: torch.Tensor, *extra) -> Tuple[torch.Tensor, bool]:
-    """Launch ``entry`` of the CUDA source on a CUDA tensor, or raise.
-    Returns the output and whether a kernel ran (not for an empty one)."""
+    """Launch ``entry`` of the CUDA source on a CUDA tensor into a new
+    (S, r, C) output, or raise.  Returns the output and whether a kernel
+    ran (not for an empty one)."""
     if data.device.type != "cuda":
         raise RuntimeError(f"gf_bit_matmul: no kernel for device "
                            f"{data.device}")
@@ -191,13 +209,13 @@ def _launch(entry: str, data: torch.Tensor, bm: BitMatrix,
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
     s, k, c = data.shape
-    out = torch.empty((s, bm.r, c), dtype=torch.uint8, device=data.device)
+    out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out, False
     lib = _build.load("gf_bit_matmul", _SIGNATURES)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     rc = getattr(lib, entry)(data.data_ptr(), table.data_ptr(),
-                             out.data_ptr(), s, k, bm.r, c, *extra, stream)
+                             out.data_ptr(), s, k, r, c, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed: cudaError {rc}")
     return out, True
@@ -211,7 +229,7 @@ def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
     _check(data, bm)
     if data.device.type == "cpu":
         return gf_bit_matmul_plain(data, bm.bits.cpu())
-    out, launched = _launch("gf_bit_matmul_launch", data, bm, bm.tables)
+    out, launched = _launch("gf_bit_matmul_launch", data, bm.r, bm.tables)
     launches.n += launched
     return out
 
@@ -220,5 +238,74 @@ def gf_bit_matmul_popc(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
     """The first design of the kernel on a CUDA tensor, for the A/B; no
     plain version here and no launch count."""
     _check(data, bm)
-    return _launch("gf_bit_matmul_popc_launch", data, bm, bm.masks,
+    return _launch("gf_bit_matmul_popc_launch", data, bm.r, bm.masks,
                    bm.masks.shape[1])[0]
+
+
+# -- K3: the GF(2^w) word layout ---------------------------------------------
+
+def gfw_bit_matmul_plain(data: torch.Tensor, bitmat: torch.Tensor,
+                         w: int) -> torch.Tensor:
+    """data (S, k, C) uint8 read as little-endian w-bit words, bitmat
+    (k*w, r*w) 0/1 -> (S, r, C) uint8 of the same words.
+
+    Each word unpacks to its w bits (LE: word bit 8b + i is bit i of byte
+    b), the float32 product with TF32 off runs over k*w bit lanes, and the
+    parity packs back into words, stripes walked in chunks as in
+    ``gf_bit_matmul_plain``."""
+    s, k, c = data.shape
+    ws = w // 8
+    nw = c // ws
+    r = bitmat.shape[1] // w
+    wt = bitmat.to(device=data.device, dtype=torch.float32)
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=data.device))
+    out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
+    step = max(1, _PLAIN_CHUNK_BYTES // max(1, c * k * 8 * 4))
+    with _full_float32():
+        for s0 in range(0, s, step):
+            d = data[s0:s0 + step]
+            n = d.shape[0]
+            words = d.reshape(n, k, nw, ws).permute(0, 2, 1, 3)   # (n, W, k, ws)
+            bits = ((words.unsqueeze(-1) >> shifts) & 1).reshape(n, nw, k * w)
+            acc = bits.to(torch.float32) @ wt                    # (n, W, r*w)
+            par = acc.to(torch.int32) & 1
+            packed = (par.reshape(n, nw, r * ws, 8) * weights).sum(-1)
+            out[s0:s0 + n] = packed.to(torch.uint8).reshape(
+                n, nw, r, ws).permute(0, 2, 1, 3).reshape(n, r, c)
+    return out
+
+
+def _check_word(data: torch.Tensor, bm: BitMatrix, w: int) -> int:
+    """Validate K3's contract; returns the word's bytes ws = w / 8."""
+    if w not in WORD_WIDTHS:
+        raise ValueError(f"w={w} not in {WORD_WIDTHS}")
+    if data.dim() != 3 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be (S, k, C) uint8, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    ws = w // 8
+    if data.shape[1] * ws != bm.k or bm.r % ws:
+        raise ValueError(f"data has k={data.shape[1]}, bit matrix is "
+                         f"({8 * bm.k}, {8 * bm.r}): not (k*{w}, r*{w})")
+    if bm.k > MAX_VIRTUAL_ROWS:
+        raise ValueError(f"k*w/8 = {bm.k} virtual rows > {MAX_VIRTUAL_ROWS}")
+    if data.shape[2] % ws:
+        raise ValueError(f"chunk size {data.shape[2]} is not whole "
+                         f"{w}-bit words")
+    return ws
+
+
+def gfw_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix,
+                          w: int) -> torch.Tensor:
+    """data (S, k, C) uint8 of LE w-bit words -> (S, r, C) through K3.
+
+    ``bm`` is the (k*w, r*w) bitmatrix as a ``BitMatrix``.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel on the
+    current stream or raises; any other device raises."""
+    ws = _check_word(data, bm, w)
+    if data.device.type == "cpu":
+        return gfw_bit_matmul_plain(data, bm.bits.cpu(), w)
+    out, launched = _launch("gfw_bit_matmul_launch", data, bm.r // ws,
+                            bm.tables, ws)
+    word_launches.n += launched
+    return out

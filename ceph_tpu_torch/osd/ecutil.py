@@ -4,9 +4,10 @@ Port of ``ceph_tpu/osd/ecutil.py:28-224`` for the matrix codecs.  The
 reference loops stripes one at a time through the plugin
 (src/osd/ECUtil.cc:120-159 encode, :9-45 decode); here a multi-stripe
 payload is reshaped into one (S, k, C) uint8 array and handed to the
-codec's batched entry points (one kernel launch for all S stripes).  An
-encode with a ``mapping=`` profile goes through the per-stripe loop of
-the reference instead; results are identical either way, and each
+codec's batched entry points (one kernel launch for all S stripes; lrc's
+``encode_batch_full``, one per layer).  Any other encode with a
+``mapping=`` profile goes through the per-stripe loop of the reference
+instead; results are identical either way, and each
 shard's buffer is its stripe-concatenated chunks.  Decodes always take
 ``decode_batch``, which handles the mapping itself.
 
@@ -96,6 +97,11 @@ def encode(sinfo: stripe_info_t, ec_impl, data,
     C = sinfo.get_chunk_size()
     want_l = sorted(want)
 
+    if hasattr(ec_impl, "encode_batch_full"):
+        # mapped layered codes (lrc): one batched call per layer yields
+        # every physical chunk directly
+        allc = ec_impl.encode_batch_full(buf.reshape(S, k, C))  # (S, n, C)
+        return _pack_rows(want_l, (allc[:, i, :] for i in want_l))
     if hasattr(ec_impl, "encode_batch") and not ec_impl.get_chunk_mapping():
         stripes = buf.reshape(S, k, C)
         coding = ec_impl.encode_batch(stripes)        # (S, m, C)

@@ -63,6 +63,27 @@ The one-pass fused encode adds, after 3b:
    two-launch form (the one-pass count must stay put there, the bit-matmul
    and crc32c counts move).
 
+The codec-family slice adds, after 5r:
+
+3w. the word-layout kernel K3 (``gfw_bit_matmul_launch``) against
+   ``gfw_bit_matmul_plain``, byte-exact, at w = 16 and 32: the path shape
+   (S, k, m, C) = (16384, 4, 2, 4096), (5, 3) and (1, 1), k' = k w/8 = 256,
+   C = w/8 and 4096 + 3 w/8, random 0/1 matrices, a pointer one byte off
+   16-byte alignment (the byte path); and its prior form (torch
+   de-interleave, K1, re-interleave) at the path shape;
+4j. seven k=4 profiles (jerasure reed_sol_van w=8/16/32, reed_sol_r6_op,
+   cauchy_good at packetsize 2048, shec k4m3c2, lrc k4m2l3) on the same 64
+   objects of 4 MiB, chunk ``get_chunk_size(4 * 4096)``: (a) ``ecutil.encode``
+   per object, (b) one batched encode of all 64 (numpy in and out), (c)
+   ``ecutil.decode_concat`` per object with one data and one coding chunk
+   lost where the code tolerates it; the batch against the per-object
+   shards, object 0 against the host codec, the decoded objects against the
+   payloads, byte-exact; K3 must launch and K1 must not on w=16/32, K1 on
+   the others; which profiles decode on the host codec is logged;
+5w. K3 at the path shape per w in turns with its prior form and a device
+   copy of its bytes, its plain version, the (a)/(b)/(c) rates per profile,
+   and K1 at cauchy_good's virtual shape (1024, 32, 16, 8192).
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -141,7 +162,7 @@ def sass_counts(so_path, nvcc):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(r"(?:gf_\w+?|crc32c\w*?|fused\w*?)_kernel",
+            base = re.search(r"(?:gfw?_\w+?|crc32c\w*?|fused\w*?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (
@@ -521,6 +542,262 @@ def resident_times(batch, codec, objs_dev, dev) -> dict:
     return times
 
 
+def word_bound_ms(s: int, k: int, r: int, c: int, w: int):
+    """Least time for K3: each input byte read once and each output byte
+    written once over HBM, against the product counted as an int8 matmul
+    over the words' bits (2 * S*(C/ws) * k*w * r*w) at peak."""
+    t_bytes = (s * k * c + s * r * c) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * s * (c // (w // 8)) * (k * w) * (r * w) / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def word_prior(data, bm, w):
+    """K3's plain alternative on the card: torch de-interleave to the
+    virtual byte layout, K1, re-interleave."""
+    from ceph_tpu_torch.ops import gf_pallas
+    s, k, c = data.shape
+    ws = w // 8
+    virt = data.view(s, k, c // ws, ws).permute(0, 1, 3, 2).reshape(
+        s, k * ws, c // ws)
+    out = gf_pallas.gf_bit_matmul_kernel(virt, bm)
+    r = bm.r // ws
+    return out.view(s, r, ws, c // ws).permute(0, 1, 3, 2).reshape(s, r, c)
+
+
+def word_checks(gen, rng, dev):
+    """3w: K3 against its plain version on the card, byte-exact, at the
+    path shape (16384, 4, 2, 4096), at (5, 3) and (1, 1), at k' = 256, at
+    C = w/8 and 4096 + 3 w/8, on random 0/1 matrices and on a pointer one
+    byte off 16-byte alignment (the byte path); returns the max error and
+    the path-shape inputs for the times."""
+    from ceph_tpu_torch.gf.word_codec import reed_sol_van_matrix_w
+    from ceph_tpu_torch.ops import gf_pallas
+    from ceph_tpu_torch.ops.gf_matmul import expand_to_bitmatrix_w
+    worst, inputs = 0, {}
+    for w in (16, 32):
+        ws = w // 8
+        van = {(k, m): gf_pallas.BitMatrix(expand_to_bitmatrix_w(
+            reed_sol_van_matrix_w(k, m, w), w), dev)
+            for k, m in ((4, 2), (5, 3), (1, 1), (256 // ws, 2))}
+        cases = [("path", (16384, 4, 2, 4096), van[4, 2]),
+                 ("k5m3", (64, 5, 3, 4096), van[5, 3]),
+                 ("k1m1", (64, 1, 1, 4096), van[1, 1]),
+                 ("kv256", (8, 256 // ws, 2, 4096), van[256 // ws, 2]),
+                 ("one_word", (33, 4, 2, ws), van[4, 2]),
+                 ("ragged", (33, 4, 2, 4096 + 3 * ws), van[4, 2])]
+        for k, m in ((3, 1), (6, 5), (9, 4)):
+            bm = gf_pallas.BitMatrix(
+                rng.integers(0, 2, (k * w, m * w), dtype=np.uint8), dev)
+            for c in (ws, 200 - 200 % ws, 4096 + ws):
+                cases.append((f"random_{k}x{m}x{c}", (5, k, m, c), bm))
+        cases.append(("misaligned", (64, 4, 2, 4096), van[4, 2]))
+        for name, (s, k, m, c), bm in cases:
+            if name == "misaligned":
+                buf = torch.randint(0, 256, (s * k * c + 1,), generator=gen,
+                                    device=dev, dtype=torch.uint8)
+                data = buf[1:].view(s, k, c)
+                if data.data_ptr() % 16 != 1:
+                    raise AssertionError("misaligned K3 case is not one "
+                                         "byte off")
+            else:
+                data = torch.randint(0, 256, (s, k, c), generator=gen,
+                                     device=dev, dtype=torch.uint8)
+            got = gf_pallas.gfw_bit_matmul_kernel(data, bm, w)
+            want = gf_pallas.gfw_bit_matmul_plain(data, bm.bits, w)
+            torch.cuda.synchronize()
+            err = int_err(got, want)
+            if not name.startswith("random_") or err:
+                log(f"check gfw w={w} {name} (S,k,m,C)={(s, k, m, c)} "
+                    f"max_abs_err={err}")
+            if err:
+                raise AssertionError(f"K3 disagrees with plain at w={w} "
+                                     f"{name}")
+            worst = max(worst, err)
+            if name == "path":
+                if not torch.equal(word_prior(data, bm, w), got):
+                    raise AssertionError(f"K3 prior form disagrees at w={w}")
+                inputs[w] = (data, bm)
+            del got, want
+        log(f"check gfw w={w}: {len(cases)} shapes byte-exact (random 0/1 "
+            "matrices included), prior form equal at the path shape")
+    return worst, inputs
+
+
+# 4j: the codec families at full width (k=4 profiles; SURVEY's reference
+# profile at three word widths, RAID-6, cauchy_good at jerasure's default
+# packet size, and the corpus's shec and lrc profiles)
+FAMILY_PROFILES = [
+    ("jerasure_van_w8", {"plugin": "jerasure", "technique": "reed_sol_van",
+                         "k": "4", "m": "2", "w": "8"}),
+    ("jerasure_van_w16", {"plugin": "jerasure", "technique": "reed_sol_van",
+                          "k": "4", "m": "2", "w": "16"}),
+    ("jerasure_van_w32", {"plugin": "jerasure", "technique": "reed_sol_van",
+                          "k": "4", "m": "2", "w": "32"}),
+    ("jerasure_r6_op", {"plugin": "jerasure", "technique": "reed_sol_r6_op",
+                        "k": "4"}),
+    ("jerasure_cauchy_good", {"plugin": "jerasure",
+                              "technique": "cauchy_good", "k": "4", "m": "2",
+                              "packetsize": "2048"}),
+    ("shec_k4m3c2", {"plugin": "shec", "k": "4", "m": "3", "c": "2"}),
+    ("lrc_k4m2l3", {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}),
+]
+FAMILY_RUNS = 3
+
+
+def host_encode(codec, flat: np.ndarray) -> np.ndarray:
+    """All n chunks (physical order) of (k, L) logical data, on the port's
+    host codecs: the split-table word codec at w = 16/32, the packet codec
+    for bitmatrix codes, the GF(2^8) matvec for shec, layer by layer for
+    lrc."""
+    from ceph_tpu_torch.ec.rs_codec import gf_matvec_bytes
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    out = np.zeros((n, flat.shape[1]), dtype=np.uint8)
+    for i in range(k):
+        out[codec.chunk_index(i)] = flat[i]
+    if hasattr(codec, "layers"):
+        for layer in codec.layers:
+            out[layer.coding] = layer.erasure_code.codec.encode(
+                out[layer.data])
+    elif hasattr(codec, "codec"):
+        out[k:] = codec.codec.encode(flat)
+    else:
+        out[k:] = gf_matvec_bytes(codec.matrix, flat)
+    return out
+
+
+def batch_all(codec, stripes: np.ndarray) -> np.ndarray:
+    """(S, k, C) -> (S, n, C) every chunk in physical order through the
+    batched API: lrc's encode_batch_full, else data + encode_batch."""
+    if hasattr(codec, "encode_batch_full"):
+        return codec.encode_batch_full(stripes)
+    return np.concatenate([stripes, codec.encode_batch(stripes)], axis=1)
+
+
+def family_phase(name, prof, objs):
+    """4j for one profile: (a) ecutil.encode per object, (b) one batched
+    encode of all 64, (c) decode_concat per object with one data and one
+    coding chunk lost where the code tolerates it; launches counted from
+    just before (a) to just after (c); then the checks and the times."""
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.ops import gf_pallas
+    from ceph_tpu_torch.osd import ecutil
+    codec = create_erasure_code(dict(prof))
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    c = codec.get_chunk_size(k * CHUNK)
+    sinfo = ecutil.stripe_info_t(k, k * c)
+    spo = OBJ_BYTES // sinfo.get_stripe_width()
+    if spo * sinfo.get_stripe_width() != OBJ_BYTES:
+        raise AssertionError(f"{name}: 4 MiB is not whole stripes of {c}")
+    data_phys = [codec.chunk_index(i) for i in range(k)]
+    coding_phys = [p for p in range(n) if p not in data_phys]
+    lost = (data_phys[1], coding_phys[0])
+    try:
+        codec.minimum_to_decode(set(data_phys), set(range(n)) - set(lost))
+    except IOError:
+        lost = (data_phys[1],)
+    host_decoded = not getattr(codec, "_device_decode_supported", True)
+    stripes = objs.reshape(-1, k, c)
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "gfw_bit_matmul": gf_pallas.word_launches}
+    for ctr in counters.values():
+        ctr.reset()
+    shards = [ecutil.encode(sinfo, codec, o, set(range(n))) for o in objs]
+    full = batch_all(codec, stripes)
+    surv = [{i: b for i, b in sh.items() if i not in lost} for sh in shards]
+    decoded = [ecutil.decode_concat(sinfo, codec, sv) for sv in surv]
+    counts = {cname: ctr.n for cname, ctr in counters.items()}
+    log(f"family {name}: chunk {c}, lost {list(lost)}, decode on "
+        f"{'the host codec (by technique)' if host_decoded else 'the card'}"
+        f", launches " + json.dumps(counts))
+    word = prof.get("w") in ("16", "32")
+    if word and (counts["gfw_bit_matmul"] == 0 or counts["gf_bit_matmul"]):
+        raise AssertionError(f"{name}: the word path did not run on K3 "
+                             "alone")
+    if not word and (counts["gf_bit_matmul"] == 0
+                     or counts["gfw_bit_matmul"]):
+        raise AssertionError(f"{name}: the path did not run on K1 alone")
+    # -- checks, outside the counted run ----------------------------------
+    full = full.reshape(len(objs), spo, n, c)
+    for o, sh in enumerate(shards):
+        for i in range(n):
+            if not np.array_equal(full[o, :, i].reshape(-1), sh[i]):
+                raise AssertionError(f"{name}: batched chunk {i} != "
+                                     f"per-object (object {o})")
+        if not np.array_equal(decoded[o], objs[o]):
+            raise AssertionError(f"{name}: decode_concat mismatch ({o})")
+    flat = np.ascontiguousarray(
+        objs[0].reshape(spo, k, c).transpose(1, 0, 2)).reshape(k, spo * c)
+    host = host_encode(codec, flat)
+    for i in range(n):
+        if not np.array_equal(host[i], shards[0][i]):
+            raise AssertionError(f"{name}: host codec disagrees (chunk {i})")
+    log(f"family {name}: (a) {len(objs)} objects x {n} shards == (b) "
+        f"batch of S={stripes.shape[0]} == host codec (object 0); (c) "
+        "decoded objects == payloads")
+    del full, decoded
+    # -- end-to-end times, fewer runs than phase 5 (host-bound) -----------
+    total = len(objs) * OBJ_BYTES
+    ta = wall_s(lambda: [ecutil.encode(sinfo, codec, o, set(range(n)))
+                         for o in objs], runs=FAMILY_RUNS)
+    batch = (codec.encode_batch_full if hasattr(codec, "encode_batch_full")
+             else codec.encode_batch)
+    tb = wall_s(lambda: batch(stripes), runs=FAMILY_RUNS)
+    tc = wall_s(lambda: [ecutil.decode_concat(sinfo, codec, sv)
+                         for sv in surv], runs=FAMILY_RUNS)
+    e2e = {"chunk": c, "lost": list(lost), "host_decoded": host_decoded,
+           "launches": counts,
+           "a_encode_per_object_GiBps": total / ta / 2**30,
+           "b_encode_batch_GiBps": total / tb / 2**30,
+           "c_decode_concat_GiBps": total / tc / 2**30}
+    log(f"e2e {name} " + json.dumps(e2e))
+    return e2e
+
+
+def word_times(inputs, dev) -> dict:
+    """5w: K3 at the path shape per w, in turns with its prior form and a
+    device copy of its bytes, 10 launches per sample; its plain version;
+    and K1 at cauchy_good's virtual shape (1024, 32, 16, 8192)."""
+    from ceph_tpu_torch.gf.bitmatrix import (cauchy_good_matrix,
+                                             matrix_to_bitmatrix)
+    from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
+    from ceph_tpu_torch.ops import gf_pallas
+    times = {}
+    for w, (data, bm) in sorted(inputs.items()):
+        s, k, c = data.shape
+        r = bm.r // (w // 8)
+        src = torch.empty(s * (k + r) * c // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        ms, prior, copy = turns_ms([
+            lambda: gf_pallas.gfw_bit_matmul_kernel(data, bm, w),
+            lambda: word_prior(data, bm, w),
+            lambda: dst.copy_(src)], reps=REPS)
+        del src, dst
+        plain = cuda_ms(lambda: gf_pallas.gfw_bit_matmul_plain(
+            data, bm.bits, w), runs=3, warmup=1)
+        b_ms, b_by = word_bound_ms(s, k, r, c, w)
+        times[f"w{w}"] = {"ms": ms, "prior_ms": prior, "copy_ms": copy,
+                          "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by, "share_of_bound": b_ms / ms,
+                          "GBps": s * (k + r) * c / ms / 1e6}
+        log(f"time gfw_bit_matmul w={w} (S,k,m,C)={(s, k, r, c)} "
+            + json.dumps(times[f"w{w}"]))
+    bits = expand_to_bitmatrix(matrix_to_bitmatrix(
+        cauchy_good_matrix(4, 2, 8), 8))
+    bm = gf_pallas.BitMatrix(bits, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    virt = torch.randint(0, 256, (1024, 32, 8192), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    ms = turns_ms([lambda: gf_pallas.gf_bit_matmul_kernel(virt, bm)],
+                  reps=REPS)[0]
+    b_ms, b_by = bound_ms(1024, 32, 16, 8192)
+    times["k1_cauchy_good_virtual"] = {"ms": ms, "bound_ms": b_ms,
+                                       "bound_by": b_by}
+    log("time gf_bit_matmul cauchy_good virtual (S,k,r,C)=(1024,32,16,8192) "
+        + json.dumps(times["k1_cauchy_good_virtual"]))
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -754,6 +1031,25 @@ def main() -> int:
     # -- 5r. crc32c and fused-encode times -----------------------------------
     times.update(resident_times(*res_batch, objs_dev, dev))
     del res_batch
+
+    # -- 3w. K3 against its plain version (after the earlier slices' phases,
+    # which run as they did before this slice) -------------------------------
+    word_err, word_inputs = word_checks(gen, rng, dev)
+    results["gfw_checks_max_abs_err"] = word_err
+
+    # -- 4j. the codec families at full width ---------------------------------
+    del objs_dev
+    families = {name: family_phase(name, prof, objs)
+                for name, prof in FAMILY_PROFILES}
+    results["families"] = families
+    word_launches = sum(f["launches"]["gfw_bit_matmul"]
+                        for f in families.values())
+    family_k1 = sum(f["launches"]["gf_bit_matmul"] for f in families.values())
+
+    # -- 5w. K3 times ---------------------------------------------------------
+    wt = word_times(word_inputs, dev)
+    del word_inputs
+    results["word_kernel_times"] = wt
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -763,11 +1059,12 @@ def main() -> int:
 
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
+    k3, k3w32 = wt["w16"], wt["w32"]
     kernels = {"kernels": [{
         "name": "gf_bit_matmul", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
-        "launches": launches + res_launches["gf_bit_matmul"],
+        "launches": launches + res_launches["gf_bit_matmul"] + family_k1,
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -790,7 +1087,20 @@ def main() -> int:
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None, "prior_ms": k5["prior_ms"],
-        "copy_ms": k5["copy_ms"]}]}
+        "copy_ms": k5["copy_ms"]}, {
+        "name": "gfw_bit_matmul", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
+        "replaces": "ceph_tpu/ops/gf_matmul.py:84",
+        "launches": word_launches, "max_abs_err": word_err,
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None, "prior_ms": k3["prior_ms"],
+        "copy_ms": k3["copy_ms"], "ms_w32": k3w32["ms"],
+        "plain_ms_w32": k3w32["plain_ms"],
+        "bound_ms_w32": k3w32["bound_ms"],
+        "bound_by_w32": k3w32["bound_by"],
+        "prior_ms_w32": k3w32["prior_ms"],
+        "copy_ms_w32": k3w32["copy_ms"]}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -207,12 +207,17 @@ def test_ecutil_whole_objects(k, m, tech):
         port_ecutil.encode(sp, port, obj[:-1], {0})
 
 
-@pytest.mark.parametrize("name", ["isa_k4m2", "isa_k8m4_cauchy", "tpu_k4m2"])
+with open(CORPUS) as _f:
+    CORPUS_PROFILES = json.load(_f)["profiles"]
+
+
+@pytest.mark.parametrize("name", sorted(CORPUS_PROFILES))
 def test_corpus_replay(name):
-    """The pinned chunk sha256s of tests/corpus/ec_chunks.json, through
-    the port (the ``tpu`` entry replays on the port's ``cuda`` plugin)."""
-    with open(CORPUS) as f:
-        entry = json.load(f)["profiles"][name]
+    """The pinned chunk sha256s of every entry of
+    tests/corpus/ec_chunks.json, through the port (the ``tpu`` entry
+    replays on the port's ``cuda`` plugin; every entry on
+    ``backend=host``)."""
+    entry = CORPUS_PROFILES[name]
     prof = dict(entry["profile"])
     if prof["plugin"] == "tpu":
         prof["plugin"] = "cuda"
@@ -244,4 +249,29 @@ def test_profile_and_clamps_match_jax():
     with pytest.raises(ValueError):
         port_create({"plugin": "isa", "backend": "host", "k": "1"})
     with pytest.raises(KeyError):
-        port_create({"plugin": "jerasure"})
+        port_create({"plugin": "regenerating", "backend": "host"})
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_example_xor_matches_jax(k):
+    """The XOR-parity fixture: one parity chunk, every single erasure."""
+    port = port_create({"plugin": "example_xor", "k": str(k),
+                        "backend": "host"})
+    ref = jax_create({"plugin": "example_xor", "k": str(k),
+                      "backend": "host"})
+    assert port.get_profile() == ref.get_profile()
+    assert port.get_chunk_count() == ref.get_chunk_count() == k + 1
+    payload = np.random.default_rng(k).integers(
+        0, 256, 1234, dtype=np.uint8).tobytes()
+    enc = port.encode(set(range(k + 1)), payload)
+    ref_enc = ref.encode(set(range(k + 1)), payload)
+    for i in range(k + 1):
+        np.testing.assert_array_equal(enc[i], ref_enc[i])
+    np.testing.assert_array_equal(
+        enc[k], np.bitwise_xor.reduce(np.stack([enc[i] for i in range(k)])))
+    for gone in range(k + 1):
+        chunks = {i: enc[i] for i in range(k + 1) if i != gone}
+        assert port.decode_concat(chunks) == ref.decode_concat(chunks)
+        got = port.decode_batch({i: b[None] for i, b in chunks.items()},
+                                [gone])
+        np.testing.assert_array_equal(got[gone][0], enc[gone])

@@ -19,9 +19,12 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
+from ceph_tpu_torch.gf.word_codec import reed_sol_van_matrix_w
 from ceph_tpu_torch.ops import (_build, crc32c_device, fused_encode_crc,
                                 gf_pallas, resident)
-from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
+from ceph_tpu_torch.ops.gf_matmul import (DeviceRSBackend,
+                                          DeviceWordRSBackend,
+                                          expand_to_bitmatrix_w)
 
 PKG = Path(ceph_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -66,6 +69,20 @@ def test_walk_sees_the_one_pass_kernel():
     assert "ceph_tpu_torch.ops.fused_encode_crc" in _modules()
     assert (PKG / "csrc" / "fused_encode_crc.cu").is_file()
     assert "fused_encode_crc" in _build.sources()
+
+
+def test_walk_sees_the_codec_families():
+    """The package walk reaches the jerasure, shec, lrc and example_xor
+    plugins, their GF(2^w) and bitmatrix modules and the crush types lrc
+    builds its rule from; K3 lives in the bit-matmul source."""
+    mods = _modules()
+    for m in ("ec.jerasure", "ec.shec", "ec.lrc", "ec.example_xor",
+              "gf.bitmatrix", "gf.word_codec", "crush.constants",
+              "crush.types"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    src = (PKG / "csrc" / "gf_bit_matmul.cu").read_text()
+    assert 'extern "C" int gfw_bit_matmul_launch(' in src
+    assert "gfw_bit_matmul_launch" in gf_pallas._SIGNATURES
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -130,6 +147,61 @@ def test_non_cpu_tensor_never_takes_plain(monkeypatch):
     with pytest.raises((RuntimeError, ValueError)):
         gf_pallas.gf_bit_matmul_kernel(data, bm)
     assert gf_pallas.launches.n == before
+
+
+def test_codec_families_without_device_raise():
+    """The new plugins default to backend=cuda as the others do, and the
+    word-layout backend asks for CUDA: without a card each raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.ec import create_erasure_code
+    for prof in ({}, {"plugin": "jerasure", "w": "16"},
+                 {"plugin": "jerasure", "technique": "cauchy_good"},
+                 {"plugin": "shec"}, {"plugin": "example_xor"},
+                 {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            create_erasure_code(prof)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceWordRSBackend(np.eye(6, 4, dtype=np.int64) + 1, 16, "cuda")
+
+
+def test_word_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """K3's wrapper sends a tensor off the CPU to the kernel or raises:
+    neither plain version is called and no launch is counted."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    monkeypatch.setattr(gf_pallas, "gfw_bit_matmul_plain", boom)
+    monkeypatch.setattr(gf_pallas, "gf_bit_matmul_plain", boom)
+    bm = gf_pallas.BitMatrix(
+        expand_to_bitmatrix_w(reed_sol_van_matrix_w(4, 2, 16), 16), "cpu")
+    before = (gf_pallas.launches.n, gf_pallas.word_launches.n)
+    data = torch.empty((2, 4, 64), dtype=torch.uint8, device="meta")
+    with pytest.raises((RuntimeError, ValueError)):
+        gf_pallas.gfw_bit_matmul_kernel(data, bm, 16)
+    assert (gf_pallas.launches.n, gf_pallas.word_launches.n) == before
+
+
+@pytest.mark.parametrize("prof", [
+    {"w": "16"}, {"w": "32"}, {"technique": "cauchy_good"},
+    {"technique": "liber8tion", "k": "4"}])
+def test_host_decoded_codecs_offer_no_device_decode(prof):
+    """Word and bitmatrix codes decode on the host codec (chosen by
+    technique, as the JAX package does); their decode_batch_device
+    raises instead of going through the host, while a reed_sol w=8 code
+    keeps it."""
+    from ceph_tpu_torch.ec import create_erasure_code
+    codec = create_erasure_code({"plugin": "jerasure", "backend": "host",
+                                 **prof})
+    assert not codec._device_decode_supported
+    surv = torch.zeros((1, codec.k, 64), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError):
+        codec.decode_batch_device(surv, list(range(codec.k)), [0])
+    plain = create_erasure_code({"plugin": "jerasure", "backend": "host",
+                                 "k": "4", "m": "2"})
+    got = plain.decode_batch_device(torch.zeros((1, 4, 64),
+                                                dtype=torch.uint8),
+                                    [1, 2, 3, 4], [0])
+    assert got.shape == (1, 1, 64)
 
 
 def test_crc_non_cpu_tensor_never_takes_plain(monkeypatch):
