@@ -18,7 +18,8 @@ class (src/erasure-code/ErasureCode.cc):
 The execution backend is the profile key ``backend=cuda|host`` (default
 ``cuda``): ``cuda`` runs the device path on the CUDA card and raises at
 init when there is none; ``host`` is the caller's explicit request for
-the CPU.  ``create_rule`` comes with the CRUSH slice of the port.
+the CPU.  ``create_rule`` adds the code's indep rule to a CrushWrapper
+(``ceph_tpu_torch.crush``).
 """
 from __future__ import annotations
 
@@ -116,8 +117,18 @@ class ErasureCode(ErasureCodeInterface):
     def get_chunk_mapping(self) -> Sequence[int]:
         return self.chunk_mapping
 
+    # ---- crush rule -------------------------------------------------------
     def create_rule(self, name: str, crush) -> int:
-        raise NotImplementedError("create_rule comes with the CRUSH port")
+        """An indep rule over the failure domain, sized to the chunk count
+        (ErasureCode.cc create_rule); ``crush`` is a ``CrushWrapper``."""
+        from ..crush.constants import PG_POOL_TYPE_ERASURE
+        ruleid = crush.add_simple_rule(
+            name, self.rule_root, self.rule_failure_domain,
+            self.rule_device_class, "indep",
+            rule_type=PG_POOL_TYPE_ERASURE)
+        if ruleid >= 0:
+            crush.set_rule_mask_max_size(ruleid, self.get_chunk_count())
+        return ruleid
 
     @staticmethod
     def sanity_check_k(k: int) -> None:

@@ -14,8 +14,8 @@ mapping/layers/crush-steps as parse_kml does (:294-400).  The parent's
 ``backend`` flows into every layer, so on ``backend=cuda`` every layer's
 encode and decode run the bit-matmul kernel on the card.
 
-``create_rule`` needs a CrushWrapper and comes with the CRUSH slice;
-``rule_for`` already builds the rule it will add from resolved ids.
+``create_rule`` adds the crush-steps rule to a CrushWrapper;
+``rule_for`` builds the same rule from resolved ids without a map.
 """
 from __future__ import annotations
 
@@ -231,6 +231,29 @@ class ErasureCodeLrc(ErasureCode):
         steps.append(RuleStep(CRUSH_RULE_EMIT, 0, 0))
         return Rule(steps=steps, ruleset=-1, type=PG_POOL_TYPE_ERASURE,
                     min_size=3, max_size=self.get_chunk_count())
+
+    def create_rule(self, name: str, crush) -> int:
+        """Add ``rule_for``'s rule to ``crush`` (a ``CrushWrapper``) under
+        ``name``; the reference's negative errno where it cannot."""
+        if crush.rule_exists(name):
+            return -17  # EEXIST
+        if not crush.name_exists(self.rule_root):
+            return -2   # ENOENT
+        root = crush.get_item_id(self.rule_root)
+        if self.rule_device_class:
+            if not crush.class_exists(self.rule_device_class):
+                return -2
+            c = crush.get_or_create_class_id(self.rule_device_class)
+            shadow = crush.class_bucket.get(root, {}).get(c)
+            if shadow is None:
+                return -22
+            root = shadow
+        rule = self.rule_for(root, crush.get_type_id)
+        if rule is None:
+            return -22  # EINVAL
+        rno = crush.add_rule(rule, name)
+        rule.ruleset = rno
+        return rno
 
     # ---- minimum_to_decode (the local-repair search) ----------------------
     def _minimum_to_decode(self, want_to_read: Set[int],

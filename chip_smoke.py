@@ -84,6 +84,31 @@ The codec-family slice adds, after 5r:
    copy of its bytes, its plain version, the (a)/(b)/(c) rates per profile,
    and K1 at cauchy_good's virtual shape (1024, 32, 16, 8192).
 
+The CRUSH slice adds, after 5w, on measure_crush_remap's map (1000 OSDs in
+50 hosts of 20, straw2, jewel tunables; (u) weights 0x10000, (n) 0x8000 x
+{1..4}) with rule ``data`` (chooseleaf firstn, size 3) and jerasure k=8
+m=4's ``create_rule`` (chooseleaf indep, size 12):
+
+3c. K7a (``crush_descend``) and K7b (``crush_resolve``) against their plain
+   versions on the card, exact: the candidates, leaf attempts and packed
+   rows of the four configurations at 100000 x under four weight vectors
+   (all in, one out, ten out, a random mix), and of the small shapes
+   (chained firstn/indep/chooseleaf rules, choose_args with 3 positions, a
+   zero-weight host, a map with no quotient-table level) at 4096 x, whose
+   ``map_batch`` also goes against ``crush_do_rule``;
+4c. the main path, counts reset just before: per configuration
+   ``compile_fast_rule(...).map_batch`` of 100000 x, then 10 epochs, epoch e
+   with OSD (7e+3) % 1000 out (the K7a count must not move on them); an
+   OSDMap of the (u) map with a replicated pool of 65536 PGs and an EC pool
+   of 32768, ``OSDMapMapping().update`` and 10 epochs of ``mark_out`` (both
+   pools must map on the card).  A 4096-x sample of every epoch goes
+   against ``crush_do_rule`` and 2048 PGs per pool against
+   ``pg_to_up_acting_osds``, in a pool of worker processes; epoch 10 goes
+   against the plain versions on all 100000 x;
+5c. K7a over one candidate phase per configuration and K7b per epoch, in
+   turns, 10 back to back per sample, and their plain versions; (f) and (g)
+   are the host-clock walls of 4c's epochs.
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -162,7 +187,8 @@ def sass_counts(so_path, nvcc):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(r"(?:gfw?_\w+?|crc32c\w*?|fused\w*?)_kernel",
+            base = re.search(
+                r"(?:gfw?_\w+?|crc32c\w*?|fused\w*?|crush\w*?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (
@@ -798,6 +824,569 @@ def word_times(inputs, dev) -> dict:
     return times
 
 
+# ---- the CRUSH slice: 3c / 4c / 5c ---------------------------------------------
+
+CRUSH_OSDS = 1000                 # measure_crush_remap's map: 50 hosts of 20
+CRUSH_PER_HOST = 20
+CRUSH_X = 100000                  # crushtool --test over 100k inputs
+CRUSH_SAMPLE = 4096               # x held against crush_do_rule every epoch
+CRUSH_EPOCHS = 10
+OSDMAP_PG_NUM = {"rep": 65536, "ec": 32768}
+OSDMAP_SAMPLE = 2048              # PGs per pool held against the scalar path
+CHECK_PROCS = 7                   # host checks beside the main process
+# K7a instructions per straw2 draw, at the fewest the card can take: hash32_3
+# (the seed XORs as two 3-input logic ops, then 5 mixes of 9 lines, each a
+# 3-input add, a shift and an XOR), the 16-bit mask, the table gather, the
+# compare and the select
+OPS_PER_DRAW = 2 + 5 * 9 * 3 + 4
+# the card's instruction rate: 132 SMs x 4 schedulers x one warp
+# instruction (32 lanes) per clock at 1.98 GHz, whichever pipe runs it.  The
+# integer pipe alone (INT32_OPS_PER_S, half this) is no bound for K7a: the
+# compiler moves adds onto the FMA pipe (IMAD), and K7a's first chip run
+# beat that rate
+INSTR_PER_S = 132 * 4 * 32 * 1.98e9
+
+
+def _do_rule_rows(args):
+    """Check worker: crush_do_rule of a chunk of x on the host."""
+    m, ruleno, xs, result_max, weight = args
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    return [crush_do_rule(m, ruleno, int(x), result_max, weight) for x in xs]
+
+
+def _pg_rows(args):
+    """Check worker: the scalar pg -> up/acting pipeline of a chunk of PGs
+    of a pickled OSDMap."""
+    import pickle
+    from ceph_tpu_torch.osdmap import pg_t
+    blob, pool_id, pss = args
+    m = pickle.loads(blob)
+    return [m.pg_to_up_acting_osds(pg_t(pool_id, int(ps))) for ps in pss]
+
+
+def crush_remap_map(uniform: bool):
+    """measure_crush_remap's map (ceph_tpu/bench/workloads.py:1838-1861)
+    through the port's CrushWrapper: 1000 OSDs in 50 hosts of 20, straw2,
+    jewel tunables, (u) weights 0x10000 or (n) 0x8000 x {1..4} from
+    default_rng(7).  Rules: ``data`` (chooseleaf firstn over hosts, size 3)
+    and the one jerasure k=8 m=4's create_rule adds (chooseleaf indep over
+    hosts, size 12)."""
+    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
+    from ceph_tpu_torch.ec import create_erasure_code
+    cw = CrushWrapper()
+    cw.set_type_name(1, "host")
+    cw.set_type_name(10, "root")
+    cw.set_tunables_profile("jewel")
+    rng_w = np.random.default_rng(7)
+    hosts = []
+    for h in range(CRUSH_OSDS // CRUSH_PER_HOST):
+        osds = list(range(h * CRUSH_PER_HOST, (h + 1) * CRUSH_PER_HOST))
+        ws = ([0x10000] * CRUSH_PER_HOST if uniform else
+              [int(v) * 0x8000
+               for v in rng_w.integers(1, 5, size=CRUSH_PER_HOST)])
+        hosts.append(cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"host{h}", osds,
+                                   ws, id=-(h + 2)))
+    cw.set_max_devices(CRUSH_OSDS)
+    cw.add_bucket(CRUSH_BUCKET_STRAW2, 10, "default", hosts,
+                  [0x10000 * CRUSH_PER_HOST] * len(hosts), id=-1)
+    data = cw.add_simple_rule("data", "default", "host", mode="firstn")
+    codec = create_erasure_code({"plugin": "jerasure", "k": "8", "m": "4"})
+    ec = codec.create_rule("ec", cw)
+    if data < 0 or ec < 0:
+        raise AssertionError(f"rules not added: {data}, {ec}")
+    return cw, {"firstn": (data, 3), "ec": (ec, codec.get_chunk_count())}
+
+
+def _small_map(n_hosts, per_host, weights, root_ws=None, racks=0):
+    """A straw2 map of the port: hosts of ``per_host`` OSDs weighted by
+    ``weights(h, i)``, optionally grouped in ``racks`` racks."""
+    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
+    cw = CrushWrapper()
+    cw.set_type_name(1, "host")
+    cw.set_type_name(2, "rack")
+    cw.set_type_name(10, "root")
+    hosts, hws, osd = [], [], 0
+    for h in range(n_hosts):
+        ws = [weights(h, i) for i in range(per_host)]
+        hosts.append(cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"h{h}",
+                                   list(range(osd, osd + per_host)), ws,
+                                   id=-(h + 2)))
+        hws.append(sum(ws))
+        osd += per_host
+    top = hosts
+    if racks:
+        per = n_hosts // racks
+        top = [cw.add_bucket(CRUSH_BUCKET_STRAW2, 2, f"rack{r}",
+                             hosts[r * per:(r + 1) * per],
+                             hws[r * per:(r + 1) * per], id=-(100 + r))
+               for r in range(racks)]
+        hws = [sum(hws[r * per:(r + 1) * per]) for r in range(racks)]
+    cw.set_max_devices(osd)
+    cw.add_bucket(CRUSH_BUCKET_STRAW2, 10, "default", top,
+                  root_ws or [min(w, 0x7fffffff) for w in hws], id=-1)
+    return cw, osd
+
+
+def small_crush_cases():
+    """test_crush_fast.py's small shapes: chained two-step rules (firstn,
+    indep, chooseleaf under racks), choose_args with 3 positions and
+    replacement ids, a zero-weight host, and a map with no quotient-table
+    level (near-tie weights)."""
+    from ceph_tpu_torch.crush import (
+        CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSE_FIRSTN,
+        CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_EMIT, CRUSH_RULE_TAKE, Rule,
+        RuleStep, WeightSet)
+    rng = np.random.default_rng(SEED)
+    uneven = [[int(v) * 0x10000 for v in rng.integers(1, 4, 4)]
+              for _ in range(6)]
+
+    def rule(cw, steps, name):
+        return cw.add_rule(Rule(steps=[RuleStep(*s) for s in steps],
+                                ruleset=1, type=1, min_size=1, max_size=10),
+                           name)
+    cases = []
+    for op, mode in ((CRUSH_RULE_CHOOSE_FIRSTN, "firstn"),
+                     (CRUSH_RULE_CHOOSE_INDEP, "indep")):
+        cw, n = _small_map(6, 4, lambda h, i: uneven[h][i])
+        rno = rule(cw, [(CRUSH_RULE_TAKE, -1, 0), (op, 2, 1), (op, 2, 0),
+                        (CRUSH_RULE_EMIT, 0, 0)], f"chain-{mode}")
+        cases.append((f"chained_{mode}", cw, n, rno, 4, None))
+    cw, n = _small_map(9, 3, lambda h, i: uneven[h % 6][i], racks=3)
+    rno = rule(cw, [(CRUSH_RULE_TAKE, -1, 0),
+                    (CRUSH_RULE_CHOOSE_FIRSTN, 2, 2),
+                    (CRUSH_RULE_CHOOSELEAF_FIRSTN, 2, 1),
+                    (CRUSH_RULE_EMIT, 0, 0)], "chain-leaf")
+    cases.append(("chained_chooseleaf_racks", cw, n, rno, 4, None))
+    cw, n = _small_map(6, 3, lambda h, i: 0x10000)
+    rno = cw.add_simple_rule("data", "default", "host", mode="firstn")
+    args = cw.choose_args_create(0)
+    for bi, b in enumerate(cw.crush.buckets):
+        args[bi].weight_set = [WeightSet(weights=[
+            int(v) for v in rng.integers(0x4000, 0x30000, b.size)])
+            for _ in range(3)]
+    args[3].ids = [1000 + i for i in range(cw.crush.buckets[3].size)]
+    cases.append(("choose_args_3_positions", cw, n, rno, 3, args))
+    cw, n = _small_map(5, 3, lambda h, i: 0 if h == 2 else 0x10000,
+                       root_ws=[0x30000] * 5)
+    cases.append(("zero_weight_host_firstn", cw, n,
+                  cw.add_simple_rule("data", "default", "host",
+                                     mode="firstn"), 3, None))
+    cases.append(("zero_weight_host_indep", cw, n,
+                  cw.add_simple_rule("ec", "default", "host",
+                                     mode="indep"), 3, None))
+    cw, n = _small_map(12, 2, lambda h, i: 0x7fffffff - h - i,
+                       root_ws=[0x7fffffff - h for h in range(12)])
+    cases.append(("no_quotient_levels", cw, n,
+                  cw.add_simple_rule("data", "default", "host",
+                                     mode="firstn"), 3, None))
+    return cases
+
+
+def _crush_weights(n, rng):
+    """The weight vectors 3c holds the resolve at: all in, one OSD out,
+    ten out, and a random mix of out and reweighted OSDs."""
+    w = np.full(n, 0x10000, np.uint32)
+    one = w.copy()
+    one[(7 * CRUSH_EPOCHS + 3) % n] = 0
+    ten = w.copy()
+    ten[[(7 * e + 3) % n for e in range(1, 11)]] = 0
+    mix = rng.choice([0, 0x3000, 0x8000, 0x10000], size=n,
+                     p=[0.05, 0.05, 0.1, 0.8]).astype(np.uint32)
+    return [w, one, ten, mix]
+
+
+def _rule_pair_err(fr, frp, xs, weights):
+    """Candidates (K7a) and packed rows (K7b) of a kernel rule and its
+    plain twin on the card: (K7a err, K7b err, residual fractions)."""
+    fr.prepare_candidates(xs)
+    frp.prepare_candidates(xs)
+    a_err = 0
+    for got, want in zip(fr._cand, frp._cand):
+        if want is None:
+            if got is not None:
+                raise AssertionError("leaf attempts where plain has none")
+            continue
+        a_err = max(a_err, int_err(got, want))
+    b_err, resid = 0, []
+    for w in weights:
+        wd = torch.from_numpy(w.view(np.int32)).to(fr.device)
+        got, want = fr.resolve_packed(wd), frp.resolve_packed(wd)
+        b_err = max(b_err, int_err(got, want))
+        resid.append(float(((got[:, -1] >> 16) != 0).float().mean()))
+    torch.cuda.synchronize()
+    return a_err, b_err, resid
+
+
+def crush_checks(configs, dev):
+    """3c: K7a and K7b against their plain versions on the card, exact, on
+    the four BASELINE configurations at 100000 x and the small shapes."""
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    from ceph_tpu_torch.ops.crush_fast import compile_fast_rule
+    rng = np.random.default_rng(SEED)
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    errs = {"crush_descend": 0, "crush_resolve": 0}
+    plain_rules = {}
+    for name, cw, rno, size in configs:
+        fr = compile_fast_rule(cw.crush, rno, size, device=dev)
+        frp = compile_fast_rule(cw.crush, rno, size, device=dev, plain=True)
+        a, b, resid = _rule_pair_err(fr, frp, xs,
+                                     _crush_weights(CRUSH_OSDS, rng))
+        log(f"check crush {name} X={CRUSH_X} levels "
+            f"{fr.integer_exact_levels} cand {tuple(fr._cand[0].shape)}: "
+            f"K7a max_abs_err={a} K7b max_abs_err={b} residual "
+            f"{[round(r, 5) for r in resid]}")
+        if a or b:
+            raise AssertionError(f"crush kernels disagree with plain: {name}")
+        errs["crush_descend"] = max(errs["crush_descend"], a)
+        errs["crush_resolve"] = max(errs["crush_resolve"], b)
+        plain_rules[name] = frp
+        del fr
+    xs_small = (np.arange(4096, dtype=np.uint64) * 2654435761
+                & 0xFFFFFFFF).astype(np.uint32)
+    for name, cw, n, rno, rmax, args in small_crush_cases():
+        fr = compile_fast_rule(cw.crush, rno, rmax, args, device=dev)
+        frp = compile_fast_rule(cw.crush, rno, rmax, args, device=dev,
+                                plain=True)
+        a, b, resid = _rule_pair_err(fr, frp, xs_small,
+                                     _crush_weights(n, rng))
+        w = _crush_weights(n, rng)[3]
+        res, cnt = fr.map_batch(xs_small, w)
+        wl = [int(v) for v in w]
+        for i in range(0, len(xs_small), 16):
+            want = crush_do_rule(cw.crush, rno, int(xs_small[i]), rmax, wl,
+                                 args)
+            if [int(v) for v in res[i, :cnt[i]]] != want:
+                raise AssertionError(f"crush {name}: map_batch != "
+                                     f"crush_do_rule at x={xs_small[i]}")
+        log(f"check crush {name} (P={fr.posP}, parents={fr.parents}, "
+            f"levels {fr.integer_exact_levels}): K7a max_abs_err={a} "
+            f"K7b max_abs_err={b}; map_batch == crush_do_rule on 256 x")
+        if a or b:
+            raise AssertionError(f"crush kernels disagree with plain: {name}")
+    return errs, plain_rules
+
+
+def _chunks(seq, n):
+    return [c for c in np.array_split(np.asarray(seq), n) if len(c)]
+
+
+def crush_drive(configs, dev):
+    """4c (a), crushtool-style: per configuration, ``map_batch`` of 100000
+    x at all-in weights, then 10 epochs, epoch e with OSD (7e+3) % 1000
+    out (workloads.py:1915-1920).  Returns the host checks of the sample's
+    rows as jobs, run once every timed epoch is done, so the walls are
+    taken with nothing else on the host."""
+    from ceph_tpu_torch.ops import crush_fast as cf
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    sample = np.sort(np.random.default_rng(SEED).choice(
+        CRUSH_X, CRUSH_SAMPLE, replace=False))
+    out, jobs, rules = {}, [], {}
+    for name, cw, rno, size in configs:
+        fr = cf.compile_fast_rule(cw.crush, rno, size, device=dev)
+        walls, resid = [], []
+        for e in range(CRUSH_EPOCHS + 1):
+            w = np.full(CRUSH_OSDS, 0x10000, np.uint32)
+            if e:
+                w[(7 * e + 3) % CRUSH_OSDS] = 0
+            a0 = cf.descend_launches.n
+            b0 = cf.resolve_launches.n
+            t0 = time.perf_counter()
+            res, cnt = fr.map_batch(xs, w)
+            walls.append(time.perf_counter() - t0)
+            if e and cf.descend_launches.n != a0:
+                raise AssertionError(f"{name}: K7a launched on delta epoch "
+                                     f"{e} (candidates not cached)")
+            if cf.resolve_launches.n == b0:
+                raise AssertionError(f"{name}: K7b did not launch, epoch {e}")
+            resid.append(fr.residual_fraction)
+            got = [[int(v) for v in res[x, :cnt[x]]] for x in sample]
+            wl = [int(v) for v in w]
+            jobs.append((f"{name} epoch {e}", got, _do_rule_rows,
+                         [(cw.crush, rno, c, size, wl)
+                          for c in _chunks(sample, 4 * CHECK_PROCS)]))
+        rules[name] = (fr, res, cnt, w)
+        out[name] = {"first_wall_s": walls[0],
+                     "epoch_wall_s": statistics.median(walls[1:]),
+                     "epoch_walls_s": walls[1:],
+                     "residual_fraction": resid,
+                     "delta_cap": fr.delta_cap}
+        log(f"drive crush {name}: epoch 0 {walls[0]:.3f} s, epochs 1-10 "
+            f"median {out[name]['epoch_wall_s'] * 1e3:.2f} ms, residual "
+            f"fraction {resid[0]:.5f} (epoch 0) .. {resid[-1]:.5f}")
+    return out, jobs, rules
+
+
+def osdmap_drive(cw, rules, dev):
+    """4c (b): an OSDMap holding the (u) map, all OSDs up and in, pool 1
+    replicated size 3 (pg_num 65536) and pool 2 erasure k=8 m=4 (size 12,
+    the create_rule rule, pg_num 32768); ``OSDMapMapping().update`` and
+    then 10 epochs, each marking one more OSD out.  Returns the host checks
+    of the sampled PGs as jobs (run after the timed epochs) and, per pool,
+    the cached kernel rule with its lanes and last weights."""
+    import pickle
+    from ceph_tpu_torch.osdmap import (OSDMap, OSDMapMapping, TYPE_ERASURE,
+                                       TYPE_REPLICATED, pg_pool_t, pg_t)
+    from ceph_tpu_torch.osdmap.mapping import pool_pps
+    from ceph_tpu_torch.osdmap.simple_build import mark_out, mark_up_in
+    m = OSDMap()
+    m.epoch = 1
+    m.crush = cw
+    m.set_max_osd(CRUSH_OSDS)
+    mark_up_in(m)
+    pools = {
+        "rep": m.add_pool("rbd", pg_pool_t(
+            type=TYPE_REPLICATED, size=3, min_size=2,
+            crush_rule=rules["firstn"][0], pg_num=OSDMAP_PG_NUM["rep"],
+            pgp_num=OSDMAP_PG_NUM["rep"])),
+        "ec": m.add_pool("ec", pg_pool_t(
+            type=TYPE_ERASURE, size=12, min_size=9,
+            crush_rule=rules["ec"][0], pg_num=OSDMAP_PG_NUM["ec"],
+            pgp_num=OSDMAP_PG_NUM["ec"])),
+    }
+    rng = np.random.default_rng(SEED + 1)
+    samples = {k: np.sort(rng.choice(OSDMAP_PG_NUM[k], OSDMAP_SAMPLE,
+                                     replace=False)) for k in pools}
+    mm = OSDMapMapping(device=dev)
+    walls, jobs = [], []
+    for e in range(CRUSH_EPOCHS + 1):
+        if e:
+            mark_out(m, (7 * e + 3) % CRUSH_OSDS)
+            m.epoch += 1
+        t0 = time.perf_counter()
+        mm.update(m)
+        walls.append(time.perf_counter() - t0)
+        blob = pickle.dumps(m)
+        for k, pid in pools.items():
+            got = [mm.get(pg_t(pid, int(ps))) for ps in samples[k]]
+            jobs.append((f"osdmap {k} epoch {e}", got, _pg_rows,
+                         [(blob, pid, c) for c in
+                          _chunks(samples[k], 2 * CHECK_PROCS)]))
+    backends = {k: mm.last_backend[pid] for k, pid in pools.items()}
+    if set(backends.values()) != {"device" if torch.device(dev).type == "cuda"
+                                  else "cpu"}:
+        raise AssertionError(f"OSDMapMapping did not map on the card: "
+                             f"{backends}")
+    resid, lanes = {}, {}
+    weight = np.asarray(m.osd_weight, dtype=np.uint32)
+    for (pid, ruleno, size), (_, fr) in mm._rule_cache.items():
+        k = [k for k, p in pools.items() if p == pid][0]
+        resid[k] = fr.residual_fraction
+        pps = pool_pps(m.pools[pid], pid,
+                       np.arange(m.pools[pid].pg_num, dtype=np.uint32))
+        lanes[k] = (fr, ruleno, size, pps, weight)
+    out = {"first_update_s": walls[0],
+           "update_s": statistics.median(walls[1:]),
+           "update_walls_s": walls[1:], "last_backend": backends,
+           "residual_fraction_last_epoch": resid}
+    log(f"drive osdmap: update {walls[0]:.3f} s first, median "
+        f"{out['update_s']:.3f} s over 10 mark_out epochs; last_backend "
+        f"{backends}; residual {resid}")
+    return out, jobs, lanes
+
+
+def check_pending(pending) -> int:
+    """Wait for the host checks; every row must equal the host's."""
+    n = 0
+    for what, got, res in pending:
+        want = [r for part in res.get() for r in part]
+        if len(want) != len(got):
+            raise AssertionError(f"{what}: {len(got)} rows, host {len(want)}")
+        for g, h in zip(got, want):
+            if list(g) != list(h):
+                raise AssertionError(f"{what}: {g} != host {h}")
+        n += len(got)
+    return n
+
+
+STRAW2_WIDTHS = (2, 3, 4, 6, 8, 10, 12, 14, 16, 20, 30, 50)
+
+
+def straw2_host_times(calls: int = 200, repeats: int = 5) -> dict:
+    """The host mapper's two forms of one straw2 draw (the scalar loop and
+    the numpy pass), microseconds per draw by bucket width, best of
+    ``repeats`` runs of ``calls`` draws, with nothing else running.  The
+    first width at which the numpy pass is no slower is the crossover that
+    mapper.STRAW2_NUMPY_MIN is set from."""
+    from ceph_tpu_torch.crush import mapper
+    rng = np.random.default_rng(SEED)
+    us = {}
+    for n in STRAW2_WIDTHS:
+        ids = [int(v) for v in rng.integers(0, CRUSH_OSDS, n)]
+        ws = [int(v) * 0x8000 for v in rng.integers(1, 5, n)]
+        us[n] = {}
+        for form, f in (("scalar", mapper._straw2_argmax_py),
+                        ("numpy", mapper._straw2_argmax_np)):
+            best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                for x in range(calls):
+                    f(ids, ws, x, 1, n)
+                best = min(best, time.perf_counter() - t0)
+            us[n][form] = best / calls * 1e6
+    cross = next((n for n in STRAW2_WIDTHS
+                  if us[n]["numpy"] <= us[n]["scalar"]), None)
+    log(f"host straw2 draw, us per draw (scalar, numpy) by width: "
+        + ", ".join(f"{n}: ({v['scalar']:.1f}, {v['numpy']:.1f})"
+                    for n, v in us.items())
+        + f"; crossover width {cross}, STRAW2_NUMPY_MIN "
+        f"{mapper.STRAW2_NUMPY_MIN}")
+    return {"us_per_draw": us, "crossover_width": cross,
+            "numpy_min": mapper.STRAW2_NUMPY_MIN}
+
+
+def _draws_per_lane(fr, base_level, depth):
+    """Items one lane of a K7a call draws: the bucket sizes of its levels
+    (each level's frontier buckets share one size in these maps; the
+    widest is taken otherwise)."""
+    m = fr.C.map
+    return sum(max(m.bucket(b).size for b in fr.level_frontiers[base_level
+                                                                 + d])
+               for d in range(depth))
+
+
+def crush_times(drive_rules, dev):
+    """5c: K7a over one full candidate phase per configuration (each of its
+    launches replayed on the same lanes), K7b per epoch, and their plain
+    versions; CUDA events, 10 launches per sample, medians.  K7b's byte
+    bound counts what this epoch's resolve reads: the cand (and leaf)
+    entries of the (slot, round) pairs it evaluates, which the plain
+    version counts, the per-lane inputs, the weights and the rows."""
+    from ceph_tpu_torch.ops import crush_fast as cf
+    times = {}
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    for name, (fr, _, _, w) in drive_rules.items():
+        calls = []
+        orig = fr._descend
+
+        def record(*a):
+            calls.append(a)
+            return orig(*a)
+        fr._descend = record
+        fr._candidates(xd)
+        fr._descend = orig
+        draws = sum(a[0].numel() * _draws_per_lane(fr, a[5], a[6])
+                    for a in calls)
+        cand_ms, k7a_ms = turns_ms([
+            lambda: fr._candidates(xd),
+            lambda: [cf.crush_descend(*a) for a in calls]], reps=REPS)
+        k7a_plain = cuda_ms(lambda: [cf.crush_descend_plain(*a)
+                                     for a in calls], runs=3, warmup=1)
+        wd = torch.from_numpy(w.view(np.int32)).to(dev)
+        cand, leaf, risk0, valid, xl = fr._cand
+        k7b_ms = turns_ms([lambda: fr.resolve_packed(wd)], reps=REPS)[0]
+        k7b_plain = cuda_ms(lambda: cf.crush_resolve_plain(
+            fr.spec, cand, leaf, xl, valid, risk0, wd, fr.parents,
+            fr.result_max, 0), runs=3, warmup=1)
+        ops = draws * OPS_PER_DRAW
+        rows = CRUSH_X * (fr.result_max + 1) * 4
+        lane_bytes = sum(t.numel() * t.element_size()
+                         for t in (risk0, valid, xl, wd))
+        k7b_bytes_all = (sum(t.numel() * t.element_size() for t in
+                             (cand, leaf) if t is not None)
+                         + lane_bytes + rows)
+        reads = torch.zeros(cand.shape[2], dtype=torch.int64, device=dev)
+        cf.crush_resolve_plain(fr.spec, cand, leaf, xl, valid, risk0, wd,
+                               fr.parents, fr.result_max, 0, reads=reads)
+        evaluated = int(reads.sum())
+        k7b_bytes = (evaluated * 4 * (1 + (fr.spec.n_leaf if fr.spec.leafy
+                                           else 0))
+                     + lane_bytes + rows)
+        times[name] = {
+            "k7a_launches_per_phase": len(calls),
+            "k7a_lanes": sum(a[0].numel() for a in calls),
+            "k7a_draws": draws, "k7a_ops": ops,
+            "candidate_phase_ms": cand_ms, "k7a_ms": k7a_ms,
+            "k7a_plain_ms": k7a_plain,
+            "k7a_bound_ms": ops / INSTR_PER_S * 1e3,
+            "k7b_ms": k7b_ms, "k7b_plain_ms": k7b_plain,
+            "k7b_evaluated": evaluated, "k7b_bytes": k7b_bytes,
+            "k7b_bound_ms": k7b_bytes / HBM_BYTES_PER_S * 1e3,
+            "k7b_bytes_all": k7b_bytes_all,
+            "k7b_bound_ms_all": k7b_bytes_all / HBM_BYTES_PER_S * 1e3}
+        log(f"time crush {name} " + json.dumps(times[name]))
+        del calls
+    return times
+
+
+def crush_slice(dev) -> dict:
+    """Phases 3c, 4c and 5c of the CRUSH slice on ``dev``; returns what
+    they measured ("launches", "max_abs_err", "times", ...)."""
+    # -- 3c. K7a / K7b against their plain versions ---------------------------
+    import multiprocessing
+    from ceph_tpu_torch.ops import crush_fast
+    t_crush = time.perf_counter()
+    maps = {"u": crush_remap_map(True), "n": crush_remap_map(False)}
+    configs = [(f"{k}_{mode}", cw, rno, size)
+               for k, (cw, rules) in maps.items()
+               for mode, (rno, size) in rules.items()]
+    crush_err, plain_rules = crush_checks(configs, dev)
+
+    # -- 4c. the CRUSH main path: crushtool-style epochs, then OSDMap ---------
+    crush_fast.descend_launches.reset()
+    crush_fast.resolve_launches.reset()
+    drive, jobs, drive_rules = crush_drive(configs, dev)
+    osd_drive, osd_jobs, osd_lanes = osdmap_drive(*maps["u"], dev)
+    crush_launches = {"crush_descend": crush_fast.descend_launches.n,
+                      "crush_resolve": crush_fast.resolve_launches.n}
+    log(f"main crush: launches {crush_launches}")
+    if 0 in crush_launches.values():
+        raise AssertionError("CRUSH main path skipped a kernel: "
+                             f"{crush_launches}")
+    # epoch 10 against the plain versions on the whole 100000 x
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    for name, (fr, res, cnt, w) in drive_rules.items():
+        rp, cp = plain_rules[name].map_batch(xs, w)
+        cols = np.arange(res.shape[1])[None, :]
+        if not (np.array_equal(cnt, cp) and np.array_equal(
+                np.where(cols < cnt[:, None], res, -1),
+                np.where(cols < cp[:, None], rp, -1))):
+            raise AssertionError(f"{name}: epoch 10 != plain version")
+    log(f"main crush: epoch 10 of {sorted(drive_rules)} equals the "
+        f"plain versions on all {CRUSH_X} x")
+    del plain_rules
+    # the OSDMap drive's own lanes (hashed pps, many at or above 2^31):
+    # its cached candidates and the last epoch's packed rows against the
+    # plain versions, every PG of both pools
+    for k, (fr, ruleno, size, pps, w) in osd_lanes.items():
+        frp = crush_fast.compile_fast_rule(maps["u"][0].crush, ruleno, size,
+                                           device=dev, plain=True)
+        a, b, resid = _rule_pair_err(fr, frp, pps, [w])
+        log(f"check osdmap {k} pool lanes X={len(pps)} (x >= 2^31: "
+            f"{int((pps >= 2 ** 31).sum())}): K7a max_abs_err={a} "
+            f"K7b max_abs_err={b} residual {resid[0]:.5f}")
+        if a or b:
+            raise AssertionError(f"osdmap {k}: kernels disagree with plain")
+        crush_err["crush_descend"] = max(crush_err["crush_descend"], a)
+        crush_err["crush_resolve"] = max(crush_err["crush_resolve"], b)
+        del frp
+    del osd_lanes
+    # the sampled rows against the host, in CHECK_PROCS workers started only
+    # now: the walls above were taken with nothing else on the host
+    ctx = multiprocessing.get_context("spawn")
+    t_check = time.perf_counter()
+    with ctx.Pool(CHECK_PROCS) as pool:
+        pending = [(what, got, pool.map_async(fn, args))
+                   for what, got, fn, args in jobs + osd_jobs]
+        n_rows = check_pending(pending)
+        pool.close()
+        pool.join()
+    del jobs, osd_jobs
+    log(f"main crush: {n_rows} sampled rows equal crush_do_rule / "
+        f"pg_to_up_acting_osds on the host "
+        f"({time.perf_counter() - t_check:.1f} s in {CHECK_PROCS} workers)")
+    crush = {"launches": crush_launches, "drive": drive,
+             "osdmap": osd_drive, "checked_rows": n_rows,
+             "max_abs_err": crush_err, "straw2_host_us": straw2_host_times()}
+
+    # -- 5c. CRUSH kernel times -------------------------------------------------
+    ct = crush_times(drive_rules, dev)
+    del drive_rules
+    crush["times"] = ct
+    crush["seconds"] = time.perf_counter() - t_crush
+    log(f"crush phases took {crush['seconds']:.1f} s")
+    return crush
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1057,8 +1646,22 @@ def main() -> int:
     log(f"after timing: clocks.sm, clocks.max.sm, power.draw, temp: {clocks}")
     results["clocks_after_timing"] = clocks
 
+    # -- 3c / 4c / 5c: the CRUSH slice, after the earlier slices' phases, which
+    # run as they did before it ----------------------------------------------------
+    crush = crush_slice(dev)
+    results["crush"] = crush
+    crush_launches, crush_err, ct = (crush["launches"], crush["max_abs_err"],
+                                     crush["times"])
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    log(f"after crush timing: clocks.sm, clocks.max.sm, power.draw, temp: "
+        f"{clocks}")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
+    k7 = ct["u_firstn"]
     k3, k3w32 = wt["w16"], wt["w32"]
     kernels = {"kernels": [{
         "name": "gf_bit_matmul", "route": "cuda",
@@ -1100,7 +1703,29 @@ def main() -> int:
         "bound_ms_w32": k3w32["bound_ms"],
         "bound_by_w32": k3w32["bound_by"],
         "prior_ms_w32": k3w32["prior_ms"],
-        "copy_ms_w32": k3w32["copy_ms"]}]}
+        "copy_ms_w32": k3w32["copy_ms"]}, {
+        "name": "crush_descend", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_fast.cu",
+        "replaces": "ceph_tpu/ops/crush_fast.py:592",
+        "launches": crush_launches["crush_descend"],
+        "max_abs_err": crush_err["crush_descend"],
+        "ms": k7["k7a_ms"], "plain_ms": k7["k7a_plain_ms"],
+        "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
+        "library_ms": None,
+        "ms_by_config": {n: t["k7a_ms"] for n, t in ct.items()},
+        "bound_ms_by_config": {n: t["k7a_bound_ms"] for n, t in ct.items()}}, {
+        "name": "crush_resolve", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_fast.cu",
+        "replaces": "ceph_tpu/ops/crush_fast.py:882",
+        "launches": crush_launches["crush_resolve"],
+        "max_abs_err": crush_err["crush_resolve"],
+        "ms": k7["k7b_ms"], "plain_ms": k7["k7b_plain_ms"],
+        "bound_ms": k7["k7b_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "ms_by_config": {n: t["k7b_ms"] for n, t in ct.items()},
+        "bound_ms_by_config": {n: t["k7b_bound_ms"] for n, t in ct.items()},
+        "bound_ms_all_bytes_by_config": {n: t["k7b_bound_ms_all"]
+                                         for n, t in ct.items()}}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

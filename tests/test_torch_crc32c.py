@@ -336,3 +336,22 @@ def test_hashinfo_matches_jax():
     for i in range(n):
         assert port.get_chunk_hash(i) == ref.get_chunk_hash(i)
     assert not port_ecutil.HashInfo().has_chunk_hash()
+
+
+@pytest.mark.parametrize("make", [
+    lambda rng: np.arange(64, dtype=np.uint8)[::2],
+    lambda rng: rng.integers(0, 256, (7, 33), dtype=np.uint8),
+    lambda rng: rng.integers(0, 1 << 16, 41, dtype=np.uint16),
+], ids=["strided_view", "u8_2d", "u16"])
+def test_host_crc_semantics_pinned_to_crc32c_sw(make):
+    """The port's host crc32c of a strided view, a 2-D array and a u16
+    array is the JAX ``crc32c_sw`` of the same array: the array's elements
+    as uint8 in C order (a u16 element keeps its low byte), not its raw
+    memory."""
+    from ceph_tpu.utils.crc32c import crc32c_sw as jax_sw
+    arr = make(np.random.default_rng(99))
+    assert crc32c(arr) == jax_sw(arr)
+    assert crc32c(arr) == crc32c(np.ascontiguousarray(arr, dtype=np.uint8)
+                                 .tobytes())
+    if arr.ndim == 1 and arr.dtype == np.uint8:
+        assert crc32c(arr) == 3894026348

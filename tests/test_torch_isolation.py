@@ -20,8 +20,8 @@ import ceph_tpu_torch
 from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
 from ceph_tpu_torch.gf.word_codec import reed_sol_van_matrix_w
-from ceph_tpu_torch.ops import (_build, crc32c_device, fused_encode_crc,
-                                gf_pallas, resident)
+from ceph_tpu_torch.ops import (_build, crc32c_device, crush_fast,
+                                fused_encode_crc, gf_pallas, resident)
 from ceph_tpu_torch.ops.gf_matmul import (DeviceRSBackend,
                                           DeviceWordRSBackend,
                                           expand_to_bitmatrix_w)
@@ -289,7 +289,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build("no_such_kernel")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("fused_encode_crc")
-    assert _build.sources() == ["crc32c", "fused_encode_crc",
+    assert _build.sources() == ["crc32c", "crush_fast", "fused_encode_crc",
                                 "gf_bit_matmul"]
 
 
@@ -325,3 +325,111 @@ def test_bitmatrix_validates():
     with pytest.raises(ValueError):
         gf_pallas.gf_bit_matmul_kernel(
             torch.zeros((1, 2, 8), dtype=torch.int16), bm)
+
+
+def test_walk_sees_the_crush_slice():
+    """The package walk reaches the CRUSH and OSDMap modules of the port,
+    and K7a/K7b live in the source the build knows."""
+    mods = _modules()
+    for m in ("crush.hash", "crush.ln", "crush._ln_table_data",
+              "crush.mapper", "crush.builder", "crush.wrapper",
+              "ops.crush_kernels", "ops.crush_fast", "utils.str_hash",
+              "osdmap.types", "osdmap.osdmap", "osdmap.mapping",
+              "osdmap.simple_build"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    src = (PKG / "csrc" / "crush_fast.cu").read_text()
+    for entry in ("crush_descend_launch", "crush_resolve_launch"):
+        assert f'extern "C" int {entry}(' in src
+        assert entry in crush_fast._SIGNATURES
+    assert "crush_fast" in _build.sources()
+
+
+def _small_rule():
+    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
+    cw = CrushWrapper()
+    cw.set_type_name(1, "host")
+    cw.set_type_name(10, "root")
+    hosts = [cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"h{h}",
+                           [2 * h, 2 * h + 1], [0x10000] * 2, id=-(h + 2))
+             for h in range(4)]
+    cw.set_max_devices(8)
+    cw.add_bucket(CRUSH_BUCKET_STRAW2, 10, "default", hosts, [0x20000] * 4,
+                  id=-1)
+    return cw, cw.add_simple_rule("d", "default", "host", mode="firstn")
+
+
+def test_crush_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.osdmap import OSDMapMapping
+    cw, rno = _small_rule()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_fast.compile_fast_rule(cw.crush, rno, 3, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_fast.compile_fast_rule(cw.crush, rno, 3)     # the default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OSDMapMapping()
+
+
+def test_crush_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """K7a and K7b on a tensor off the CPU go to the kernel or raise: no
+    plain version, no launch counted."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    cw, rno = _small_rule()
+    fr = crush_fast.compile_fast_rule(cw.crush, rno, 3, device="cpu")
+    monkeypatch.setattr(crush_fast, "crush_descend_plain", boom)
+    monkeypatch.setattr(crush_fast, "crush_resolve_plain", boom)
+    before = (crush_fast.descend_launches.n, crush_fast.resolve_launches.n)
+    lanes = [torch.empty(16, dtype=torch.int32, device="meta")] * 4
+    with pytest.raises(RuntimeError, match="meta"):
+        crush_fast.crush_descend(*lanes, fr.tables, 0, 1)
+    R = fr.numrep + fr.n_rounds - 1
+    cand = torch.empty((R, 1, 16), dtype=torch.int32, device="meta")
+    leaf = torch.empty((R, fr.n_leaf, 1, 16), dtype=torch.int32,
+                       device="meta")
+    flags = torch.empty(16, dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError, match="meta"):
+        crush_fast.crush_resolve(fr.spec, cand, leaf, lanes[0], flags, flags,
+                                 lanes[1][:8], 1, 3)
+    assert (crush_fast.descend_launches.n,
+            crush_fast.resolve_launches.n) == before
+
+
+def test_osdmap_mapping_routes_only_compile_errors_to_host(monkeypatch):
+    """OSDMapMapping._raw_batch maps a pool on the host only when its rule
+    fails to compile (UnsupportedRule, compile_map's ValueError), before
+    any launch; an error of map_batch itself propagates."""
+    from ceph_tpu_torch.osdmap import (OSDMap, OSDMapMapping, TYPE_REPLICATED,
+                                       pg_pool_t)
+    from ceph_tpu_torch.osdmap import mapping as mapping_mod
+    m = OSDMap()
+    m.set_max_osd(8)
+    cw, rno = _small_rule()
+    m.crush = cw
+    for i in range(8):
+        m.set_osd(i, up=True)
+    pid = m.add_pool("p", pg_pool_t(type=TYPE_REPLICATED, size=3,
+                                    min_size=2, crush_rule=rno, pg_num=16,
+                                    pgp_num=16))
+
+    def unsupported(*a, **kw):
+        raise crush_fast.UnsupportedRule("out of scope")
+    monkeypatch.setattr(mapping_mod, "compile_fast_rule", unsupported)
+    mm = OSDMapMapping(device="cpu")
+    mm.update(m)
+    assert mm.last_backend[pid] == "host"
+
+    def failing_map_batch(self, xs, weight):
+        raise ValueError("launch failed")
+    monkeypatch.setattr(mapping_mod, "compile_fast_rule",
+                        crush_fast.compile_fast_rule)
+    monkeypatch.setattr(crush_fast.FastRule, "map_batch", failing_map_batch)
+    with pytest.raises(ValueError, match="launch failed"):
+        OSDMapMapping(device="cpu").update(m)
+    for exc in (RuntimeError, ImportError):
+        def broken(*a, exc=exc, **kw):
+            raise exc("no device")
+        monkeypatch.setattr(mapping_mod, "compile_fast_rule", broken)
+        with pytest.raises(exc):
+            OSDMapMapping(device="cpu").update(m)

@@ -156,35 +156,45 @@ def test_minimum_to_decode_prefers_local_layer():
 @pytest.mark.parametrize("name", ["kml_4_2_3", "kml_locality",
                                   "explicit_steps"])
 def test_rule_matches_jax_create_rule(name):
-    """rule_for builds the steps the JAX plugin's create_rule adds to a
-    CrushWrapper; the port's create_rule waits for the CRUSH slice."""
-    from ceph_tpu.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
+    """The port's create_rule adds to the port's CrushWrapper the rule the
+    JAX plugin's create_rule adds to the JAX one, step for step; rule_for
+    builds the same steps without a map."""
+    import ceph_tpu.crush as jax_crush
+    import ceph_tpu_torch.crush as port_crush
     port, ref = _pair(name)
-    cw = CrushWrapper()
-    cw.set_type_name(1, "host")
-    cw.set_type_name(3, "rack")
-    cw.set_type_name(10, "root")
-    hosts = [cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"host{h}",
-                           [2 * h, 2 * h + 1], [0x10000] * 2, id=-(h + 2))
-             for h in range(8)]
-    cw.set_max_devices(16)
-    racks = [cw.add_bucket(CRUSH_BUCKET_STRAW2, 3, f"rack{r}",
-                           hosts[4 * r:4 * r + 4], [0x20000] * 4,
-                           id=-(r + 10)) for r in range(2)]
-    cw.add_bucket(CRUSH_BUCKET_STRAW2, 10, "default", racks, [0x80000] * 2,
-                  id=-1)
+
+    def build(pkg):
+        cw = pkg.CrushWrapper()
+        cw.set_type_name(1, "host")
+        cw.set_type_name(3, "rack")
+        cw.set_type_name(10, "root")
+        hosts = [cw.add_bucket(pkg.CRUSH_BUCKET_STRAW2, 1, f"host{h}",
+                               [2 * h, 2 * h + 1], [0x10000] * 2,
+                               id=-(h + 2)) for h in range(8)]
+        cw.set_max_devices(16)
+        racks = [cw.add_bucket(pkg.CRUSH_BUCKET_STRAW2, 3, f"rack{r}",
+                               hosts[4 * r:4 * r + 4], [0x20000] * 4,
+                               id=-(r + 10)) for r in range(2)]
+        cw.add_bucket(pkg.CRUSH_BUCKET_STRAW2, 10, "default", racks,
+                      [0x80000] * 2, id=-1)
+        return cw
+    cw, pcw = build(jax_crush), build(port_crush)
     rno = ref.create_rule("lrc_rule", cw)
     assert rno >= 0
     want = cw.crush.rules[rno]
-    got = port.rule_for(cw.get_item_id("default"), cw.get_type_id)
-    assert [(s.op, s.arg1, s.arg2) for s in got.steps] == \
-        [(s.op, s.arg1, s.arg2) for s in want.steps]
-    assert (got.type, got.min_size, got.max_size) == \
-        (want.type, want.min_size, want.max_size)
-    assert got.type == port_const.PG_POOL_TYPE_ERASURE
+    assert port.create_rule("lrc_rule", pcw) == rno
+    for got in (pcw.crush.rules[rno],
+                port.rule_for(cw.get_item_id("default"), cw.get_type_id)):
+        assert [(s.op, s.arg1, s.arg2) for s in got.steps] == \
+            [(s.op, s.arg1, s.arg2) for s in want.steps]
+        assert (got.type, got.min_size, got.max_size) == \
+            (want.type, want.min_size, want.max_size)
+        assert got.type == port_const.PG_POOL_TYPE_ERASURE
+    assert pcw.crush.rules[rno].ruleset == want.ruleset
+    assert pcw.rule_name_map == cw.rule_name_map
     assert port.rule_for(-1, lambda t: -1) is None
-    with pytest.raises(NotImplementedError):
-        port.create_rule("lrc_rule", cw)
+    assert port.create_rule("lrc_rule", pcw) == \
+        ref.create_rule("lrc_rule", cw) == -17
 
 
 @pytest.mark.parametrize("bad", [
