@@ -1,6 +1,7 @@
 """CRUSH placement of the port: the data model, the exact host
-interpreter (``crush_do_rule``) and ``CrushWrapper``; the candidate-table
-mapper on the card is ``ops/crush_fast.py``."""
+interpreter (``crush_do_rule``), ``CrushWrapper`` and (``tester``)
+``CrushTester``; the mappers on the card are ``ops/crush_fast.py`` and
+``ops/crush_kernels.py``."""
 from .constants import *  # noqa: F401,F403
 from .types import (  # noqa: F401
     Bucket, UniformBucket, ListBucket, TreeBucket, StrawBucket, Straw2Bucket,

@@ -20,30 +20,33 @@ there; every part the JAX module jits is a kernel of
    x, and packs each x into one row ``[slots..., count | residual << 16]``.
    Under mode 1 it is the collision pass of a chained rule's middle step,
    part of the candidate phase.
-3. *Residuals*: where the round caps (``tries_cap``, ``leaf_tries_cap``)
-   stop short of the rule's tries, the lane is flagged and its x replays on
-   the host ``crush_do_rule``, the reference's exact algorithm, so the
-   combined result equals ``crush_do_rule`` on every input.
+3. *Finishing*: where the round caps (``tries_cap``, ``leaf_tries_cap``)
+   stop short of the rule's tries, K7b flags the x.  ``exact_packed``
+   gathers the flagged x into an index buffer on the device (a cumsum and
+   a scatter, no host sync) and K6 (``crush_kernels.crush_rule``), the
+   whole rule with its full tries, writes their exact rows over them.  So
+   every row equals ``crush_do_rule`` and no x is recomputed on the host.
 
 Per epoch, ``map_batch`` fetches only the rows that changed since the last
 weight vector (K7c, ``_delta``: a cumsum/scatter compaction in torch, no
 host sync before the one device-to-host copy).
 
 A CUDA tensor goes to the kernels or raises; only tensors on the CPU take
-the plain versions (``crush_descend_plain``, ``crush_resolve_plain``).
-``FastRule(..., plain=True)`` runs the plain versions on any device: it is
-the reference run that chip_smoke.py holds the kernels against, never a
-default.  ``descend_launches.n`` / ``resolve_launches.n`` count launches.
+the plain versions (``crush_descend_plain``, ``crush_resolve_plain``,
+``crush_rule_plain``).  ``FastRule(..., plain=True)`` runs the plain
+versions on any device: it is the reference run that chip_smoke.py holds
+the kernels against, never a default.  ``descend_launches.n`` /
+``resolve_launches.n`` (and ``crush_kernels.rule_launches.n`` for K6)
+count launches.
 
 Scope as in the JAX module: straw2 maps, layered hierarchies, jewel-style
 tunables for firstn chooseleaf (stable = 1), no local tries, at most two
-choose steps; and here at most ``MAX_REP`` slots per step.  Anything else
-raises ``UnsupportedRule`` while the rule compiles, before any launch.
+choose steps; and here at most ``MAX_REP`` slots per step and in the
+result.  Anything else raises ``UnsupportedRule`` while the rule compiles,
+before any launch.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import hashlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -60,29 +63,16 @@ from ..crush.constants import (
     CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES, CRUSH_RULE_SET_CHOOSE_TRIES,
     CRUSH_RULE_TAKE,
 )
-from ..crush.ln import crush_ln_np
-from ..crush.mapper import crush_do_rule
 from ..crush.types import CrushMap
 from . import _build
-from .crush_kernels import CompiledCrushMap, compile_map, hash32_2, hash32_3
+from .crush_kernels import (
+    MAX_REP, QTABLE_MIN_W, _SIGNATURES, CompiledCrushMap, compile_map,
+    crush_rule, crush_rule_plain_into, g_table, hash32_2, hash32_3,
+    quotient_table)
 from .gf_pallas import LaunchCounter
 
 NONE = CRUSH_ITEM_NONE
 UNDEF = CRUSH_ITEM_UNDEF
-MAX_REP = 32                  # kMaxRep of csrc/crush_fast.cu
-
-_VP = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_SIGNATURES = {
-    "crush_descend_launch": (
-        [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-         _I, _I, _I, _I, _I, _VP], _I),
-    "crush_resolve_launch": (
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL,
-         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-        _I),
-}
 
 descend_launches = LaunchCounter()    # K7a
 resolve_launches = LaunchCounter()    # K7b
@@ -93,39 +83,6 @@ _PLAIN_CHUNK_WORDS = 1 << 25
 
 class UnsupportedRule(ValueError):
     pass
-
-
-# ---- exact integer draw tables ----------------------------------------------
-
-def _build_g_table() -> np.ndarray:
-    """G[u] = 2^48 - crush_ln(u) for every 16-bit u (exact int64): the
-    straw2 draw -floor(G/w) (mapper.c:322-367) as a gather and a divide."""
-    us = np.arange(0x10000, dtype=np.uint32)
-    g = (np.uint64(1) << np.uint64(48)) - crush_ln_np(us)
-    return g.astype(np.int64)
-
-
-_G_EXACT = _build_g_table()
-
-# minimum uniform weight eligible for the quotient-table path: floor(G/w)
-# must fit the biased-i32 encoding (G_max = 2^48)
-_QTABLE_MIN_W = 0x10000
-_QBIAS = np.int64(1) << np.int64(31)
-
-
-def _quotient_table(w: int) -> np.ndarray:
-    """i32 table T[u] = floor(G(u)/w) - 2^31, order- and tie-exact for
-    w >= 0x10000.  The unique u=0 entry (G = 2^48, q may hit exactly
-    2^32) is clamped by 1: the runner-up G is 2^48 - 2^44, far more than
-    w below the clamp for every w <= 2^31."""
-    q = _G_EXACT // np.int64(w)
-    q = np.minimum(q, (np.int64(1) << np.int64(32)) - 1)
-    return (q - _QBIAS).astype(np.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _g_table(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_G_EXACT).to(device)
 
 
 # ---- layered-path validation (host) -----------------------------------------
@@ -685,10 +642,15 @@ class FastRule:
                 for f in frontier:
                     if _layer_path(m, f, 0) != self.leaf_depth:
                         raise UnsupportedRule("uneven leaf depth")
+        if not 1 <= result_max <= MAX_REP:
+            raise UnsupportedRule(f"result_max {result_max} outside "
+                                  f"1..{MAX_REP}")
         self.C = C
         self.device = C.device
         self.result_max = result_max
         self.tables = self._build_tables()
+        # K6's program: the whole rule, for the x the round caps flag
+        self.program = C.compile_rule(ruleno, result_max)
         self.spec = ResolveSpec(
             numrep=self.numrep, n_rounds=self.n_rounds, tries=self.tries,
             firstn=self.firstn, P=self.posP,
@@ -698,6 +660,9 @@ class FastRule:
             gate=self.firstn)
         self._descend = crush_descend_plain if plain else crush_descend
         self._resolve = crush_resolve_plain if plain else crush_resolve
+        self._rule = crush_rule_plain_into if plain else crush_rule
+        self._xd: Optional[torch.Tensor] = None
+        self._n_flagged: Optional[torch.Tensor] = None
         self._cand_key: Optional[bytes] = None
         self._cand = None
         # per-epoch delta state: the previous epoch's packed rows on the
@@ -713,7 +678,7 @@ class FastRule:
         """Per-level eligibility + shared per-w i32 quotient tables.
 
         A level draws from the tables iff every bucket its frontier can
-        present has uniform item weights >= _QTABLE_MIN_W and no
+        present has uniform item weights >= QTABLE_MIN_W and no
         choose_args weight set overrides them."""
         m = self.C.map
         n_main = self.depth
@@ -738,7 +703,7 @@ class FastRule:
             ok = not use_pos_weights
             for bid in lvl:
                 ws = list(m.bucket(bid).item_weights)
-                if not ws or min(ws) != max(ws) or ws[0] < _QTABLE_MIN_W:
+                if not ws or min(ws) != max(ws) or ws[0] < QTABLE_MIN_W:
                     ok = False
                     break
             if ok:
@@ -746,14 +711,14 @@ class FastRule:
                     w = int(m.bucket(bid).item_weights[0])
                     if w not in w_to_idx:
                         w_to_idx[w] = len(tables)
-                        tables.append(_quotient_table(w))
+                        tables.append(quotient_table(w))
                     qidx[-1 - bid] = w_to_idx[w]
             lvl_int.append(ok)
         dev = self.device
         qt = (np.stack(tables) if tables
               else np.zeros((1, 1), dtype=np.int32))
         return DescentTables(self.C, torch.from_numpy(qidx).to(dev),
-                             torch.from_numpy(qt).to(dev), _g_table(dev),
+                             torch.from_numpy(qt).to(dev), g_table(dev),
                              tuple(lvl_int))
 
     # ---- candidate phase (topology only; cached across epochs) -------------
@@ -850,10 +815,10 @@ class FastRule:
 
     # ---- resolution phase (per weight vector) ------------------------------
     def resolve_packed(self, weight: torch.Tensor) -> torch.Tensor:
-        """(X, result_max + 1) int32 packed rows for ``weight`` (int32
+        """K7b: (X, result_max + 1) int32 packed rows for ``weight`` (int32
         bits of the u32 weights, on the rule's device) against the cached
         candidates: EMIT-compacted slots, then ``count | residual << 16``.
-        A residual row's slots are a guess; ``map_batch`` replays it."""
+        A residual row's slots are a guess; ``exact_packed`` finishes it."""
         if self._cand is None:
             raise RuntimeError("no candidate tables; call "
                                "prepare_candidates(xs) first")
@@ -861,43 +826,52 @@ class FastRule:
         return self._resolve(self.spec, cand, leaf, xl, valid, risk0,
                              weight, self.parents, self.result_max, 0)
 
-    def _delta(self, packed: torch.Tensor, prev: torch.Tensor,
-               cap: int) -> torch.Tensor:
-        """Changed-row extraction against the previous epoch (K7c).
+    def exact_packed(self, weight: torch.Tensor) -> torch.Tensor:
+        """K7b's rows with every flagged x recomputed by K6: the flagged
+        rows' indices are compacted on the device (``flagged_index``: a
+        cumsum and a scatter, no host sync), and K6 runs the whole rule for
+        the first ``n_flagged`` of them, writing each exact row, its count
+        in the tail with the residual bit clear.  ``self._n_flagged`` keeps
+        the device count."""
+        packed = self.resolve_packed(weight)
+        idx, n_flagged = self.flagged_index(packed)
+        self._rule(self.program, self._xd, weight, idx=idx, n_live=n_flagged,
+                   packed=packed)
+        self._n_flagged = n_flagged
+        return packed
 
-        A row is changed if any column differs or either epoch flagged it
-        residual (a residual row's device value is a guess, so it replays
-        whenever the weights change).  Returns one flat int32 buffer
-        ``[n_changed, n_residual, idx[cap], rows[cap * (R+1)]]``, built by
-        a cumsum and a scatter on the device (no sync), so the epoch costs
-        one device-to-host copy."""
-        R = self.result_max
+    def flagged_index(self, packed: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rows K7b flagged, on the device: (idx (2X,) int32 whose
+        first n entries are their indices in order, n (1,) int32)."""
         X = packed.shape[0]
-        res_new = (packed[:, R] >> 16) != 0
-        res_prev = (prev[:, R] >> 16) != 0
-        changed = (packed != prev).any(1) | res_new | res_prev
-        pos = torch.cumsum(changed, 0) - 1
-        dest = torch.where(changed & (pos < cap), pos, cap)
-        idx = torch.zeros(cap + 1, dtype=torch.int32, device=packed.device)
-        idx.scatter_(0, dest, torch.arange(X, dtype=torch.int32,
-                                           device=packed.device))
-        idx = idx[:cap]
-        counts = torch.stack([changed.sum(dtype=torch.int32),
-                              res_new.sum(dtype=torch.int32)])
-        return torch.cat([counts, idx, packed[idx.long()].reshape(-1)])
+        flagged = (packed[:, self.result_max] >> 16) != 0
+        pos = torch.cumsum(flagged, 0, dtype=torch.int32) - 1
+        # an unflagged row parks its index in a slot of its own past X
+        ar = torch.arange(X, dtype=torch.int32, device=packed.device)
+        idx = torch.empty(2 * X, dtype=torch.int32, device=packed.device)
+        idx.scatter_(0, torch.where(flagged, pos, X + ar).long(), ar)
+        return idx, flagged.sum(dtype=torch.int32).reshape(1)
 
-    def _replay_exact(self, idxs: np.ndarray, xs: np.ndarray,
-                      weight: np.ndarray, out: np.ndarray,
-                      counts: np.ndarray) -> None:
-        """Overwrite the given rows with the host ``crush_do_rule``."""
-        m = self.C.map
-        wl = [int(v) for v in weight]
-        for i in idxs:
-            res = crush_do_rule(m, self.ruleno, int(xs[i]), self.result_max,
-                                wl, self.choose_args)
-            out[i, :] = NONE
-            out[i, :len(res)] = res
-            counts[i] = len(res)
+    def _delta(self, packed: torch.Tensor, prev: torch.Tensor,
+               cap: int, n_flagged: torch.Tensor) -> torch.Tensor:
+        """Changed-row extraction against the previous epoch (K7c) over
+        exact rows.  Returns one flat int32 buffer ``[n_changed,
+        n_flagged, idx[cap], rows[cap * (R+1)]]``, built by a cumsum and a
+        scatter on the device (no sync), so the epoch costs one
+        device-to-host copy."""
+        X = packed.shape[0]
+        changed = (packed != prev).any(1)
+        pos = torch.cumsum(changed, 0) - 1
+        ar = torch.arange(X, device=packed.device)
+        # rows past the cap or unchanged park in slots of their own past it
+        dest = torch.where(changed & (pos < cap), pos, cap + ar)
+        idx = torch.zeros(cap + X, dtype=torch.int32, device=packed.device)
+        idx.scatter_(0, dest, ar.to(torch.int32))
+        idx = idx[:cap]
+        counts = torch.cat([changed.sum(dtype=torch.int32).reshape(1),
+                            n_flagged.reshape(1)])
+        return torch.cat([counts, idx, packed[idx.long()].reshape(-1)])
 
     # ---- public -----------------------------------------------------------
     def prepare_candidates(self, xs: np.ndarray) -> None:
@@ -908,6 +882,7 @@ class FastRule:
         if self._cand_key != key:
             xd = torch.from_numpy(xs.view(np.int32)).to(self.device)
             self._cand = self._candidates(xd)
+            self._xd = xd
             self._cand_key = key
             self._prev_packed = None
             self._host_out = None
@@ -926,10 +901,11 @@ class FastRule:
         R = self.result_max
         X = xs.shape[0]
         wd = torch.from_numpy(w32.view(np.int32)).to(self.device)
-        packed = self.resolve_packed(wd)
+        packed = self.exact_packed(wd)
         cap = min(self.delta_cap, X)
         if self._prev_packed is not None and self._host_out is not None:
-            flat = self._delta(packed, self._prev_packed, cap).cpu().numpy()
+            flat = self._delta(packed, self._prev_packed, cap,
+                               self._n_flagged).cpu().numpy()
             n_changed = int(flat[0])
             self._residual_frac = int(flat[1]) / X
             if n_changed <= cap:
@@ -938,19 +914,16 @@ class FastRule:
                     idxs = flat[2:2 + n_changed].copy()
                     rows = flat[2 + cap:].reshape(cap, R + 1)[:n_changed]
                     out[idxs] = rows[:, :R]
-                    counts[idxs] = rows[:, R] & 0xFFFF
-                    replay = idxs[(rows[:, R] >> 16) != 0]
-                    self._replay_exact(replay, xs, w32, out, counts)
+                    counts[idxs] = rows[:, R]
                 self._prev_packed = packed
                 return out.copy(), counts.copy()
             # overflow: full fetch, and a larger cap for the next epochs
             self.delta_cap = min(2 * self.delta_cap, max(X, 1))
-        full = packed.cpu().numpy()
+        flat = torch.cat([self._n_flagged, packed.reshape(-1)]).cpu().numpy()
+        full = flat[1:].reshape(X, R + 1)
         out = full[:, :R].copy()
-        counts = (full[:, R] & 0xFFFF).astype(np.int32)
-        residual = (full[:, R] >> 16) != 0
-        self._residual_frac = float(residual.mean()) if X else 0.0
-        self._replay_exact(np.nonzero(residual)[0], xs, w32, out, counts)
+        counts = full[:, R].copy()
+        self._residual_frac = int(flat[0]) / X if X else 0.0
         self._prev_packed = packed
         self._host_out = out
         self._host_counts = counts
@@ -958,8 +931,16 @@ class FastRule:
 
     @property
     def residual_fraction(self) -> float:
-        """Share of the last ``map_batch``'s x replayed on the host."""
+        """Share of the last ``map_batch``'s x that K7b flagged (the round
+        caps stopped short of the rule's tries), all finished by K6."""
         return self._residual_frac
+
+    @property
+    def host_replayed(self) -> int:
+        """x of the last ``map_batch`` recomputed on the host: none, since
+        K6 finishes every flagged x on the rule's device.  A read-out for
+        the drives that assert it (the JAX package has no such count)."""
+        return 0
 
     @property
     def integer_exact_levels(self) -> List[bool]:

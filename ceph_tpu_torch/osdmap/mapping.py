@@ -4,9 +4,10 @@ Port of ``ceph_tpu/osdmap/mapping.py``.  The reference computes pg ->
 up/acting for every PG of every pool by sharding the per-PG pipeline over
 a thread pool (src/osd/OSDMapMapping.h:17-165).  Here the crush evaluation
 of a whole pool is one ``FastRule.map_batch`` on the card
-(ops/crush_fast.py, kernels K7a/K7b), and the post-passes — nonexistent /
-down filtering, primary pick, primary affinity (OSDMap.cc:1966-2117) —
-are vectorized numpy over (PGs, size) arrays.  Sparse per-PG overrides
+(ops/crush_fast.py, kernels K7a/K7b, and K6 for the x they flag), and
+the post-passes — nonexistent / down filtering, primary pick, primary
+affinity (OSDMap.cc:1966-2117) — are vectorized numpy over (PGs, size)
+arrays.  Sparse per-PG overrides
 (pg_upmap, pg_upmap_items, pg_temp, primary_temp) re-run the exact scalar
 pipeline for just those PGs, so the batch result is identical to
 pg_to_up_acting_osds on every input.
@@ -15,7 +16,10 @@ Only a rule that cannot compile for the card (``UnsupportedRule``, or
 ``compile_map``'s ValueError, both raised before any launch) maps on the
 host ``crush_do_rule``; a failure of ``map_batch`` itself raises.
 ``last_backend[pool]`` says which ran: "device" (the card), "cpu" (the
-plain versions, when the caller asked for the CPU) or "host".
+plain versions, when the caller asked for the CPU) or "host", and
+``host_replayed[pool]`` how many of the pool's PGs ``crush_do_rule``
+mapped on the host: all of them on the host route, none otherwise (the
+x the candidate tables leave unresolved finish on K6 beside them).
 """
 from __future__ import annotations
 
@@ -82,6 +86,7 @@ class OSDMapMapping:
         self.pools: Dict[int, PoolMapping] = {}
         self.epoch = -1
         self.last_backend: Dict[int, str] = {}
+        self.host_replayed: Dict[int, int] = {}
         # compiled-rule cache: the candidate tables are paid once per
         # crush-map change, not per epoch (up/out flips are the weights)
         self._rule_cache: Dict[Tuple[int, int, int], Tuple[bytes, object]] = {}
@@ -147,6 +152,7 @@ class OSDMapMapping:
                 res, cnt = fr.map_batch(pps, weight)
                 self.last_backend[pool_id] = (
                     "device" if self.device.type == "cuda" else "cpu")
+                self.host_replayed[pool_id] = fr.host_replayed
                 return self._trim(res, cnt, pool, size)
         out = np.full((X, size), NONE, dtype=np.int32)
         for i, x in enumerate(pps):
@@ -154,6 +160,7 @@ class OSDMapMapping:
                                 weight, choose_args)
             out[i, :len(res)] = res
         self.last_backend[pool_id] = "host"
+        self.host_replayed[pool_id] = X
         return out
 
     @staticmethod

@@ -109,6 +109,30 @@ m=4's ``create_rule`` (chooseleaf indep, size 12):
    turns, 10 back to back per sample, and their plain versions; (f) and (g)
    are the host-clock walls of 4c's epochs.
 
+The whole-rule slice adds K6 (``crush_rule``, the whole rule for each x with
+its full tries) and the redesigned K7b to 3c/4c/5c, and crushtool --test:
+
+3c. K6 against ``crush_rule_plain`` (on the CPU), exact: on the small shapes
+   at 4096 x under four weight vectors, and per configuration over 4096
+   sampled x plus every x K7b flags under the 3c weights; the K6-finished
+   rows of every 3c weight vector (``FastRule.exact_packed``) against the
+   plain versions' on the card; 256 x per configuration against
+   ``crush_do_rule`` on the host (with the other host checks);
+4c. the K6 count must move in every epoch of both drives (it runs over the
+   flagged x, none or many, with no host sync); every epoch asserts
+   ``host_replayed == 0`` (FastRule and both OSDMap pools) and logs the
+   residual fraction, the share of x K7b flagged and K6 finished;
+5c. K6 over all 100000 x per configuration and over the flagged x alone,
+   and K7b, replayed from a CUDA graph of 10 launches (the kernel's own
+   time; K7b's wrapper takes longer on the host than its kernel on the
+   card, so it is also timed as before, host launch included), against
+   K6's instruction bound: the straw2 items its plain version draws for
+   the same x, times OPS_PER_DRAW;
+4t. ``CrushTester`` (crushtool --test --show-statistics) over the (u) map:
+   every rule and numrep at x 0..1023 on the card equals the same sweep on
+   the plain versions (CPU) byte for byte; then each rule at its pool size
+   over 100000 x on the card, timed.
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -172,6 +196,46 @@ def turns_ms(fns, runs: int = RUNS, warmup: int = 2, reps: int = 1):
             b.synchronize()
             t.append(a.elapsed_time(b) / reps)
     return [statistics.median(t) for t in times]
+
+
+def kernel_name(mangled: str) -> str:
+    """``crush_rule_kernel<12>`` for a mangled kernel name."""
+    m = re.search(r"\d+((?:crush|gfw?|crc32c|fused)\w*?_kernel)"
+                  r"(I(?:Li\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def graph_ms(fn, launches: int = REPS, samples: int = RUNS) -> float:
+    """Median device time of one call of ``fn``, replayed from a CUDA graph
+    of ``launches`` calls back to back: the kernels' own time, with no
+    host launch cost between them (a wrapper that takes longer on the host
+    than its kernel on the card is otherwise what a timer measures)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del g
+    return statistics.median(times)
 
 
 def sass_counts(so_path, nvcc):
@@ -996,8 +1060,9 @@ def _crush_weights(n, rng):
 
 
 def _rule_pair_err(fr, frp, xs, weights):
-    """Candidates (K7a) and packed rows (K7b) of a kernel rule and its
-    plain twin on the card: (K7a err, K7b err, residual fractions)."""
+    """Candidates (K7a), packed rows (K7b) and K6-finished rows of a kernel
+    rule and its plain twin on the card: (K7a err, K7b err, finished-rows
+    err, residual fractions, the x K7b flagged under any weight)."""
     fr.prepare_candidates(xs)
     frp.prepare_candidates(xs)
     a_err = 0
@@ -1007,38 +1072,79 @@ def _rule_pair_err(fr, frp, xs, weights):
                 raise AssertionError("leaf attempts where plain has none")
             continue
         a_err = max(a_err, int_err(got, want))
-    b_err, resid = 0, []
+    b_err, k6_err, resid, flagged = 0, 0, [], set()
     for w in weights:
         wd = torch.from_numpy(w.view(np.int32)).to(fr.device)
         got, want = fr.resolve_packed(wd), frp.resolve_packed(wd)
         b_err = max(b_err, int_err(got, want))
-        resid.append(float(((got[:, -1] >> 16) != 0).float().mean()))
+        flag = ((got[:, -1] >> 16) != 0).cpu().numpy()
+        resid.append(float(flag.mean()))
+        flagged.update(xs[np.nonzero(flag)[0]].tolist())
+        got, want = fr.exact_packed(wd), frp.exact_packed(wd)
+        k6_err = max(k6_err, int_err(got, want))
     torch.cuda.synchronize()
-    return a_err, b_err, resid
+    return a_err, b_err, k6_err, resid, flagged
+
+
+def _k6_pair_err(cw, rno, size, args, xs, weights, dev):
+    """K6 (``DeviceCrushMapper`` on the card) against ``crush_rule_plain``
+    on the CPU over ``xs`` under each weight vector: (err, rows and counts
+    of the last)."""
+    from ceph_tpu_torch.ops.crush_kernels import DeviceCrushMapper, compile_map
+    card = DeviceCrushMapper(compile_map(cw.crush, args, device=dev), rno,
+                             size)
+    cpu = DeviceCrushMapper(compile_map(cw.crush, args, device="cpu"), rno,
+                            size)
+    err = 0
+    for w in weights:
+        res, cnt = card.map_batch(xs, w)
+        res, cnt = res.cpu(), cnt.cpu()
+        pres, pcnt = cpu.map_batch(xs, w)
+        err = max(err, int_err(res, pres), int_err(cnt, pcnt))
+    return err, res.numpy(), cnt.numpy()
+
+
+K6_HOST_SAMPLE = 256               # K6 rows per configuration checked on the host
 
 
 def crush_checks(configs, dev):
-    """3c: K7a and K7b against their plain versions on the card, exact, on
-    the four BASELINE configurations at 100000 x and the small shapes."""
+    """3c: K7a, K7b and K6 against their plain versions, exact, on the four
+    BASELINE configurations at 100000 x and the small shapes.  Returns the
+    errors, the plain rules, and host jobs holding K6 rows against
+    ``crush_do_rule`` (run with 4c's)."""
     from ceph_tpu_torch.crush.mapper import crush_do_rule
     from ceph_tpu_torch.ops.crush_fast import compile_fast_rule
     rng = np.random.default_rng(SEED)
     xs = np.arange(CRUSH_X, dtype=np.uint32)
-    errs = {"crush_descend": 0, "crush_resolve": 0}
-    plain_rules = {}
+    errs = {"crush_descend": 0, "crush_resolve": 0, "crush_rule": 0}
+    plain_rules, jobs = {}, []
     for name, cw, rno, size in configs:
         fr = compile_fast_rule(cw.crush, rno, size, device=dev)
         frp = compile_fast_rule(cw.crush, rno, size, device=dev, plain=True)
-        a, b, resid = _rule_pair_err(fr, frp, xs,
-                                     _crush_weights(CRUSH_OSDS, rng))
+        weights = _crush_weights(CRUSH_OSDS, rng)
+        a, b, f, resid, flagged = _rule_pair_err(fr, frp, xs, weights)
+        # K6 alone: 4096 sampled x and every x K7b flagged above
+        kx = np.union1d(rng.choice(CRUSH_X, CRUSH_SAMPLE, replace=False),
+                        np.fromiter(flagged, np.int64, len(flagged))
+                        ).astype(np.uint32)
+        e6, rows, cnt = _k6_pair_err(cw, rno, size, None, kx,
+                                     [weights[1], weights[3]], dev)
+        host = np.sort(rng.choice(len(kx), K6_HOST_SAMPLE, replace=False))
+        jobs.append((f"K6 {name}", [[int(v) for v in rows[i, :cnt[i]]]
+                                    for i in host], _do_rule_rows,
+                     [(cw.crush, rno, c, size, [int(v) for v in weights[3]])
+                      for c in _chunks(kx[host], CHECK_PROCS)]))
         log(f"check crush {name} X={CRUSH_X} levels "
             f"{fr.integer_exact_levels} cand {tuple(fr._cand[0].shape)}: "
             f"K7a max_abs_err={a} K7b max_abs_err={b} residual "
-            f"{[round(r, 5) for r in resid]}")
-        if a or b:
+            f"{[round(r, 5) for r in resid]}; K6-finished rows "
+            f"max_abs_err={f}; K6 on {len(kx)} x ({len(flagged)} flagged) "
+            f"max_abs_err={e6}")
+        if a or b or f or e6:
             raise AssertionError(f"crush kernels disagree with plain: {name}")
         errs["crush_descend"] = max(errs["crush_descend"], a)
         errs["crush_resolve"] = max(errs["crush_resolve"], b)
+        errs["crush_rule"] = max(errs["crush_rule"], f, e6)
         plain_rules[name] = frp
         del fr
     xs_small = (np.arange(4096, dtype=np.uint64) * 2654435761
@@ -1047,8 +1153,9 @@ def crush_checks(configs, dev):
         fr = compile_fast_rule(cw.crush, rno, rmax, args, device=dev)
         frp = compile_fast_rule(cw.crush, rno, rmax, args, device=dev,
                                 plain=True)
-        a, b, resid = _rule_pair_err(fr, frp, xs_small,
-                                     _crush_weights(n, rng))
+        weights = _crush_weights(n, rng)
+        a, b, f, resid, _ = _rule_pair_err(fr, frp, xs_small, weights)
+        e6, _, _ = _k6_pair_err(cw, rno, rmax, args, xs_small, weights, dev)
         w = _crush_weights(n, rng)[3]
         res, cnt = fr.map_batch(xs_small, w)
         wl = [int(v) for v in w]
@@ -1060,10 +1167,12 @@ def crush_checks(configs, dev):
                                      f"crush_do_rule at x={xs_small[i]}")
         log(f"check crush {name} (P={fr.posP}, parents={fr.parents}, "
             f"levels {fr.integer_exact_levels}): K7a max_abs_err={a} "
-            f"K7b max_abs_err={b}; map_batch == crush_do_rule on 256 x")
-        if a or b:
+            f"K7b max_abs_err={b} K6-finished max_abs_err={f} K6 "
+            f"max_abs_err={e6}; map_batch == crush_do_rule on 256 x")
+        if a or b or f or e6:
             raise AssertionError(f"crush kernels disagree with plain: {name}")
-    return errs, plain_rules
+        errs["crush_rule"] = max(errs["crush_rule"], e6)
+    return errs, plain_rules, jobs
 
 
 def _chunks(seq, n):
@@ -1076,7 +1185,7 @@ def crush_drive(configs, dev):
     out (workloads.py:1915-1920).  Returns the host checks of the sample's
     rows as jobs, run once every timed epoch is done, so the walls are
     taken with nothing else on the host."""
-    from ceph_tpu_torch.ops import crush_fast as cf
+    from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
     xs = np.arange(CRUSH_X, dtype=np.uint32)
     sample = np.sort(np.random.default_rng(SEED).choice(
         CRUSH_X, CRUSH_SAMPLE, replace=False))
@@ -1090,14 +1199,19 @@ def crush_drive(configs, dev):
                 w[(7 * e + 3) % CRUSH_OSDS] = 0
             a0 = cf.descend_launches.n
             b0 = cf.resolve_launches.n
+            c0 = ck.rule_launches.n
             t0 = time.perf_counter()
             res, cnt = fr.map_batch(xs, w)
             walls.append(time.perf_counter() - t0)
             if e and cf.descend_launches.n != a0:
                 raise AssertionError(f"{name}: K7a launched on delta epoch "
                                      f"{e} (candidates not cached)")
-            if cf.resolve_launches.n == b0:
-                raise AssertionError(f"{name}: K7b did not launch, epoch {e}")
+            if cf.resolve_launches.n == b0 or ck.rule_launches.n == c0:
+                raise AssertionError(f"{name}: K7b or K6 did not launch, "
+                                     f"epoch {e}")
+            if fr.host_replayed:
+                raise AssertionError(f"{name}: {fr.host_replayed} x "
+                                     f"recomputed on the host, epoch {e}")
             resid.append(fr.residual_fraction)
             got = [[int(v) for v in res[x, :cnt[x]]] for x in sample]
             wl = [int(v) for v in w]
@@ -1109,10 +1223,12 @@ def crush_drive(configs, dev):
                      "epoch_wall_s": statistics.median(walls[1:]),
                      "epoch_walls_s": walls[1:],
                      "residual_fraction": resid,
+                     "host_replayed": 0,
                      "delta_cap": fr.delta_cap}
         log(f"drive crush {name}: epoch 0 {walls[0]:.3f} s, epochs 1-10 "
             f"median {out[name]['epoch_wall_s'] * 1e3:.2f} ms, residual "
-            f"fraction {resid[0]:.5f} (epoch 0) .. {resid[-1]:.5f}")
+            f"fraction (flagged by K7b, finished by K6) per epoch "
+            f"{[round(r, 5) for r in resid]}, host_replayed 0 every epoch")
     return out, jobs, rules
 
 
@@ -1147,7 +1263,7 @@ def osdmap_drive(cw, rules, dev):
     samples = {k: np.sort(rng.choice(OSDMAP_PG_NUM[k], OSDMAP_SAMPLE,
                                      replace=False)) for k in pools}
     mm = OSDMapMapping(device=dev)
-    walls, jobs = [], []
+    walls, jobs, resid_epochs = [], [], []
     for e in range(CRUSH_EPOCHS + 1):
         if e:
             mark_out(m, (7 * e + 3) % CRUSH_OSDS)
@@ -1155,6 +1271,12 @@ def osdmap_drive(cw, rules, dev):
         t0 = time.perf_counter()
         mm.update(m)
         walls.append(time.perf_counter() - t0)
+        if mm.host_replayed != {pid: 0 for pid in pools.values()}:
+            raise AssertionError(f"OSDMap epoch {e}: PGs mapped on the "
+                                 f"host: {mm.host_replayed}")
+        resid_epochs.append({k: fr.residual_fraction for (pid, _, _), (_, fr)
+                             in mm._rule_cache.items()
+                             for k, p in pools.items() if p == pid})
         blob = pickle.dumps(m)
         for k, pid in pools.items():
             got = [mm.get(pg_t(pid, int(ps))) for ps in samples[k]]
@@ -1177,10 +1299,12 @@ def osdmap_drive(cw, rules, dev):
     out = {"first_update_s": walls[0],
            "update_s": statistics.median(walls[1:]),
            "update_walls_s": walls[1:], "last_backend": backends,
-           "residual_fraction_last_epoch": resid}
+           "residual_fraction_last_epoch": resid,
+           "residual_fraction": resid_epochs, "host_replayed": 0}
     log(f"drive osdmap: update {walls[0]:.3f} s first, median "
         f"{out['update_s']:.3f} s over 10 mark_out epochs; last_backend "
-        f"{backends}; residual {resid}")
+        f"{backends}; host_replayed 0 for both pools every epoch; residual "
+        f"fraction per epoch {resid_epochs}")
     return out, jobs, lanes
 
 
@@ -1251,7 +1375,7 @@ def crush_times(drive_rules, dev):
     bound counts what this epoch's resolve reads: the cand (and leaf)
     entries of the (slot, round) pairs it evaluates, which the plain
     version counts, the per-lane inputs, the weights and the rows."""
-    from ceph_tpu_torch.ops import crush_fast as cf
+    from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
     times = {}
     xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
     for name, (fr, _, _, w) in drive_rules.items():
@@ -1273,7 +1397,30 @@ def crush_times(drive_rules, dev):
                                      for a in calls], runs=3, warmup=1)
         wd = torch.from_numpy(w.view(np.int32)).to(dev)
         cand, leaf, risk0, valid, xl = fr._cand
-        k7b_ms = turns_ms([lambda: fr.resolve_packed(wd)], reps=REPS)[0]
+        k7b_host_ms = turns_ms([lambda: fr.resolve_packed(wd)], reps=REPS)[0]
+        k7b_ms = graph_ms(lambda: fr.resolve_packed(wd))
+        # K6: over the x K7b flags (the finishing launch, on a copy of its
+        # rows) and over every x; the whole resolution of an epoch
+        packed = fr.resolve_packed(wd)
+        idx, n_live = fr.flagged_index(packed)
+        n_flagged = int(n_live)
+        work = packed.clone()
+        k6_flag_ms = graph_ms(lambda: ck.crush_rule(
+            fr.program, xd, wd, idx=idx, n_live=n_live, packed=work))
+        k6_all_ms = graph_ms(lambda: ck.crush_rule(fr.program, xd, wd),
+                             launches=3, samples=5)
+        epoch_ms = graph_ms(lambda: fr.exact_packed(wd))
+        k6_draws = torch.zeros(CRUSH_X, dtype=torch.int64, device=dev)
+        t_plain = time.perf_counter()
+        ck.crush_rule_plain(fr.program, xd, wd, draws=k6_draws)
+        torch.cuda.synchronize()
+        k6_plain_all_ms = (time.perf_counter() - t_plain) * 1e3
+        fidx = idx[:n_flagged].long()
+        k6_plain_flag_ms = cuda_ms(lambda: ck.crush_rule_plain(
+            fr.program, xd[fidx], wd), runs=3, warmup=1)
+        draws_all = int(k6_draws.sum())
+        draws_flag = int(k6_draws[fidx].sum())
+        del work, packed
         k7b_plain = cuda_ms(lambda: cf.crush_resolve_plain(
             fr.spec, cand, leaf, xl, valid, risk0, wd, fr.parents,
             fr.result_max, 0), runs=3, warmup=1)
@@ -1298,14 +1445,61 @@ def crush_times(drive_rules, dev):
             "candidate_phase_ms": cand_ms, "k7a_ms": k7a_ms,
             "k7a_plain_ms": k7a_plain,
             "k7a_bound_ms": ops / INSTR_PER_S * 1e3,
-            "k7b_ms": k7b_ms, "k7b_plain_ms": k7b_plain,
+            "k7b_ms": k7b_ms, "k7b_host_launch_ms": k7b_host_ms,
+            "k7b_plain_ms": k7b_plain,
             "k7b_evaluated": evaluated, "k7b_bytes": k7b_bytes,
             "k7b_bound_ms": k7b_bytes / HBM_BYTES_PER_S * 1e3,
             "k7b_bytes_all": k7b_bytes_all,
-            "k7b_bound_ms_all": k7b_bytes_all / HBM_BYTES_PER_S * 1e3}
+            "k7b_bound_ms_all": k7b_bytes_all / HBM_BYTES_PER_S * 1e3,
+            "k6_flagged": n_flagged, "k6_flagged_ms": k6_flag_ms,
+            "k6_flagged_plain_ms": k6_plain_flag_ms,
+            "k6_flagged_draws": draws_flag,
+            "k6_flagged_bound_ms": (draws_flag * OPS_PER_DRAW / INSTR_PER_S
+                                    * 1e3),
+            "k6_all_ms": k6_all_ms, "k6_all_plain_ms": k6_plain_all_ms,
+            "k6_all_draws": draws_all,
+            "k6_all_bound_ms": draws_all * OPS_PER_DRAW / INSTR_PER_S * 1e3,
+            "resolve_epoch_ms": epoch_ms}
         log(f"time crush {name} " + json.dumps(times[name]))
         del calls
     return times
+
+
+def tester_phase(cw, rules, dev) -> dict:
+    """4t: crushtool --test --show-statistics over the (u) map.  Every rule
+    and numrep of its mask at x 0..1023 (crushtool's default range) on the
+    card equals the same sweep on the plain versions (CPU) byte for byte;
+    then each rule at its pool size over 100000 x on the card, timed."""
+    import io
+    from ceph_tpu_torch.crush.tester import CrushTester
+    texts = []
+    for where in (dev, "cpu"):
+        buf = io.StringIO()
+        t = CrushTester(cw, buf, device=where)
+        t.set_output_statistics(True)
+        t.test()
+        texts.append(buf.getvalue())
+    if texts[0] != texts[1]:
+        raise AssertionError("crushtool --test on the card != plain versions")
+    out = {"x_0_1023_lines": texts[0].count("\n")}
+    for mode, (rno, size) in rules.items():
+        buf = io.StringIO()
+        t = CrushTester(cw, buf, device=dev)
+        t.set_output_statistics(True)
+        t.set_rule(rno)
+        t.set_num_rep(size)
+        t.set_max_x(CRUSH_X - 1)
+        t0 = time.perf_counter()
+        t.test()
+        out[mode] = {"wall_s": time.perf_counter() - t0,
+                     "bad_mappings": t.bad_mappings,
+                     "statistics": buf.getvalue().splitlines()[:3]}
+        log(f"tester {mode}: crushtool --test --show-statistics --rule {rno} "
+            f"--num-rep {size} --max-x {CRUSH_X - 1} on the card in "
+            f"{out[mode]['wall_s']:.2f} s: {out[mode]['statistics']}")
+    log(f"tester: every rule and numrep at x 0..1023, card == plain "
+        f"versions ({out['x_0_1023_lines']} lines)")
+    return out
 
 
 def crush_slice(dev) -> dict:
@@ -1313,21 +1507,23 @@ def crush_slice(dev) -> dict:
     they measured ("launches", "max_abs_err", "times", ...)."""
     # -- 3c. K7a / K7b against their plain versions ---------------------------
     import multiprocessing
-    from ceph_tpu_torch.ops import crush_fast
+    from ceph_tpu_torch.ops import crush_fast, crush_kernels
     t_crush = time.perf_counter()
     maps = {"u": crush_remap_map(True), "n": crush_remap_map(False)}
     configs = [(f"{k}_{mode}", cw, rno, size)
                for k, (cw, rules) in maps.items()
                for mode, (rno, size) in rules.items()]
-    crush_err, plain_rules = crush_checks(configs, dev)
+    crush_err, plain_rules, k6_jobs = crush_checks(configs, dev)
 
     # -- 4c. the CRUSH main path: crushtool-style epochs, then OSDMap ---------
     crush_fast.descend_launches.reset()
     crush_fast.resolve_launches.reset()
+    crush_kernels.rule_launches.reset()
     drive, jobs, drive_rules = crush_drive(configs, dev)
     osd_drive, osd_jobs, osd_lanes = osdmap_drive(*maps["u"], dev)
     crush_launches = {"crush_descend": crush_fast.descend_launches.n,
-                      "crush_resolve": crush_fast.resolve_launches.n}
+                      "crush_resolve": crush_fast.resolve_launches.n,
+                      "crush_rule": crush_kernels.rule_launches.n}
     log(f"main crush: launches {crush_launches}")
     if 0 in crush_launches.values():
         raise AssertionError("CRUSH main path skipped a kernel: "
@@ -1350,14 +1546,16 @@ def crush_slice(dev) -> dict:
     for k, (fr, ruleno, size, pps, w) in osd_lanes.items():
         frp = crush_fast.compile_fast_rule(maps["u"][0].crush, ruleno, size,
                                            device=dev, plain=True)
-        a, b, resid = _rule_pair_err(fr, frp, pps, [w])
+        a, b, f, resid, _ = _rule_pair_err(fr, frp, pps, [w])
         log(f"check osdmap {k} pool lanes X={len(pps)} (x >= 2^31: "
             f"{int((pps >= 2 ** 31).sum())}): K7a max_abs_err={a} "
-            f"K7b max_abs_err={b} residual {resid[0]:.5f}")
-        if a or b:
+            f"K7b max_abs_err={b} K6-finished max_abs_err={f} residual "
+            f"{resid[0]:.5f}")
+        if a or b or f:
             raise AssertionError(f"osdmap {k}: kernels disagree with plain")
         crush_err["crush_descend"] = max(crush_err["crush_descend"], a)
         crush_err["crush_resolve"] = max(crush_err["crush_resolve"], b)
+        crush_err["crush_rule"] = max(crush_err["crush_rule"], f)
         del frp
     del osd_lanes
     # the sampled rows against the host, in CHECK_PROCS workers started only
@@ -1366,17 +1564,18 @@ def crush_slice(dev) -> dict:
     t_check = time.perf_counter()
     with ctx.Pool(CHECK_PROCS) as pool:
         pending = [(what, got, pool.map_async(fn, args))
-                   for what, got, fn, args in jobs + osd_jobs]
+                   for what, got, fn, args in jobs + osd_jobs + k6_jobs]
         n_rows = check_pending(pending)
         pool.close()
         pool.join()
-    del jobs, osd_jobs
+    del jobs, osd_jobs, k6_jobs
     log(f"main crush: {n_rows} sampled rows equal crush_do_rule / "
         f"pg_to_up_acting_osds on the host "
         f"({time.perf_counter() - t_check:.1f} s in {CHECK_PROCS} workers)")
     crush = {"launches": crush_launches, "drive": drive,
              "osdmap": osd_drive, "checked_rows": n_rows,
              "max_abs_err": crush_err, "straw2_host_us": straw2_host_times()}
+    crush["tester"] = tester_phase(*maps["u"], dev)
 
     # -- 5c. CRUSH kernel times -------------------------------------------------
     ct = crush_times(drive_rules, dev)
@@ -1421,10 +1620,18 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"build {sorted(built)} in {build_s:.2f} s")
+    ptxas = {}
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}] {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                ptxas.setdefault(name, []).append(kernel_name(entry.group(1)))
+            elif "registers" in line or "spill" in line:
+                ptxas.setdefault(name, []).append(line.strip())
+    for name, lines in ptxas.items():
+        for line in lines:
+            log(f"  ptxas[{name}] {line}")
+    results["ptxas"] = ptxas
     results["build_s"] = build_s
     sass = {n: sass_counts(so, probe["nvcc"]) for n, so in built.items()}
     for name, per_fn in sass.items():
@@ -1662,6 +1869,7 @@ def main() -> int:
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
+    k6 = ct["u_ec"]          # the rule whose x K7b flags every epoch
     k3, k3w32 = wt["w16"], wt["w32"]
     kernels = {"kernels": [{
         "name": "gf_bit_matmul", "route": "cuda",
@@ -1725,7 +1933,26 @@ def main() -> int:
         "ms_by_config": {n: t["k7b_ms"] for n, t in ct.items()},
         "bound_ms_by_config": {n: t["k7b_bound_ms"] for n, t in ct.items()},
         "bound_ms_all_bytes_by_config": {n: t["k7b_bound_ms_all"]
-                                         for n, t in ct.items()}}]}
+                                         for n, t in ct.items()},
+        "host_launch_ms_by_config": {n: t["k7b_host_launch_ms"]
+                                     for n, t in ct.items()}}, {
+        "name": "crush_rule", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_fast.cu",
+        "replaces": "ceph_tpu/ops/crush_kernels.py:445",
+        "launches": crush_launches["crush_rule"],
+        "max_abs_err": crush_err["crush_rule"],
+        "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
+        "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",
+        "library_ms": None, "flagged_x": k6["k6_flagged"],
+        "ms_all_x_by_config": {n: t["k6_all_ms"] for n, t in ct.items()},
+        "bound_ms_all_x_by_config": {n: t["k6_all_bound_ms"]
+                                     for n, t in ct.items()},
+        "plain_ms_all_x_by_config": {n: t["k6_all_plain_ms"]
+                                     for n, t in ct.items()},
+        "ms_flagged_by_config": {n: t["k6_flagged_ms"]
+                                 for n, t in ct.items()},
+        "bound_ms_flagged_by_config": {n: t["k6_flagged_bound_ms"]
+                                       for n, t in ct.items()}}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -25,7 +25,7 @@ import torch
 import ceph_tpu.crush as jc
 import ceph_tpu_torch.crush as tc
 from ceph_tpu.ops.crush_fast import compile_fast_rule as jax_compile
-from ceph_tpu_torch.ops import crush_fast
+from ceph_tpu_torch.ops import crush_fast, crush_kernels
 from ceph_tpu_torch.ops.crush_fast import (NONE, UNDEF, ResolveSpec,
                                            UnsupportedRule,
                                            compile_fast_rule)
@@ -300,12 +300,49 @@ def test_heavy_reweight_and_flat_indep():
     weight = [int(w) for w in rng.choice([0, 0x2000, 0x8000, 0x10000],
                                          size=n)]
     fr = assert_matches_host(rcw, pcw, rno, 3, weight)
-    assert fr.residual_fraction > 0      # replays on the host happened
+    assert fr.residual_fraction > 0      # K7b flagged x, K6 finished them
     st = [(jc.CRUSH_RULE_TAKE, -1, 0), (jc.CRUSH_RULE_CHOOSE_INDEP, 0, 0),
           (jc.CRUSH_RULE_EMIT, 0, 0)]
     rno = rule_of(jc, rcw, st, "flat", 3, 20)
     rule_of(tc, pcw, st, "flat", 3, 20)
     assert_matches_host(rcw, pcw, rno, 4, weight)
+
+
+@pytest.mark.parametrize("cap", [0, 1])
+@pytest.mark.parametrize("mode", ["firstn", "indep"])
+def test_capped_rounds_finish_on_k6(mode, cap, monkeypatch):
+    """Round caps of 0 or 1 leave many x flagged; K6 (its plain version
+    here) finishes them on the rule's device.  ``map_batch`` equals the
+    JAX ``FastRule`` with the same caps (which replays them on the host)
+    and the JAX host ``crush_do_rule`` over delta epochs, while the port's
+    host interpreter is never called."""
+    rcw, n = test_crush_device.build_map(n_hosts=6, osds_per_host=4,
+                                         uneven=True)
+    pcw, _ = build_map(tc, n_hosts=6, osds_per_host=4, uneven=True)
+    rno = rcw.add_simple_rule("d", "default", "host", mode=mode)
+    pcw.add_simple_rule("d", "default", "host", mode=mode)
+    jfr = jax_compile(rcw.crush, rno, 3, tries_cap=cap, leaf_tries_cap=cap)
+    fr = port_rule(pcw, rno, 3, tries_cap=cap, leaf_tries_cap=cap)
+
+    def host_replay(*a, **k):
+        raise AssertionError("crush_do_rule ran on the host")
+    monkeypatch.setattr(tc.mapper, "crush_do_rule", host_replay)
+    xs = np.arange(N_X, dtype=np.uint32)
+    rng = np.random.default_rng(11)
+    w = np.full(n, 0x10000, np.uint32)
+    one_out = w.copy()
+    one_out[5] = 0
+    mix = rng.choice([0, 0x4000, 0x10000], size=n).astype(np.uint32)
+    for weight in (w, one_out, mix, one_out):
+        res, cnt = fr.map_batch(xs, weight)
+        jres, jcnt = jfr.map_batch(xs, weight)
+        np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+        np.testing.assert_array_equal(res, np.asarray(jres))
+        assert fr.residual_fraction > 0 and fr.host_replayed == 0
+        wl = [int(v) for v in weight]
+        for x in range(0, N_X, 4):
+            assert [int(v) for v in res[x, :cnt[x]]] == \
+                rcw.do_rule(rno, x, 3, wl), x
 
 
 def test_numrep_zero_expands():
@@ -356,7 +393,8 @@ def test_delta_epochs_stay_exact(mode):
 
 
 def test_delta_buffer_layout():
-    """K7c against numpy: [n_changed, n_residual, idx[cap], rows]."""
+    """K7c against numpy: [n_changed, n_flagged, idx[cap], rows]; a row
+    whose count alone moved counts as changed."""
     cw, n = build_map(tc, n_hosts=6, osds_per_host=4)
     fr = port_rule(cw, cw.add_simple_rule("d", "default", "host",
                                           mode="firstn"), 3)
@@ -364,16 +402,17 @@ def test_delta_buffer_layout():
     prev = torch.from_numpy(rng.integers(0, 5, (50, 4), dtype=np.int32))
     new = prev.clone()
     new[[3, 17, 40], 1] += 1
-    new[9, 3] |= 1 << 16              # residual now
-    prev[22, 3] |= 1 << 16            # residual before
-    flat = fr._delta(new, prev, 8).numpy()
+    new[9, 3] += 1                    # the count moved
+    prev[22, 3] += 1                  # ... either way
+    flagged = torch.tensor([7], dtype=torch.int32)
+    flat = fr._delta(new, prev, 8, flagged).numpy()
     changed = [3, 9, 17, 22, 40]
-    assert flat[0] == 5 and flat[1] == 1
+    assert flat[0] == 5 and flat[1] == 7
     np.testing.assert_array_equal(flat[2:7], changed)
     np.testing.assert_array_equal(flat[7:10], 0)
     rows = flat[10:].reshape(8, 4)
     np.testing.assert_array_equal(rows[:5], new.numpy()[changed])
-    small = fr._delta(new, prev, 2).numpy()
+    small = fr._delta(new, prev, 2, flagged).numpy()
     assert small[0] == 5 and list(small[2:4]) == [3, 9]
 
 
@@ -689,10 +728,11 @@ def test_wrappers_take_plain_only_on_cpu(monkeypatch):
     cw, n = build_map(tc, n_hosts=4, osds_per_host=3)
     rno = cw.add_simple_rule("d", "default", "host", mode="indep")
     fr = port_rule(cw, rno, 3)
-    before = (crush_fast.descend_launches.n, crush_fast.resolve_launches.n)
+    before = (crush_fast.descend_launches.n, crush_fast.resolve_launches.n,
+              crush_kernels.rule_launches.n)
     fr.map_batch(np.arange(64), np.full(n, 0x10000, np.uint32))
-    assert (crush_fast.descend_launches.n,
-            crush_fast.resolve_launches.n) == before
+    assert (crush_fast.descend_launches.n, crush_fast.resolve_launches.n,
+            crush_kernels.rule_launches.n) == before
     spec = ResolveSpec(numrep=2, n_rounds=2, tries=3, firstn=True)
     with pytest.raises(ValueError):
         crush_fast.crush_resolve(spec, torch.zeros((3, 2, 4), dtype=torch.int32),

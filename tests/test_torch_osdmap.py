@@ -118,6 +118,38 @@ def test_mapping_matches_jax_over_epochs(jax_mapping):
     assert len(pm._rule_cache) == 2
 
 
+@pytest.mark.parametrize("cap", [0, 1])
+def test_capped_rounds_finish_on_k6(jax_mapping, monkeypatch, cap):
+    """With the round caps at 0 or 1 many PGs of both pools are flagged;
+    K6 (its plain version here) finishes them, no PG maps on the host
+    (``host_replayed`` 0 per pool), and every PG equals the JAX mapping and
+    the scalar pipeline over mark_out epochs."""
+    import functools
+    from ceph_tpu_torch.osdmap import mapping
+    monkeypatch.setattr(mapping, "compile_fast_rule", functools.partial(
+        mapping.compile_fast_rule, tries_cap=cap, leaf_tries_cap=cap))
+
+    def host_route(*a, **k):
+        raise AssertionError("a pool mapped on the host crush_do_rule")
+    monkeypatch.setattr(mapping, "crush_do_rule", host_route)
+    pmap, pools, n = build_osdmap(to, tc)
+    jmap, _, _ = build_osdmap(jo, jc)
+    sprinkle(to, pmap, pools, n)
+    sprinkle(jo, jmap, pools, n)
+    pm = to.OSDMapMapping(device="cpu")
+    for epoch in range(2):
+        if epoch:
+            tsb.mark_out(pmap, 17)
+            jsb.mark_out(jmap, 17)
+            pmap.epoch = jmap.epoch = epoch + 1
+        pm.update(pmap)
+        jax_mapping.update(jmap)
+        assert pm.host_replayed == {pools[0]: 0, pools[1]: 0}
+        assert all(fr.residual_fraction > 0
+                   for _, fr in pm._rule_cache.values())
+        assert_same(pm, jax_mapping, pmap, jmap, pools)
+
+
 def test_host_route_agrees():
     """use_device=False maps every pool on crush_do_rule."""
     pmap, pools, n = build_osdmap(to, tc, pg_num=64)
@@ -132,6 +164,9 @@ def test_host_route_agrees():
             assert dev.get(pg) == host.get(pg) == \
                 pmap.pg_to_up_acting_osds(pg)
     assert set(host.last_backend.values()) == {"host"}
+    assert host.host_replayed == {pid: pmap.pools[pid].pg_num
+                                  for pid in pools}
+    assert dev.host_replayed == {pid: 0 for pid in pools}
 
 
 def test_uncompilable_rule_maps_on_the_host():
@@ -162,6 +197,7 @@ def test_uncompilable_rule_maps_on_the_host():
     jm = jo.OSDMapMapping(use_device=False, use_native=False)
     jm.update(jmap)
     assert pm.last_backend[pid] == "host"
+    assert pm.host_replayed[pid] == 32
     for ps in range(32):
         assert pm.get(to.pg_t(pid, ps)) == jm.get(jo.pg_t(pid, ps))
 
