@@ -27,15 +27,40 @@
 //   before it tests any of them, firstn the round-0 row of every slot.  The slot state lives in
 //   registers for the main path's numrep 3 and 12 (template instances); any other numrep <= 32
 //   takes the generic instance.
-// - K6 crush_rule: ceph_tpu/ops/crush_kernels.py's DeviceCrushMapper (:445) through _descend
-//   (:242), _is_out (:280), _choose_firstn (:290-362) and _choose_indep (:364-435).  One thread
-//   per x runs the rule program (ops/crush_kernels.py: TAKE, the choose steps with the tries,
-//   recurse tries, vary_r and stable in force, EMIT) with the rule's full choose_tries and
-//   recurse_tries, exactly as crush_do_rule (mapper.c:883-1087) does, firstn's count and
-//   indep's out_size bounded by what is left of result_max.  Each draw is K7a's: the quotient
-//   table of a bucket whose items all weigh one w >= 0x10000, else the s64 G[u] / w.  It runs on
-//   a list of x, or on the first *n_live entries of an index list into the candidate set's x,
-//   writing the exact rows into K7b's packed table (FastRule: the x K7b flags).
+// - K6 crush_rule: ceph_tpu/ops/crush_kernels.py's DeviceCrushMapper (:436, vmapped :455) through
+//   _straw2_choose (:224), _descend (:242), _is_out (:280), _choose_firstn (:290-362) and
+//   _choose_indep (:364-435).  It runs the rule program (ops/crush_kernels.py: TAKE, the choose
+//   steps with the tries, recurse tries, vary_r and stable in force, EMIT) for each x with the
+//   rule's full choose_tries and recurse_tries, exactly as crush_do_rule (mapper.c:883-1087)
+//   does, firstn's count and indep's out_size bounded by what is left of result_max.  Each draw
+//   is K7a's: the quotient table of a bucket whose items all weigh one w >= 0x10000, else the
+//   s64 G[u] / w.
+//
+//   Bound: instructions, ~141 per straw2 item drawn (K7a's draw, below) times the items this
+//   run's x draw (the plain version counts them).  The main path launches K6 on the first
+//   *n_live entries of an index list into the candidate set's x, writing exact rows into K7b's
+//   packed table: the x K7b flags, a few hundred of 100000, counted on the device.  Those are
+//   the rule's slowest x (~1165 items against a mean of ~918 on the EC rule); one lone thread
+//   each, as K6 first ran, walks its items as one dependent hash-and-gather chain, a few hundred
+//   threads fill ~3% of the card's warp slots, and the launch lasts one chain: 0.58 ms for 287 x
+//   against a 0.0014 ms bound on an H100, ~1000 cycles per item.  So the index-list launch runs
+//   one warp per x.  Its 32 lanes share every draw: lane l hashes items l, l + 32 (two
+//   independent chains on a 50-wide bucket), and a 5-step xor-shuffle argmin over (value,
+//   index) reduces them, so a draw costs one hash and one gather of latency instead of `size`
+//   of them.  Lane s holds slot s of w, o and c (kMaxRep slots, the warp's width, so every
+//   result_max the wrapper takes fits): a slot read is a shuffle, a write one lane's register,
+//   a collision test one ballot, and nothing goes to local memory.  Every branch outside a
+//   draw depends on warp-uniform values (the program, the reduced winner, the ballots), so the
+//   lanes never diverge there.  The grid holds at most what the card runs at once and its warps
+//   stride over the live entries, so a few hundred flagged x each get a warp of their own.  The
+//   map's tables are read through the read-only cache: staging the bucket tables (20-31 KB) in
+//   shared memory measured no faster on the flagged launch.
+//
+//   A launch over a whole list of x (DeviceCrushMapper.map_batch) runs one thread per x: there
+//   the 32 x of a warp mostly walk the same steps, every lane draws, and nothing is reduced, and
+//   on the firstn rule that form measured faster than the warp form (which wins on the EC rule).
+//   Its slot state lives in registers for result_max 3 and 12 (template instances) and in local
+//   memory for any other result_max <= 32.
 //
 // Candidates are laid out (R, P, N) and leaf attempts (R, L, P, N) with the lane N on the fast
 // axis, so a warp's loads of one (r, position) are 32 neighbouring words.
@@ -51,9 +76,7 @@
 // attempts read once and the packed rows written once: ~8 MB for firstn size 3 (2.4 us at
 // 3.35 TB/s), ~150 MB for the EC rule, 12 slots x 5 rounds x 5 leaf attempts (45 us).  Its
 // reads depend on the slots decided before them, and a thread skips the rounds a slot no
-// longer needs, so it is latency-bound, not bandwidth-bound.  K6: instructions, ~141 per
-// straw2 item drawn (K7a's draw) times the items the rule's walk draws for this run's x (the
-// plain version counts them); a warp runs as long as its slowest x.
+// longer needs, so it is latency-bound, not bandwidth-bound.  K6: see above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +88,8 @@ constexpr int kNone = 0x7FFFFFFF;             // CRUSH_ITEM_NONE
 constexpr int kUndef = 0x7FFFFFFE;            // CRUSH_ITEM_UNDEF
 constexpr uint32_t kSeed = 1315423911u;
 constexpr long long kZeroDraw = 1LL << 62;    // the draw of a zero weight (sorts last)
+constexpr int kIntMax = 0x7FFFFFFF;
+constexpr long long kLongMax = 0x7FFFFFFFFFFFFFFFLL;
 
 // ---- rjenkins (crush/hash.c) ------------------------------------------------------------------
 
@@ -420,18 +445,313 @@ crush_resolve_kernel(Resolve a, const int* __restrict__ lane_x,
 // ---- K6 ----------------------------------------------------------------------------------------
 
 constexpr int kProgCols = 8;      // op, arg, type, numrep, tries, recurse, vary_r, stable
-constexpr int kOpTake = 1, kOpChooseFirstn = 2, kOpChooseIndep = 3, kOpEmit = 4;
+constexpr int kOpTake = 1, kOpChooseFirstn = 2, kOpEmit = 4;
 constexpr int kOpChooseleafFirstn = 6, kOpChooseleafIndep = 7;
 constexpr int kMaxDescent = 12;   // > CRUSH_MAX_DEPTH, as ops/crush_kernels.py's MAX_DESCENT
-constexpr int kRuleUnroll = 4;    // items per straw2 loop iteration in K6
+constexpr int kRuleWarps = 4;     // warps (x in flight) per block of the warp form
+constexpr int kRuleUnroll = 4;    // items per straw2 loop iteration of the thread form
+constexpr unsigned kFull = 0xFFFFFFFFu;
 enum { kOk = 0, kDead = 1, kEmpty = 2 };
 
 struct Rule {
-  MapTables t;
+  MapTables t;            // qidx: a bucket's quotient table, -1 for the s64 divide
   const int* types;       // (nb,) bucket type, -1 where the map has no bucket
   const uint32_t* weight; // (n_weight,) the epoch's device weights
   int n_weight;
 };
+
+struct Step {
+  int op, type, numrep, tries, recurse, vary_r, stable;
+};
+
+__device__ __forceinline__ Step load_step(const int* p) {
+  return Step{__ldg(p), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4), __ldg(p + 5), __ldg(p + 6),
+              __ldg(p + 7)};
+}
+
+__device__ __forceinline__ int type_of(const Rule& k, int item) {
+  return item >= 0 ? 0 : __ldg(k.types + (-1 - item));
+}
+
+__device__ __forceinline__ bool rule_is_out(const Rule& k, int item, uint32_t x) {
+  return is_out_w(item, weight_of(k.weight, k.n_weight, item), k.n_weight, x);
+}
+
+// A parent of a choose step that is no bucket to draw from: a device, NONE, or no bucket.
+__device__ __forceinline__ bool no_bucket(const Rule& k, int parent) {
+  return parent >= 0 || -1 - parent >= k.t.nb || __ldg(k.types + (-1 - parent)) < 0;
+}
+
+// ---- K6, the warp form: one warp per x (the index-list launch) ----------------------------------
+
+namespace per_warp {
+
+// The first strict minimum over the lanes' (value, item index) pairs: a butterfly of xor-shuffles,
+// the lower value first and the lower index on a tie (the serial loop's strict `<`, mapper.c's
+// strict `>`), leaves the winner's index on every lane.
+template <class V>
+__device__ __forceinline__ int argmin(V best, int bi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const V ov = __shfl_xor_sync(kFull, best, off);
+    const int oi = __shfl_xor_sync(kFull, bi, off);
+    if (ov < best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+  }
+  return bi;
+}
+
+// The warp's straw2 draw from bucket b of `size` items at position p: lane l draws items l,
+// l + 32, ... and keeps its own first strict minimum, then the warp reduces.
+__device__ __forceinline__ int straw2(const MapTables& t, int b, int size, uint32_t x, uint32_t r,
+                                      int p, int lane) {
+  const long long row = (long long)b * t.s;
+  const int table = __ldg(t.qidx + b);
+  int win;
+  if (table >= 0) {
+    const int* q = t.qtables + ((long long)table << 16);
+    int best = kIntMax, bi = kIntMax;
+    // two items per iteration: two independent hash-and-gather chains per lane
+    for (int k = lane; k < size; k += 64) {
+      const bool two = k + 32 < size;
+      const uint32_t u0 = hash32_3(x, (uint32_t)__ldg(t.hash_ids + row + k), r) & 0xFFFFu;
+      const uint32_t u1 =
+          two ? hash32_3(x, (uint32_t)__ldg(t.hash_ids + row + k + 32), r) & 0xFFFFu : 0u;
+      const int v0 = __ldg(q + u0);
+      const int v1 = __ldg(q + u1);
+      if (bi == kIntMax || v0 < best) { best = v0; bi = k; }
+      if (two && v1 < best) { best = v1; bi = k + 32; }
+    }
+    win = argmin<int>(best, bi);
+  } else {
+    const uint32_t* w = t.weights + ((long long)p * t.nb) * t.s + row;
+    long long best = kLongMax;
+    int bi = kIntMax;
+    for (int k = lane; k < size; k += 32) {
+      const uint32_t wk = __ldg(w + k);
+      long long v = kZeroDraw;
+      if (wk) {
+        const uint32_t u = hash32_3(x, (uint32_t)__ldg(t.hash_ids + row + k), r) & 0xFFFFu;
+        v = __ldg(t.g + u) / (long long)wk;
+      }
+      if (bi == kIntMax || v < best) { best = v; bi = k; }
+    }
+    win = argmin<long long>(best, bi);
+  }
+  return __ldg(t.items + row + win);
+}
+
+// Does the lanes' slot state hold v in slots [lo, hi)?  One ballot.
+__device__ __forceinline__ bool holds(int slot, int lo, int hi, int v, int lane) {
+  return __ballot_sync(kFull, lane >= lo && lane < hi && slot == v) != 0;
+}
+
+// _descend: from bucket index b draw with r fixed until an item of `type` (do-while: the start
+// bucket is always drawn from).  kEmpty at an empty bucket, kDead at a device of another type.
+__device__ __forceinline__ int descend(const Rule& k, int b, uint32_t x, uint32_t r, int pos,
+                                       int type, int lane, int& status) {
+  const int p = min(pos, k.t.npos - 1);
+  for (int depth = 0; depth < kMaxDescent; ++depth) {
+    const int size = __ldg(k.t.sizes + b);
+    if (size == 0) { status = kEmpty; return 0; }
+    const int item = straw2(k.t, b, size, x, r, p, lane);
+    if (type_of(k, item) == type) { status = kOk; return item; }
+    if (item >= 0) { status = kDead; return item; }
+    b = -1 - item;
+  }
+  status = kDead;
+  return 0;
+}
+
+// The chooseleaf recursion of firstn (mapper.c:541-558): numrep 1 from rep 0 when stable, else
+// from outpos, r' = rep + (r >> (vary_r - 1)) + ft for ft < recurse; a leaf must not repeat
+// c[base, base + outpos).
+__device__ __forceinline__ bool firstn_leaf(const Rule& k, const Step& st, int b, uint32_t x,
+                                            uint32_t r, int base, int outpos, int c, int lane,
+                                            int& leaf) {
+  const uint32_t sub_r = st.vary_r ? (st.vary_r - 1 < 32 ? r >> (st.vary_r - 1) : 0u) : 0u;
+  const uint32_t rep = st.stable ? 0u : (uint32_t)outpos;
+  for (int ft = 0;;) {
+    int status;
+    const int lf = descend(k, b, x, rep + sub_r + ft, outpos, 0, lane, status);
+    if (status == kDead) return false;
+    if (status == kOk && !holds(c, base, base + outpos, lf, lane) && !rule_is_out(k, lf, x)) {
+      leaf = lf;
+      return true;
+    }
+    if (++ft >= st.recurse) return false;
+  }
+}
+
+// crush_choose_firstn with bobtail+ tunables (mapper.c:443-636), writing the lanes' o/c from slot
+// `base`: every reject or collision restarts the descent with ftotal + 1.  Returns the picks.
+__device__ __forceinline__ int choose_firstn(const Rule& k, const Step& st, int b0, uint32_t x,
+                                             int base, int count, int& o, int& c, int lane) {
+  const bool leafy = st.op == kOpChooseleafFirstn;
+  int outpos = 0;
+  for (int rep = 0; rep < st.numrep && count > 0; ++rep) {
+    for (int ftotal = 0;;) {
+      const uint32_t r = (uint32_t)(rep + ftotal);
+      int status;
+      const int item = descend(k, b0, x, r, outpos, st.type, lane, status);
+      if (status == kDead) break;                   // skip_rep
+      const int slot = base + outpos;
+      bool reject = status == kEmpty, collide = false;
+      if (!reject) {
+        collide = holds(o, base, slot, item, lane);
+        if (!collide && leafy) {
+          int leaf = item;
+          if (item < 0 && !firstn_leaf(k, st, -1 - item, x, r, base, outpos, c, lane, leaf))
+            reject = true;
+          else if (lane == slot)
+            c = leaf;
+        }
+        if (!reject && !collide && type_of(k, item) == 0) reject = rule_is_out(k, item, x);
+      }
+      if (!reject && !collide) {
+        if (lane == slot) o = item;
+        ++outpos;
+        --count;
+        break;
+      }
+      if (++ftotal >= st.tries) break;
+    }
+  }
+  return outpos;
+}
+
+// The chooseleaf recursion of indep (mapper.c:725-741): the slot at outpos rep, r' = rep + r +
+// numrep * ft for ft < recurse; NONE when it fails.
+__device__ __forceinline__ int indep_leaf(const Rule& k, const Step& st, int b, uint32_t x,
+                                          int rep, uint32_t r, int lane) {
+  for (int ft = 0; ft < st.recurse; ++ft) {
+    int status;
+    const int lf =
+        descend(k, b, x, (uint32_t)rep + r + (uint32_t)(st.numrep * ft), rep, 0, lane, status);
+    if (status == kDead) return kNone;
+    if (status == kOk && !rule_is_out(k, lf, x)) return lf;
+  }
+  return kNone;
+}
+
+// crush_choose_indep (mapper.c:638-790) on the lanes' o/c in slots [base, base + out_size):
+// rounds retry the UNDEF slots with r' = rep + numrep * ftotal until tries run out (straw2 only,
+// so never the uniform bucket's (numrep + 1) * ftotal); dead ends become NONE.  A device picked
+// directly is written to c before its is_out test, as mapper.c:736-742 does.
+__device__ __forceinline__ void choose_indep(const Rule& k, const Step& st, int b0, uint32_t x,
+                                             int base, int out_size, int& o, int& c, int lane) {
+  const bool leafy = st.op == kOpChooseleafIndep;
+  const int end = base + out_size;
+  const bool mine = lane >= base && lane < end;
+  if (mine) o = c = kUndef;
+  int left = out_size;
+  for (int ftotal = 0; left > 0 && ftotal < st.tries; ++ftotal) {
+    for (int rep = 0; rep < out_size; ++rep) {
+      const int slot = base + rep;
+      if (__shfl_sync(kFull, o, slot) != kUndef) continue;
+      const uint32_t r = (uint32_t)(rep + st.numrep * ftotal);
+      int status;
+      const int item = descend(k, b0, x, r, 0, st.type, lane, status);
+      if (status == kEmpty) continue;
+      if (status == kDead) {
+        if (lane == slot) o = c = kNone;
+        --left;
+        continue;
+      }
+      if (holds(o, base, end, item, lane)) continue;
+      if (leafy) {
+        const int leaf = item < 0 ? indep_leaf(k, st, -1 - item, x, rep, r, lane) : item;
+        if (lane == slot) c = leaf;
+        if (leaf == kNone) continue;
+      }
+      if (type_of(k, item) == 0 && rule_is_out(k, item, x)) continue;
+      if (lane == slot) o = item;
+      --left;
+    }
+  }
+  if (mine && o == kUndef) o = kNone;
+  if (mine && c == kUndef) c = kNone;
+}
+
+// The rule program for one x.  Lane s holds slot s of the working vector w and of the choose
+// step's o/c (kMaxRep slots, the warp's width); every branch depends on warp-uniform values only
+// (the program, the reduced draws, the ballots).  Writes the row's result_max items, NONE past
+// the count, and the count after them.
+__device__ __forceinline__ void one_x(const Rule& k, const int* __restrict__ prog, int n_steps,
+                                      uint32_t x, int* row, int result_max, int lane) {
+  int w = kNone, o = kNone, c = kNone;
+  int wsize = 0, nres = 0;
+  for (int s = 0; s < n_steps; ++s) {
+    const int* p = prog + s * kProgCols;
+    const Step st = load_step(p);
+    if (st.op == kOpTake) {
+      if (lane == 0) w = __ldg(p + 1);
+      wsize = 1;
+    } else if (st.op == kOpEmit) {
+      const int take = min(wsize, result_max - nres);
+      if (lane < take) row[nres + lane] = w;
+      nres += take;
+      wsize = 0;
+    } else if (wsize > 0) {
+      const bool firstn = st.op == kOpChooseFirstn || st.op == kOpChooseleafFirstn;
+      const bool leafy = st.op == kOpChooseleafFirstn || st.op == kOpChooseleafIndep;
+      int osize = 0;
+      for (int q = 0; q < wsize && st.numrep > 0; ++q) {
+        const int parent = __shfl_sync(kFull, w, q);
+        if (no_bucket(k, parent)) continue;
+        const int room = result_max - osize;
+        if (firstn) {
+          osize += choose_firstn(k, st, -1 - parent, x, osize, room, o, c, lane);
+        } else {
+          const int out_size = min(st.numrep, room);
+          choose_indep(k, st, -1 - parent, x, osize, out_size, o, c, lane);
+          osize += out_size;
+        }
+      }
+      w = leafy && lane < osize ? c : o;
+      wsize = osize;
+    }
+  }
+  if (lane >= nres && lane < result_max) row[lane] = kNone;
+  if (lane == 0) row[result_max] = nres;
+}
+
+}  // namespace per_warp
+
+// Warp i of the grid maps the entries i, i + (the grid's warps), ... below live = min(n,
+// *n_live): x = xs[j], j = idx[i], into row j of the packed table out (result_max items, then the
+// count).  The grid is at most what the card holds at once, so every live entry starts at launch
+// and, while the live entries are fewer than the grid's warps, each has a warp of its own.
+__global__ void __launch_bounds__(kRuleWarps * 32, 8)
+crush_rule_warp_kernel(Rule k, const int* __restrict__ prog, int n_steps,
+                       const int* __restrict__ xs, const int* __restrict__ idx,
+                       const int* __restrict__ n_live, long long n, int* __restrict__ out,
+                       int result_max) {
+  const long long live = min(n, (long long)*n_live);
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kRuleWarps;
+  for (long long i = (long long)blockIdx.x * kRuleWarps + threadIdx.x / 32; i < live;
+       i += stride) {
+    const long long j = idx[i];
+    per_warp::one_x(k, prog, n_steps, (uint32_t)xs[j], out + j * (result_max + 1), result_max,
+                    lane);
+  }
+}
+
+// The warp form's grid: enough blocks for n warps, no more than the card holds at once.
+unsigned rule_warp_blocks(long long n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crush_rule_warp_kernel, kRuleWarps * 32,
+                                                0);
+  const long long want = (n + kRuleWarps - 1) / kRuleWarps;
+  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  return (unsigned)(want < most ? want : most);
+}
+
+// ---- K6, the thread form: one thread per x (a launch over a whole list of x) --------------------
+
+namespace per_thread {
 
 // Slot state of width NR < kMaxRep in registers: every index below is a constant after
 // unrolling.  The generic instance (kMaxRep) indexes its arrays in local memory.
@@ -471,10 +791,6 @@ __device__ __forceinline__ bool holds(const int (&v)[NR], int lo, int hi, int va
   return c;
 }
 
-__device__ __forceinline__ int type_of(const Rule& k, int item) {
-  return item >= 0 ? 0 : __ldg(k.types + (-1 - item));
-}
-
 // _descend: from bucket index b draw with r fixed until an item of `type` (do-while: the start
 // bucket is always drawn from).  kEmpty at an empty bucket, kDead at a device of another type.
 __device__ __forceinline__ int descend(const Rule& k, int b, uint32_t x, uint32_t r, int pos,
@@ -503,8 +819,7 @@ __device__ bool firstn_leaf(const Rule& k, int b, uint32_t x, uint32_t r, int ba
     int st;
     const int lf = descend(k, b, x, rep + sub_r + ft, outpos, 0, st);
     if (st == kDead) return false;
-    if (st == kOk && !holds<NR>(c, base, base + outpos, lf) &&
-        !is_out_w(lf, weight_of(k.weight, k.n_weight, lf), k.n_weight, x)) {
+    if (st == kOk && !holds<NR>(c, base, base + outpos, lf) && !rule_is_out(k, lf, x)) {
       leaf = lf;
       return true;
     }
@@ -515,9 +830,10 @@ __device__ bool firstn_leaf(const Rule& k, int b, uint32_t x, uint32_t r, int ba
 // crush_choose_firstn with bobtail+ tunables (mapper.c:443-636), writing o/c from `base`:
 // every reject or collision restarts the descent with ftotal + 1.  Returns the picks made.
 template <int NR>
-__device__ int choose_firstn(const Rule& k, const int* st, int b0, uint32_t x, int base,
+__device__ int choose_firstn(const Rule& k, const Step& st, int b0, uint32_t x, int base,
                              int count, int (&o)[NR], int (&c)[NR]) {
-  const int op = st[0], type = st[2], numrep = st[3], tries = st[4], recurse = st[5];
+  const int op = st.op, type = st.type, numrep = st.numrep, tries = st.tries,
+            recurse = st.recurse;
   const bool leafy = op == kOpChooseleafFirstn;
   int outpos = 0;
   for (int rep = 0; rep < numrep && count > 0; ++rep) {
@@ -532,7 +848,8 @@ __device__ int choose_firstn(const Rule& k, const int* st, int b0, uint32_t x, i
         if (!collide && leafy) {
           if (item < 0) {
             int leaf;
-            if (firstn_leaf<NR>(k, -1 - item, x, r, base, outpos, recurse, st[6], st[7], c, leaf))
+            if (firstn_leaf<NR>(k, -1 - item, x, r, base, outpos, recurse, st.vary_r, st.stable, c,
+                               leaf))
               put<NR>(c, base + outpos, leaf);
             else
               reject = true;
@@ -541,7 +858,7 @@ __device__ int choose_firstn(const Rule& k, const int* st, int b0, uint32_t x, i
           }
         }
         if (!reject && !collide && type_of(k, item) == 0)
-          reject = is_out_w(item, weight_of(k.weight, k.n_weight, item), k.n_weight, x);
+          reject = rule_is_out(k, item, x);
       }
       if (!reject && !collide) {
         put<NR>(o, base + outpos, item);
@@ -563,7 +880,7 @@ __device__ int indep_leaf(const Rule& k, int b, uint32_t x, int rep, uint32_t r,
     int st;
     const int lf = descend(k, b, x, (uint32_t)rep + r + (uint32_t)(numrep * ft), rep, 0, st);
     if (st == kDead) return kNone;
-    if (st == kOk && !is_out_w(lf, weight_of(k.weight, k.n_weight, lf), k.n_weight, x)) return lf;
+    if (st == kOk && !rule_is_out(k, lf, x)) return lf;
   }
   return kNone;
 }
@@ -573,9 +890,10 @@ __device__ int indep_leaf(const Rule& k, int b, uint32_t x, int rep, uint32_t r,
 // bucket's (numrep + 1) * ftotal); dead ends become NONE.  A device picked directly is written
 // to c before its is_out test, as mapper.c:736-742 does.
 template <int NR>
-__device__ void choose_indep(const Rule& k, const int* st, int b0, uint32_t x, int base,
+__device__ void choose_indep(const Rule& k, const Step& st, int b0, uint32_t x, int base,
                              int out_size, int (&o)[NR], int (&c)[NR]) {
-  const int op = st[0], type = st[2], numrep = st[3], tries = st[4], recurse = st[5];
+  const int op = st.op, type = st.type, numrep = st.numrep, tries = st.tries,
+            recurse = st.recurse;
   const bool leafy = op == kOpChooseleafIndep;
   const int end = base + out_size;
 #pragma unroll (NR < kMaxRep ? NR : 1)
@@ -605,9 +923,7 @@ __device__ void choose_indep(const Rule& k, const int* st, int b0, uint32_t x, i
           put<NR>(c, base + rep, item);
         }
       }
-      if (type_of(k, item) == 0 &&
-          is_out_w(item, weight_of(k.weight, k.n_weight, item), k.n_weight, x))
-        continue;
+      if (type_of(k, item) == 0 && rule_is_out(k, item, x)) continue;
       put<NR>(o, base + rep, item);
       --left;
     }
@@ -619,57 +935,45 @@ __device__ void choose_indep(const Rule& k, const int* st, int b0, uint32_t x, i
   }
 }
 
-// One thread per x: the thread of entry i maps x = xs[j], j = idx ? idx[i] : i (i < *n_live
-// when given), and writes row j of out (stride ld): result_max items, NONE past the count; the
-// count goes to out[j * ld + result_max] (packed) or counts[j].  When the live entries are no
-// more than the grid's warps, entry i takes lane 0 of warp i alone: a flagged x needs the most
-// draws of all, and x sharing a warp would wait on each other's divergent paths.
+}  // namespace per_thread
+
+// One thread per x: x = xs[i] into row i of out (result_max items, NONE past the count) and the
+// count into counts[i].  Over a whole list of x, the x of one warp mostly walk the same steps.
 template <int NR>
 __global__ void __launch_bounds__(kThreads)
-crush_rule_kernel(Rule k, const int* __restrict__ prog, int n_steps, const int* __restrict__ xs,
-                  const int* __restrict__ idx, const int* __restrict__ n_live, long long n,
-                  int* __restrict__ out, int* __restrict__ counts, long long ld, int packed,
-                  int result_max) {
-  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (n_live != nullptr) {
-    const long long live = *n_live;
-    if (live <= (long long)gridDim.x * (kThreads / 32)) {
-      if (threadIdx.x % 32 != 0) return;
-      i /= 32;
-    }
-    if (i >= live) return;
-  }
+crush_rule_thread_kernel(Rule k, const int* __restrict__ prog, int n_steps,
+                         const int* __restrict__ xs, long long n, int* __restrict__ out,
+                         int* __restrict__ counts, int result_max) {
+  using namespace per_thread;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const long long j = idx != nullptr ? idx[i] : i;
-  const uint32_t x = (uint32_t)xs[j];
-  int* row = out + j * ld;
+  const uint32_t x = (uint32_t)xs[i];
+  int* row = out + i * result_max;
   int w[NR], o[NR], c[NR];
 #pragma unroll (NR < kMaxRep ? NR : 1)
   for (int s = 0; s < NR; ++s) w[s] = o[s] = c[s] = kNone;
   int wsize = 0, nres = 0;
   for (int s = 0; s < n_steps; ++s) {
-    const int* st = prog + s * kProgCols;
-    const int op = __ldg(st);
-    if (op == kOpTake) {
-      w[0] = __ldg(st + 1);
+    const int* p = prog + s * kProgCols;
+    const Step st = load_step(p);
+    if (st.op == kOpTake) {
+      w[0] = __ldg(p + 1);
       wsize = 1;
-    } else if (op == kOpEmit) {
+    } else if (st.op == kOpEmit) {
       for (int q = 0; q < wsize && nres < result_max; ++q) row[nres++] = get<NR>(w, q);
       wsize = 0;
     } else if (wsize > 0) {
-      const bool firstn = op == kOpChooseFirstn || op == kOpChooseleafFirstn;
-      const bool leafy = op == kOpChooseleafFirstn || op == kOpChooseleafIndep;
-      const int numrep = __ldg(st + 3);
+      const bool firstn = st.op == kOpChooseFirstn || st.op == kOpChooseleafFirstn;
+      const bool leafy = st.op == kOpChooseleafFirstn || st.op == kOpChooseleafIndep;
       int osize = 0;
-      for (int q = 0; q < wsize && numrep > 0; ++q) {
+      for (int q = 0; q < wsize && st.numrep > 0; ++q) {
         const int parent = get<NR>(w, q);
-        if (parent >= 0 || -1 - parent >= k.t.nb || __ldg(k.types + (-1 - parent)) < 0)
-          continue;                                   // a device or NONE: no bucket to draw from
+        if (no_bucket(k, parent)) continue;
         const int room = result_max - osize;
         if (firstn) {
           osize += choose_firstn<NR>(k, st, -1 - parent, x, osize, room, o, c);
         } else {
-          const int out_size = min(numrep, room);
+          const int out_size = min(st.numrep, room);
           choose_indep<NR>(k, st, -1 - parent, x, osize, out_size, o, c);
           osize += out_size;
         }
@@ -680,8 +984,7 @@ crush_rule_kernel(Rule k, const int* __restrict__ prog, int n_steps, const int* 
     }
   }
   for (int q = nres; q < result_max; ++q) row[q] = kNone;
-  if (packed) row[result_max] = nres;
-  else counts[j] = nres;
+  counts[i] = nres;
 }
 
 inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -735,15 +1038,25 @@ extern "C" int crush_rule_launch(const void* xs, const void* idx, const void* n_
                                  const void* prog, int n_steps, const void* weight, int n_weight,
                                  int result_max, void* stream) {
   if (result_max < 1 || result_max > kMaxRep) return (int)cudaErrorInvalidValue;
+  // an index list goes with the packed table (the warp form), a whole list with rows and counts
+  if ((idx != nullptr) != (packed != 0) || (idx != nullptr) != (n_live != nullptr) ||
+      ld != result_max + packed)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  Rule k{{(const int*)items, (const int*)hash_ids, (const int*)sizes, (const uint32_t*)weights,
-          (const int*)qsel, (const int*)qtables, (const long long*)g, nb, s, npos},
-         (const int*)types, (const uint32_t*)weight, n_weight};
+  const Rule k{{(const int*)items, (const int*)hash_ids, (const int*)sizes,
+                (const uint32_t*)weights, (const int*)qsel, (const int*)qtables,
+                (const long long*)g, nb, s, npos},
+               (const int*)types, (const uint32_t*)weight, n_weight};
   const cudaStream_t st = (cudaStream_t)stream;
-#define RULE(NR)                                                                         \
-  crush_rule_kernel<NR><<<blocks(n), kThreads, 0, st>>>(                                   \
-      k, (const int*)prog, n_steps, (const int*)xs, (const int*)idx, (const int*)n_live, n, \
-      (int*)out, (int*)counts, ld, packed, result_max)
+  if (idx != nullptr) {
+    crush_rule_warp_kernel<<<rule_warp_blocks(n), kRuleWarps * 32, 0, st>>>(
+        k, (const int*)prog, n_steps, (const int*)xs, (const int*)idx, (const int*)n_live, n,
+        (int*)out, result_max);
+    return (int)cudaGetLastError();
+  }
+#define RULE(NR)                                                                       \
+  crush_rule_thread_kernel<NR><<<blocks(n), kThreads, 0, st>>>(                          \
+      k, (const int*)prog, n_steps, (const int*)xs, n, (int*)out, (int*)counts, result_max)
   if (result_max <= 3) RULE(3);
   else if (result_max <= 12) RULE(12);
   else RULE(kMaxRep);

@@ -7,10 +7,14 @@ turns a rule's steps into a small int program.  K6 (``crush_rule``, the
 kernel ``crush_rule_launch`` of ``csrc/crush_fast.cu``) runs that program
 for each x with the rule's full ``choose_tries`` / ``recurse_tries``: the
 JAX module's vmapped ``DeviceCrushMapper`` (``:436-558``), ``_descend``,
-``_choose_firstn``, ``_choose_indep`` and the EMIT compaction, one thread
-per x.  Its plain version ``crush_rule_plain`` runs every x at once as
-masked loops.  Both follow the host ``crush_do_rule`` (mapper.c:883-1087)
-to the letter, so their rows are that function's rows.  The candidate-table
+``_choose_firstn``, ``_choose_indep`` and the EMIT compaction.  Over an
+index list (the x K7b flags) it runs one warp per x, whose lanes share
+each straw2 draw and hold the slots; over a whole list of x, one thread
+per x (there the x of a warp mostly walk the same steps, and that form
+measured faster on the card for a firstn rule).  Its plain version
+``crush_rule_plain`` runs every x at once as masked loops.  Both follow
+the host ``crush_do_rule`` (mapper.c:883-1087) to the letter, so their
+rows are that function's rows.  The candidate-table
 mapper (``ops/crush_fast.py``) sends K6 the x its round caps leave
 unresolved.
 
@@ -723,7 +727,8 @@ def crush_rule(prog: RuleProgram, x: torch.Tensor, weight: torch.Tensor,
     entries of ``idx`` are computed and written into it, the tail column
     holding the count alone; returns None.  A CPU tensor takes
     ``crush_rule_plain``; a CUDA tensor launches the kernel on the current
-    stream or raises."""
+    stream or raises: the warp-per-x form with ``idx``, the thread-per-x
+    form without."""
     cm = prog.cm
     R = prog.result_max
     if x.dim() != 1 or x.dtype != torch.int32 or weight.dtype != torch.int32:

@@ -133,6 +133,24 @@ its full tries) and the redesigned K7b to 3c/4c/5c, and crushtool --test:
    the plain versions (CPU) byte for byte; then each rule at its pool size
    over 100000 x on the card, timed.
 
+K6's warp redesign (one warp per x over an index list, the thread form
+kept for a whole list of x) adds:
+
+3c. every K6 check above on both forms: the thread form (``map_batch``)
+   and the warp form over an index list of the same x (``k6_warp_all``),
+   beside the flagged launch (``exact_packed``), which is the warp form;
+5c. K6 over all x in both forms, in turns; the most straw2 items one
+   flagged x draws (``crush_rule_plain``'s ``draws``);
+   K7c (the changed-row extraction, torch) over epoch 10 against epoch 9
+   by graph replay, against its byte bound; K7a's bound on levels that
+   draw on the s64 divide counts the divide's instructions in its SASS;
+   K6's ptxas registers, stack and spill in the ``kernels`` line.
+
+``python3 chip_smoke.py --k6-parent DIR`` builds and checks nothing else:
+after phases 1-2 it times K6 of this tree in turns with K6 of the checkout
+of the port under DIR (``k6_parent_turns``, one log line per configuration)
+and prints the same last line.
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -199,12 +217,12 @@ def turns_ms(fns, runs: int = RUNS, warmup: int = 2, reps: int = 1):
 
 
 def kernel_name(mangled: str) -> str:
-    """``crush_rule_kernel<12>`` for a mangled kernel name."""
+    """``crush_rule_thread_kernel<12>`` for a mangled kernel name."""
     m = re.search(r"\d+((?:crush|gfw?|crc32c|fused)\w*?_kernel)"
-                  r"(I(?:Li\d+E)+E)?", mangled)
+                  r"(I(?:L[ib]\d+E)+E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -213,60 +231,115 @@ def graph_ms(fn, launches: int = REPS, samples: int = RUNS) -> float:
     of ``launches`` calls back to back: the kernels' own time, with no
     host launch cost between them (a wrapper that takes longer on the host
     than its kernel on the card is otherwise what a timer measures)."""
+    return graph_turns_ms([fn], launches, samples)[0]
+
+
+def graph_turns_ms(fns, launches: int = REPS, samples: int = RUNS):
+    """``graph_ms`` of each of ``fns``, one graph each, replayed in turns
+    (one sample of each per round) so that they share the card's state."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
+        for fn in fns:
+            for _ in range(2):
+                fn()
     torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(launches):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    graphs = []
+    for fn in fns:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(launches):
+                fn()
         g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    del g
-    return statistics.median(times)
+        graphs.append(g)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(samples):
+        for g, t in zip(graphs, times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            b.synchronize()
+            t.append(a.elapsed_time(b) / launches)
+    del graphs
+    return [statistics.median(t) for t in times]
+
+
+def ptxas_usage(lines):
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    the ptxas lines ``main`` keeps per source (a kernel's name, then its
+    stack/spill and register lines)."""
+    usage, name = {}, None
+    for line in lines:
+        if "bytes stack frame" in line or "registers" in line:
+            if name is None:
+                continue
+            u = usage.setdefault(name, {})
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+                m = re.search(pat, line)
+                if m:
+                    u[key] = int(m.group(1))
+        else:
+            name = line
+    return usage
 
 
 def sass_counts(so_path, nvcc):
-    """{kernel: {"POPC": n, "LDS": n, "instructions": n}} from the SASS of
-    a built library (static counts: each instruction once, loops not
-    multiplied), or None when the toolkit has no ``cuobjdump``."""
+    """{kernel: {"POPC": n, "LDS": n, "instructions": n, "subroutines":
+    {address: n}}} from the SASS of a built library (static counts: each
+    instruction once, loops not multiplied; a subroutine the compiler
+    emits inside a kernel and reaches by ``CALL.REL``, such as the s64
+    divide, counted from its address to its ``RET``), or None when the
+    toolkit has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(nvcc or ""), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
     text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, name = {}, None
+    counts, code, name = {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(
-                r"(?:gfw?_\w+?|crc32c\w*?|fused\w*?|crush\w*?)_kernel",
-                             m.group(1))
-            args = re.findall(r"L[ib](\d+)E", m.group(1))
-            name = (base.group(0) if base else m.group(1)) + (
-                "<" + ",".join(args) + ">" if args else "")
+            name = kernel_name(m.group(1))
             counts[name] = {"POPC": 0, "LDS": 0, "instructions": 0}
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-            if not op:
-                continue
-            counts[name]["instructions"] += 1
-            head = op.group(1).split(".")[0]
-            if head in ("POPC", "LDS"):
-                counts[name][head] += 1
+            code[name] = []
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not name or not ins:
+            continue
+        counts[name]["instructions"] += 1
+        head = ins.group(2).split(".")[0]
+        if head in ("POPC", "LDS"):
+            counts[name][head] += 1
+        code[name].append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
+    for name, listing in code.items():
+        subs = {}
+        for _, op, rest in listing:
+            target = re.match(r"\s+(0x[0-9a-f]+)", rest)
+            if op.startswith("CALL.REL") and target:
+                start = int(target.group(1), 16)
+                n = 0
+                for addr, op2, _ in listing:
+                    if addr >= start:
+                        n += 1
+                        if op2.startswith("RET"):
+                            break
+                subs[target.group(1)] = n
+        counts[name]["subroutines"] = subs
     return counts
+
+
+def div64_instructions(sass, kernel: str):
+    """The s64 divide's instructions in ``kernel``'s SASS: its longest
+    ``CALL.REL`` subroutine (K7a calls no other), or None."""
+    subs = ((sass or {}).get(kernel) or {}).get("subroutines", {})
+    return max(subs.values()) if subs else None
 
 
 def wall_s(fn, runs: int = RUNS, warmup: int = 1) -> float:
@@ -1086,22 +1159,47 @@ def _rule_pair_err(fr, frp, xs, weights):
     return a_err, b_err, k6_err, resid, flagged
 
 
+def k6_warp_all(prog, x, w):
+    """A call of K6's warp form over an index list of every x of ``x``,
+    returning (rows, counts) as the thread form does; its buffers are made
+    here, so the call can be captured in a CUDA graph."""
+    from ceph_tpu_torch.ops import crush_kernels
+    n = x.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)
+    n_live = torch.tensor([n], dtype=torch.int32, device=x.device)
+    packed = torch.empty((n, prog.result_max + 1), dtype=torch.int32,
+                         device=x.device)
+
+    def run():
+        crush_kernels.crush_rule(prog, x, w, idx=idx, n_live=n_live,
+                                 packed=packed)
+        return packed[:, :-1], packed[:, -1]
+    return run
+
+
 def _k6_pair_err(cw, rno, size, args, xs, weights, dev):
-    """K6 (``DeviceCrushMapper`` on the card) against ``crush_rule_plain``
-    on the CPU over ``xs`` under each weight vector: (err, rows and counts
-    of the last)."""
+    """K6 against ``crush_rule_plain`` on the CPU over ``xs`` under each
+    weight vector, in both of its forms: the thread form
+    (``DeviceCrushMapper`` on the card, a whole list of x) and the warp
+    form (an index list of every x into a packed table): (err, rows and
+    counts of the last)."""
     from ceph_tpu_torch.ops.crush_kernels import DeviceCrushMapper, compile_map
     card = DeviceCrushMapper(compile_map(cw.crush, args, device=dev), rno,
                              size)
     cpu = DeviceCrushMapper(compile_map(cw.crush, args, device="cpu"), rno,
                             size)
+    xd = torch.from_numpy(np.ascontiguousarray(xs, np.uint32).view(
+        np.int32)).to(dev)
     err = 0
     for w in weights:
-        res, cnt = card.map_batch(xs, w)
-        res, cnt = res.cpu(), cnt.cpu()
         pres, pcnt = cpu.map_batch(xs, w)
-        err = max(err, int_err(res, pres), int_err(cnt, pcnt))
-    return err, res.numpy(), cnt.numpy()
+        res, cnt = card.map_batch(xs, w)
+        wres, wcnt = k6_warp_all(card.program, xd, torch.from_numpy(
+            np.ascontiguousarray(w, np.uint32).view(np.int32)).to(dev))()
+        for got, want in ((res, pres), (cnt, pcnt), (wres, pres),
+                          (wcnt, pcnt)):
+            err = max(err, int_err(got.cpu(), want))
+    return err, res.cpu().numpy(), cnt.cpu().numpy()
 
 
 K6_HOST_SAMPLE = 256               # K6 rows per configuration checked on the host
@@ -1358,17 +1456,20 @@ def straw2_host_times(calls: int = 200, repeats: int = 5) -> dict:
             "numpy_min": mapper.STRAW2_NUMPY_MIN}
 
 
-def _draws_per_lane(fr, base_level, depth):
+def _draws_per_lane(fr, base_level, depth, s64_only=False):
     """Items one lane of a K7a call draws: the bucket sizes of its levels
     (each level's frontier buckets share one size in these maps; the
-    widest is taken otherwise)."""
+    widest is taken otherwise); with ``s64_only`` only the levels that
+    draw on the s64 divide."""
     m = fr.C.map
+    ints = fr.integer_exact_levels
     return sum(max(m.bucket(b).size for b in fr.level_frontiers[base_level
                                                                  + d])
-               for d in range(depth))
+               for d in range(depth)
+               if not (s64_only and ints[base_level + d]))
 
 
-def crush_times(drive_rules, dev):
+def crush_times(drive_rules, dev, div64=None):
     """5c: K7a over one full candidate phase per configuration (each of its
     launches replayed on the same lanes), K7b per epoch, and their plain
     versions; CUDA events, 10 launches per sample, medians.  K7b's byte
@@ -1390,6 +1491,8 @@ def crush_times(drive_rules, dev):
         fr._descend = orig
         draws = sum(a[0].numel() * _draws_per_lane(fr, a[5], a[6])
                     for a in calls)
+        s64_draws = sum(a[0].numel() * _draws_per_lane(fr, a[5], a[6], True)
+                        for a in calls)
         cand_ms, k7a_ms = turns_ms([
             lambda: fr._candidates(xd),
             lambda: [cf.crush_descend(*a) for a in calls]], reps=REPS)
@@ -1405,11 +1508,28 @@ def crush_times(drive_rules, dev):
         idx, n_live = fr.flagged_index(packed)
         n_flagged = int(n_live)
         work = packed.clone()
-        k6_flag_ms = graph_ms(lambda: ck.crush_rule(
-            fr.program, xd, wd, idx=idx, n_live=n_live, packed=work))
-        k6_all_ms = graph_ms(lambda: ck.crush_rule(fr.program, xd, wd),
-                             launches=3, samples=5)
+
+        def flagged():
+            ck.crush_rule(fr.program, xd, wd, idx=idx, n_live=n_live,
+                          packed=work)
+
+        k6_flag_ms = graph_ms(flagged)
+        k6_all_ms, k6_all_warp_ms = graph_turns_ms(
+            [lambda: ck.crush_rule(fr.program, xd, wd),
+             k6_warp_all(fr.program, xd, wd)], launches=3, samples=5)
         epoch_ms = graph_ms(lambda: fr.exact_packed(wd))
+        # K7c over epoch 10's rows against epoch 9's
+        w9 = np.full(CRUSH_OSDS, 0x10000, np.uint32)
+        w9[(7 * (CRUSH_EPOCHS - 1) + 3) % CRUSH_OSDS] = 0
+        prev = fr.exact_packed(torch.from_numpy(w9.view(np.int32)).to(dev))
+        prev = prev.clone()
+        rows10 = fr.exact_packed(wd).clone()
+        n_fl = fr._n_flagged.clone()
+        cap = min(fr.delta_cap, CRUSH_X)
+        k7c_ms = graph_ms(lambda: fr._delta(rows10, prev, cap, n_fl))
+        k7c_changed = int((rows10 != prev).any(1).sum())
+        k7c_bytes = 2 * rows10.numel() * 4 + (2 + cap * (fr.result_max + 2)) * 4
+        del prev, rows10
         k6_draws = torch.zeros(CRUSH_X, dtype=torch.int64, device=dev)
         t_plain = time.perf_counter()
         ck.crush_rule_plain(fr.program, xd, wd, draws=k6_draws)
@@ -1420,11 +1540,12 @@ def crush_times(drive_rules, dev):
             fr.program, xd[fidx], wd), runs=3, warmup=1)
         draws_all = int(k6_draws.sum())
         draws_flag = int(k6_draws[fidx].sum())
+        max_items_flag = int(k6_draws[fidx].max()) if n_flagged else 0
         del work, packed
         k7b_plain = cuda_ms(lambda: cf.crush_resolve_plain(
             fr.spec, cand, leaf, xl, valid, risk0, wd, fr.parents,
             fr.result_max, 0), runs=3, warmup=1)
-        ops = draws * OPS_PER_DRAW
+        ops = draws * OPS_PER_DRAW + s64_draws * (div64 or 0)
         rows = CRUSH_X * (fr.result_max + 1) * 4
         lane_bytes = sum(t.numel() * t.element_size()
                          for t in (risk0, valid, xl, wd))
@@ -1441,7 +1562,8 @@ def crush_times(drive_rules, dev):
         times[name] = {
             "k7a_launches_per_phase": len(calls),
             "k7a_lanes": sum(a[0].numel() for a in calls),
-            "k7a_draws": draws, "k7a_ops": ops,
+            "k7a_draws": draws, "k7a_s64_draws": s64_draws,
+            "k7a_div64_instructions": div64, "k7a_ops": ops,
             "candidate_phase_ms": cand_ms, "k7a_ms": k7a_ms,
             "k7a_plain_ms": k7a_plain,
             "k7a_bound_ms": ops / INSTR_PER_S * 1e3,
@@ -1454,12 +1576,17 @@ def crush_times(drive_rules, dev):
             "k6_flagged": n_flagged, "k6_flagged_ms": k6_flag_ms,
             "k6_flagged_plain_ms": k6_plain_flag_ms,
             "k6_flagged_draws": draws_flag,
+            "k6_max_items_per_flagged_x": max_items_flag,
             "k6_flagged_bound_ms": (draws_flag * OPS_PER_DRAW / INSTR_PER_S
                                     * 1e3),
-            "k6_all_ms": k6_all_ms, "k6_all_plain_ms": k6_plain_all_ms,
+            "k6_all_ms": k6_all_ms, "k6_all_warp_ms": k6_all_warp_ms,
+            "k6_all_plain_ms": k6_plain_all_ms,
             "k6_all_draws": draws_all,
             "k6_all_bound_ms": draws_all * OPS_PER_DRAW / INSTR_PER_S * 1e3,
-            "resolve_epoch_ms": epoch_ms}
+            "resolve_epoch_ms": epoch_ms,
+            "k7c_ms": k7c_ms, "k7c_changed_rows": k7c_changed,
+            "k7c_cap": cap, "k7c_bytes": k7c_bytes,
+            "k7c_bound_ms": k7c_bytes / HBM_BYTES_PER_S * 1e3}
         log(f"time crush {name} " + json.dumps(times[name]))
         del calls
     return times
@@ -1502,9 +1629,10 @@ def tester_phase(cw, rules, dev) -> dict:
     return out
 
 
-def crush_slice(dev) -> dict:
+def crush_slice(dev, div64=None) -> dict:
     """Phases 3c, 4c and 5c of the CRUSH slice on ``dev``; returns what
-    they measured ("launches", "max_abs_err", "times", ...)."""
+    they measured ("launches", "max_abs_err", "times", ...).  ``div64``:
+    the s64 divide's instructions in K7a's SASS, for its bound."""
     # -- 3c. K7a / K7b against their plain versions ---------------------------
     import multiprocessing
     from ceph_tpu_torch.ops import crush_fast, crush_kernels
@@ -1578,12 +1706,85 @@ def crush_slice(dev) -> dict:
     crush["tester"] = tester_phase(*maps["u"], dev)
 
     # -- 5c. CRUSH kernel times -------------------------------------------------
-    ct = crush_times(drive_rules, dev)
+    ct = crush_times(drive_rules, dev, div64)
     del drive_rules
     crush["times"] = ct
     crush["seconds"] = time.perf_counter() - t_crush
     log(f"crush phases took {crush['seconds']:.1f} s")
     return crush
+
+
+def k6_parent_turns(parent_dir, dev) -> dict:
+    """``--k6-parent DIR``: K6 of this tree in turns with the K6 of another
+    checkout of the port under ``DIR`` (its package loaded under another
+    name, its kernel built from its own sources into its own build
+    directory), on the main path's inputs: per configuration at epoch 10's
+    weights, the flagged launch over the x K7b flags and the launch over
+    all 100000 x (this tree's thread form, and its warp form over an index
+    list of every x), replayed from CUDA graphs in turns (the other tree,
+    this tree, the other tree again).  Every launch's rows must equal the
+    others'."""
+    import importlib
+    import importlib.util
+    from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
+    pkg = os.path.join(os.path.abspath(parent_dir), "ceph_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "k6_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["k6_parent"] = mod
+    spec.loader.exec_module(mod)
+    pk = importlib.import_module("k6_parent.ops.crush_kernels")
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    w = np.full(CRUSH_OSDS, 0x10000, np.uint32)
+    w[(7 * CRUSH_EPOCHS + 3) % CRUSH_OSDS] = 0
+    wd = torch.from_numpy(w.view(np.int32)).to(dev)
+    out = {}
+    for k, uniform in (("u", True), ("n", False)):
+        cw, rules = crush_remap_map(uniform)
+        for mode, (rno, size) in rules.items():
+            name = f"{k}_{mode}"
+            fr = cf.compile_fast_rule(cw.crush, rno, size, device=dev)
+            fr.prepare_candidates(np.arange(CRUSH_X, dtype=np.uint32))
+            packed = fr.resolve_packed(wd)
+            idx, n_live = fr.flagged_index(packed)
+            pprog = pk.compile_map(cw.crush, None, device=dev).compile_rule(
+                rno, size)
+            work = [packed.clone() for _ in range(2)]
+            rows = [None] * 3
+
+            def flag(i, mod_, prog):
+                return lambda: mod_.crush_rule(prog, xd, wd, idx=idx,
+                                               n_live=n_live, packed=work[i])
+
+            def keep(i, fn):
+                def run():
+                    rows[i] = fn()
+                return run
+            fns = [flag(0, pk, pprog), flag(1, ck, fr.program)]
+            for fn in fns:
+                fn()
+            if not torch.equal(work[0], work[1]):
+                raise AssertionError(f"K6 {name} flagged: trees disagree")
+            t = graph_turns_ms(fns + fns[:1])
+            out[name] = {"flagged": {"other_tree_ms": [t[0], t[2]],
+                                     "ms": t[1]}}
+            fns = [keep(0, lambda: pk.crush_rule(pprog, xd, wd)),
+                   keep(1, lambda: ck.crush_rule(fr.program, xd, wd)),
+                   keep(2, k6_warp_all(fr.program, xd, wd))]
+            for fn in fns:
+                fn()
+            for r in rows[1:]:
+                if not (torch.equal(r[0], rows[0][0])
+                        and torch.equal(r[1], rows[0][1])):
+                    raise AssertionError(f"K6 {name} all x: trees disagree")
+            t = graph_turns_ms(fns + fns[:1], 3, 5)
+            out[name]["all"] = {"other_tree_ms": [t[0], t[3]], "ms": t[1],
+                                "warp_ms": t[2]}
+            out[name]["flagged_x"] = int(n_live)
+            log(f"k6 against {parent_dir} {name}: " + json.dumps(out[name]))
+            del fr, work, rows
+    return out
 
 
 def main() -> int:
@@ -1638,6 +1839,14 @@ def main() -> int:
         for fn, c in (per_fn or {}).items():
             log(f"  sass[{name}] {fn} " + json.dumps(c))
     results["sass"] = sass
+    if "--k6-parent" in sys.argv:
+        parent = sys.argv[sys.argv.index("--k6-parent") + 1]
+        k6_parent_turns(parent, dev)
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 3. kernel against its plain version ----------------------------------
     gen = torch.Generator(device=dev)
@@ -1855,7 +2064,8 @@ def main() -> int:
 
     # -- 3c / 4c / 5c: the CRUSH slice, after the earlier slices' phases, which
     # run as they did before it ----------------------------------------------------
-    crush = crush_slice(dev)
+    crush = crush_slice(dev, div64_instructions(sass.get("crush_fast"),
+                                                "crush_descend_kernel"))
     results["crush"] = crush
     crush_launches, crush_err, ct = (crush["launches"], crush["max_abs_err"],
                                      crush["times"])
@@ -1921,7 +2131,8 @@ def main() -> int:
         "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
         "library_ms": None,
         "ms_by_config": {n: t["k7a_ms"] for n, t in ct.items()},
-        "bound_ms_by_config": {n: t["k7a_bound_ms"] for n, t in ct.items()}}, {
+        "bound_ms_by_config": {n: t["k7a_bound_ms"] for n, t in ct.items()},
+        "div64_instructions": k7["k7a_div64_instructions"]}, {
         "name": "crush_resolve", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
@@ -1938,16 +2149,25 @@ def main() -> int:
                                      for n, t in ct.items()}}, {
         "name": "crush_rule", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
-        "replaces": "ceph_tpu/ops/crush_kernels.py:445",
+        "replaces": "ceph_tpu/ops/crush_kernels.py:436",
         "launches": crush_launches["crush_rule"],
         "max_abs_err": crush_err["crush_rule"],
         "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
         "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",
         "library_ms": None, "flagged_x": k6["k6_flagged"],
-        "ms_all_x_by_config": {n: t["k6_all_ms"] for n, t in ct.items()},
-        "bound_ms_all_x_by_config": {n: t["k6_all_bound_ms"]
+        "max_items_per_flagged_x": k6["k6_max_items_per_flagged_x"],
+        "ptxas": {n: u for n, u in ptxas_usage(ptxas.get("crush_fast", [])).items()
+                  if n.startswith("crush_rule")},
+        "ms_all_by_config": {n: t["k6_all_ms"] for n, t in ct.items()},
+        "ms_all_warp_by_config": {n: t["k6_all_warp_ms"]
+                                  for n, t in ct.items()},
+        "max_items_per_flagged_x_by_config": {
+            n: t["k6_max_items_per_flagged_x"] for n, t in ct.items()},
+        "resolve_epoch_ms_by_config": {n: t["resolve_epoch_ms"]
+                                       for n, t in ct.items()},
+        "bound_ms_all_by_config": {n: t["k6_all_bound_ms"]
                                      for n, t in ct.items()},
-        "plain_ms_all_x_by_config": {n: t["k6_all_plain_ms"]
+        "plain_ms_all_by_config": {n: t["k6_all_plain_ms"]
                                      for n, t in ct.items()},
         "ms_flagged_by_config": {n: t["k6_flagged_ms"]
                                  for n, t in ct.items()},

@@ -14,12 +14,15 @@ exactly.
   ``crush_do_rule``, whose walk K6 follows step for step.
 - The torch ``crush_ln_dev`` against the JAX one over all 65536 u, and
   against the G table the kernels gather from.
-- ``_rule_scheme`` transcribes, one x at a time, the loops of
-  ``crush_rule_kernel`` in ``csrc/crush_fast.cu`` (get/put slot state, the
-  do-while descents, each bucket's quotient table or s64 divide, the
-  packed form over an index list); it is held against
-  ``crush_rule_plain`` on eight small rules, so the kernel's control flow
-  is checked before it reaches the card.  Change it with the kernel.
+- ``_rule_scheme`` transcribes, one x at a time, the loops of K6's
+  thread form, ``crush_rule_thread_kernel`` in ``csrc/crush_fast.cu``
+  (get/put slot state, the do-while descents, each bucket's quotient table
+  or s64 divide), which runs a whole list of x; it is held against
+  ``crush_rule_plain`` on eight small rules (``_scheme_cases``), so the
+  kernel's control flow is checked before it reaches the card.  Change it
+  with the kernel.  The warp form, which runs an index list (the x K7b
+  flags), has its own transcription in ``test_torch_crush_warp.py``, held
+  on the same rules.
 
 Tolerance: exact equality.
 """
@@ -295,7 +298,7 @@ def _h3(a, b, c):
 
 
 class _Thread:
-    """crush_rule_kernel's device functions for one x."""
+    """crush_rule_thread_kernel's device functions for one x."""
 
     def __init__(self, prog, weight):
         cm = prog.cm
@@ -500,32 +503,27 @@ class _Thread:
         return out
 
 
-def _rule_scheme(prog, xs, weight, idx=None, n_live=None, packed=None):
-    """crush_rule_kernel, one x at a time: rows and counts, or the packed
-    form over ``idx[:n_live]``."""
+def _rule_scheme(prog, xs, weight):
+    """crush_rule_thread_kernel, one x at a time: rows and counts."""
     R = prog.result_max
     NR = 3 if R <= 3 else 12 if R <= 12 else tk.MAX_REP
     th = _Thread(prog, weight)
     rows = [[int(v) for v in r] for r in prog.rows]
     xs = np.asarray(xs).view(np.uint32)
-    if packed is None:
-        out = np.full((len(xs), R), tc.CRUSH_ITEM_NONE, np.int32)
-        cnt = np.zeros(len(xs), np.int32)
-        for i, x in enumerate(xs):
-            got = th.run(rows, int(x), R, NR)
-            out[i, :len(got)] = got
-            cnt[i] = len(got)
-        return out, cnt, th
-    for i in range(n_live):
-        j = int(idx[i])
-        got = th.run(rows, int(xs[j]), R, NR)
-        packed[j, :] = tc.CRUSH_ITEM_NONE
-        packed[j, :len(got)] = got
-        packed[j, R] = len(got)
-    return packed, None, th
+    out = np.full((len(xs), R), tc.CRUSH_ITEM_NONE, np.int32)
+    cnt = np.zeros(len(xs), np.int32)
+    for i, x in enumerate(xs):
+        got = th.run(rows, int(x), R, NR)
+        out[i, :len(got)] = got
+        cnt[i] = len(got)
+    return out, cnt, th
 
 
 def _scheme_cases():
+    """(name, CrushWrapper, devices, rule, result_max, choose_args):
+    chooseleaf firstn/indep on even and uneven hosts, chained choose steps,
+    a chain ending in chooseleaf under racks, and choose_args with three
+    weight-set positions."""
     cases = []
     for mode in ("firstn", "indep"):
         for uneven in (False, True):
@@ -556,10 +554,9 @@ def _scheme_cases():
 
 @pytest.mark.parametrize("case", _scheme_cases(), ids=lambda c: c[0])
 def test_kernel_scheme_matches_plain(case):
-    """The transcription of K6's loops equals ``crush_rule_plain`` on every
-    x, in both forms (rows, and rows written over an index list into a
-    packed table), under all-in weights and a mix of out and reweighted
-    OSDs; the uniform maps draw some buckets from quotient tables."""
+    """The transcription of K6's thread form equals ``crush_rule_plain``
+    on every x under all-in weights and a mix of out and reweighted OSDs;
+    the uniform maps draw some buckets from quotient tables."""
     name, cw, n, rno, rmax, args = case
     prog = tk.compile_map(cw.crush, args, device="cpu").compile_rule(rno,
                                                                     rmax)
@@ -575,17 +572,6 @@ def test_kernel_scheme_matches_plain(case):
         np.testing.assert_array_equal(gcnt, cnt.numpy())
         if name == "chooseleaf_firstn_False":
             assert th.tables_used       # the quotient-table draw ran
-        sel = np.array([5, 17, 40, 63, 2], dtype=np.int32)
-        idx = torch.from_numpy(np.concatenate([sel, np.zeros(59, np.int32)]))
-        base = np.full((64, rmax + 1), 7, np.int32)
-        packed = torch.from_numpy(base.copy())
-        tk.crush_rule(prog, xs, wt, idx=idx,
-                      n_live=torch.tensor([4], dtype=torch.int32),
-                      packed=packed)
-        want, _, _ = _rule_scheme(prog, xs.numpy(), w, idx.numpy(), 4,
-                                  base.copy())
-        np.testing.assert_array_equal(packed.numpy(), want)
-        assert (packed.numpy()[2] == 7).all()      # idx[4:] left alone
 
 
 def test_wrapper_takes_plain_only_on_cpu():
