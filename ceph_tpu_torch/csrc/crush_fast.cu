@@ -80,49 +80,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "crush_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRep = 32;                   // most slots of one choose step (numrep)
 constexpr int kNone = 0x7FFFFFFF;             // CRUSH_ITEM_NONE
 constexpr int kUndef = 0x7FFFFFFE;            // CRUSH_ITEM_UNDEF
-constexpr uint32_t kSeed = 1315423911u;
 constexpr long long kZeroDraw = 1LL << 62;    // the draw of a zero weight (sorts last)
 constexpr int kIntMax = 0x7FFFFFFF;
 constexpr long long kLongMax = 0x7FFFFFFFFFFFFFFFLL;
-
-// ---- rjenkins (crush/hash.c) ------------------------------------------------------------------
-
-#define CRUSH_MIX(a, b, c)          \
-  do {                              \
-    a -= b; a -= c; a ^= (c >> 13); \
-    b -= c; b -= a; b ^= (a << 8);  \
-    c -= a; c -= b; c ^= (b >> 13); \
-    a -= b; a -= c; a ^= (c >> 12); \
-    b -= c; b -= a; b ^= (a << 16); \
-    c -= a; c -= b; c ^= (b >> 5);  \
-    a -= b; a -= c; a ^= (c >> 3);  \
-    b -= c; b -= a; b ^= (a << 10); \
-    c -= a; c -= b; c ^= (b >> 15); \
-  } while (0)
-
-__device__ __forceinline__ uint32_t hash32_2(uint32_t a, uint32_t b) {
-  uint32_t h = kSeed ^ a ^ b, x = 231232u, y = 1232u;
-  CRUSH_MIX(a, b, h);
-  CRUSH_MIX(x, a, h);
-  CRUSH_MIX(b, y, h);
-  return h;
-}
-
-__device__ __forceinline__ uint32_t hash32_3(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t h = kSeed ^ a ^ b ^ c, x = 231232u, y = 1232u;
-  CRUSH_MIX(a, b, h);
-  CRUSH_MIX(c, x, h);
-  CRUSH_MIX(y, a, h);
-  CRUSH_MIX(b, x, h);
-  CRUSH_MIX(y, c, h);
-  return h;
-}
 
 // ---- the straw2 draw (K7a, K6) --------------------------------------------------------------
 
@@ -202,20 +170,6 @@ struct Resolve {
   int p, l, numrep, n_rounds, n_leaf, tries, recurse_tries, n_weight;
   int firstn, leafy, check_out, gate;
 };
-
-// mapper.c is_out with the item's weight already loaded (`w`, any value past the vector): a
-// device past the weight vector is out; w >= 1.0 keeps it, 0 rejects it, otherwise the hash of
-// (x, item) decides.
-__device__ __forceinline__ bool is_out_w(int item, uint32_t w, int n_weight, uint32_t x) {
-  if (item >= n_weight) return true;
-  if (w >= 0x10000u) return false;
-  if (w == 0) return true;
-  return (hash32_2(x, (uint32_t)item) & 0xFFFFu) >= w;
-}
-
-__device__ __forceinline__ uint32_t weight_of(const uint32_t* weight, int n_weight, int item) {
-  return item < n_weight ? __ldg(weight + max(item, 0)) : 0u;
-}
 
 __device__ __forceinline__ bool is_out(const Resolve& a, int item, uint32_t x) {
   return is_out_w(item, weight_of(a.weight, a.n_weight, item), a.n_weight, x);

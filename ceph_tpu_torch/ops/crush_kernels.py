@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from ..crush.constants import (
-    CRUSH_BUCKET_STRAW2, CRUSH_ITEM_NONE, CRUSH_ITEM_UNDEF,
+    CRUSH_BUCKET_STRAW, CRUSH_BUCKET_STRAW2, CRUSH_ITEM_NONE,
+    CRUSH_ITEM_UNDEF,
     CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP,
     CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_EMIT,
     CRUSH_RULE_SET_CHOOSELEAF_STABLE, CRUSH_RULE_SET_CHOOSELEAF_TRIES,
@@ -229,10 +230,16 @@ class CompiledCrushMap:
     the plain item_weights when no choose_args are attached.  ``hash_ids``
     differ from ``items`` where a choose_arg sets ``ids``.  ``types`` (nb,)
     is each bucket's type, -1 where the map has no bucket.
+
+    ``allow_legacy`` also admits straw (v1) buckets and pre-bobtail
+    local-tries tunables, for the legacy mapper (``ops/crush_legacy.py``),
+    which models them; the other mappers do not.  ``algs`` (nb,) numpy is
+    each bucket's alg and ``straws`` (nb, S) the straw (v1) scalers as the
+    int32 bits of their u32 values (None unless ``allow_legacy``).
     """
 
     def __init__(self, m: CrushMap, choose_args: Optional[Sequence] = None,
-                 device="cuda"):
+                 device="cuda", allow_legacy: bool = False):
         dev = resolve_device(device)
         nb = len(m.buckets)
         S = max((b.size for b in m.buckets if b is not None), default=1)
@@ -247,11 +254,17 @@ class CompiledCrushMap:
                 if arg is not None and arg.weight_set:
                     npos = max(npos, len(arg.weight_set))
         weights = np.zeros((npos, nb, S), dtype=np.uint32)
+        algs = np.zeros(nb, dtype=np.int32)
+        straws = np.zeros((nb, S), dtype=np.uint32)
         for bi, b in enumerate(m.buckets):
             if b is None:
                 continue
             if b.size and b.alg != CRUSH_BUCKET_STRAW2:
-                raise ValueError("device mapper supports straw2 buckets only")
+                if not (allow_legacy and b.alg == CRUSH_BUCKET_STRAW):
+                    raise ValueError(
+                        "device mapper supports straw2 buckets only")
+                straws[bi, :b.size] = np.asarray(b.straws, dtype=np.uint32)
+            algs[bi] = b.alg
             sizes[bi] = b.size
             types[bi] = b.type
             items[bi, :b.size] = b.items
@@ -274,7 +287,8 @@ class CompiledCrushMap:
                             ws.weights, dtype=np.uint32)
                 if arg.ids:
                     hash_ids[bi, :b.size] = arg.ids
-        if m.choose_local_tries or m.choose_local_fallback_tries:
+        if not allow_legacy and (m.choose_local_tries
+                                 or m.choose_local_fallback_tries):
             raise ValueError("device mapper requires bobtail+ tunables "
                              "(choose_local_*_tries == 0)")
         self.map = m
@@ -289,6 +303,9 @@ class CompiledCrushMap:
         self.sizes = torch.from_numpy(sizes).to(dev)
         self.types = torch.from_numpy(types).to(dev)
         self.weights = torch.from_numpy(weights.view(np.int32)).to(dev)
+        self.algs = algs
+        self.straws = (torch.from_numpy(straws.view(np.int32)).to(dev)
+                       if allow_legacy else None)
         self._draw_tables = None
 
     def draw_tables(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

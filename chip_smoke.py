@@ -146,6 +146,33 @@ kept for a whole list of x) adds:
    draw on the s64 divide counts the divide's instructions in its SASS;
    K6's ptxas registers, stack and spill in the ``kernels`` line.
 
+The legacy slice (K8, ``csrc/crush_legacy.cu``: the legacy-tunables mapper
+of ``ops/crush_legacy.py``, one thread per x) adds, after 5c, on (L): 1000
+OSDs in 5 racks x 10 hosts x 20, every bucket straw (v1), compiled by
+``crushtool -c`` from text without tunable lines (so choose_local_tries 2,
+choose_local_fallback_tries 5, choose_total_tries 19), with rules L1
+(chooseleaf firstn 0 type host, size 3) and L2 (choose firstn 2 type rack,
+chooseleaf firstn 2 type host, size 4), and 12 weight epochs (all in; 1..10
+each marking 2 more OSDs out; H: 3 hosts with 15 of their 20 OSDs out and 20
+other OSDs at 0x8000):
+
+3l. K8 against its plain version on the card, byte-exact: every rule and
+   weight vector of the small legacy maps of
+   ``tests/test_torch_crush_legacy*.py`` at 4096 x, and the first 4096 x of
+   each rule and epoch of (L); the x that took a permutation draw and a
+   local retry are counted (both must be > 0 on (L));
+4l. the path, the K8 count reset just before: ``crushtool -c`` of (L)'s
+   text, ``decode_crushmap``, ``LegacyFastRule(...).map_batch`` of 100000 x
+   per rule and epoch (K8 must launch every time, residual_fraction 0.0);
+   ``crushtool -i L.bin --test --show-mappings`` (x 0..1023, its own
+   process) prints K8's rows; a 2000-x sample per rule and epoch equals the
+   host ``crush_do_rule`` and K8's transcription
+   (``tests/test_torch_crush_legacy_kernel.py``) in a pool of workers;
+5l. K8 per rule and epoch over 100000 x from a CUDA graph of 3 launches,
+   against its instruction bound (the items the transcription hashes per x
+   over the sample, scaled, at OPS_PER_DRAW each), the plain version's wall
+   on its 4096 x, and the ``map_batch`` walls.
+
 ``python3 chip_smoke.py --k6-parent DIR`` builds and checks nothing else:
 after phases 1-2 it times K6 of this tree in turns with K6 of the checkout
 of the port under DIR (``k6_parent_turns``, one log line per configuration)
@@ -1787,6 +1814,388 @@ def k6_parent_turns(parent_dir, dev) -> dict:
     return out
 
 
+# ---- the legacy slice: 3l / 4l / 5l -------------------------------------------------
+
+LEGACY_SHAPE = (5, 10, 20)        # (L): racks, hosts per rack, OSDs per host
+LEGACY_CHECK_X = 4096             # x of each rule and epoch held against plain
+LEGACY_SAMPLE = 2000              # x of each rule and epoch held against the host
+LEGACY_EPOCHS = 10                # epochs marking 2 more OSDs out each
+# (L)'s rules: Ceph's default replicated rule (size 3), and a chained rule
+# placing 2 copies in each of 2 racks (size 4)
+LEGACY_RULES = {
+    "L1": (["step take default", "step chooseleaf firstn 0 type host",
+            "step emit"], 3),
+    "L2": (["step take default", "step choose firstn 2 type rack",
+            "step chooseleaf firstn 2 type host", "step emit"], 4),
+}
+
+
+def legacy_text_map(racks, hosts, per_host, rules, algs=("straw",) * 3,
+                    tunables=()):
+    """crushtool text of a rack-aware map: ``racks`` racks of ``hosts``
+    hosts of ``per_host`` OSDs, every OSD weight 1.000, the root, rack and
+    host buckets of ``algs``, rules ``rules`` (a list of step lines each, in
+    rule ids 0..) and no tunable lines but ``tunables`` (name, value), so
+    ``CrushCompiler.compile`` gives it the legacy tunables."""
+    n = racks * hosts * per_host
+    lines = ["# begin crush map"]
+    lines += [f"tunable {k} {v}" for k, v in tunables]
+    lines += [""] + [f"device {i} osd.{i}" for i in range(n)]
+    lines += ["", "type 0 osd", "type 1 host", "type 2 rack", "type 3 root",
+              "", "# buckets"]
+    bid, osd, rack_names = -2, 0, []
+
+    def bucket(kind, name, alg, items, weight):
+        nonlocal bid
+        lines.extend([f"{kind} {name} {{", f"\tid {bid}", f"\talg {alg}",
+                      "\thash 0"]
+                     + [f"\titem {i} weight {weight:.3f}" for i in items]
+                     + ["}"])
+        bid -= 1
+    for r in range(racks):
+        host_names = []
+        for h in range(hosts):
+            host_names.append(f"host{r * hosts + h}")
+            bucket("host", host_names[-1], algs[2],
+                   [f"osd.{osd + i}" for i in range(per_host)], 1.0)
+            osd += per_host
+        rack_names.append(f"rack{r}")
+        bucket("rack", rack_names[-1], algs[1], host_names, per_host)
+    lines.extend(["root default {", "\tid -1", f"\talg {algs[0]}", "\thash 0"]
+                 + [f"\titem {r} weight {hosts * per_host:.3f}"
+                    for r in rack_names] + ["}", "", "# rules"])
+    for i, steps in enumerate(rules):
+        lines.extend([f"rule rule{i} {{", f"\tid {i}", "\ttype replicated",
+                      "\tmin_size 1", "\tmax_size 10"]
+                     + [f"\t{s}" for s in steps] + ["}"])
+    return "\n".join(lines + ["", "# end crush map", ""])
+
+
+def legacy_small_maps():
+    """The small legacy maps (36-80 OSDs) that tests/test_torch_crush_legacy.py
+    and 3l run: name -> (text, [(rule id, result_max)])."""
+    leaf = "step chooseleaf firstn 0 type host"
+    chain = ["step choose firstn 2 type rack",
+             "step chooseleaf firstn 2 type host"]
+    take, emit = "step take default", "step emit"
+    rack3 = [[take, leaf, emit], [take] + chain + [emit],
+             ["step set_choose_tries 3", take, leaf, emit],
+             ["step set_chooseleaf_tries 2", take, leaf, emit],
+             ["step set_choose_local_tries 0", take, leaf, emit],
+             ["step set_choose_local_fallback_tries 0", take, leaf, emit],
+             [take, "step choose firstn 3 type osd", emit]]
+    mixed = [[take, leaf, emit], [take] + chain + [emit]]
+    return {
+        "rack3x3x4": (legacy_text_map(3, 3, 4, rack3),
+                      [(0, 3), (1, 4), (2, 3), (3, 3), (4, 3), (5, 3),
+                       (6, 3)]),
+        "mixed4x2x10": (legacy_text_map(4, 2, 10, mixed,
+                                        ("straw2", "straw", "straw")),
+                        [(0, 3), (1, 4)]),
+        "stable3x3x4": (legacy_text_map(3, 3, 4, mixed,
+                                        tunables=[("chooseleaf_stable", 1)]),
+                        [(0, 3), (1, 4)]),
+    }
+
+
+def legacy_heavy(w, per_host, rng, hosts=3, out=15, partial=20):
+    """``w`` with ``hosts`` hosts losing ``out`` of their OSDs and
+    ``partial`` other OSDs at 0x8000: local retries that run long enough
+    to reach the permutation draw, and partial weights that reject."""
+    w = w.copy()
+    n_hosts = len(w) // per_host
+    hs = rng.choice(n_hosts, min(hosts, n_hosts), replace=False)
+    for h in hs:
+        w[h * per_host + rng.choice(per_host, min(out, per_host - 1),
+                                    replace=False)] = 0
+    rest = np.nonzero(w == 0x10000)[0]
+    w[rng.choice(rest, min(partial, len(rest)), replace=False)] = 0x8000
+    return w
+
+
+def legacy_weights(n, per_host, rng):
+    """The small maps' weight vectors: all in, 10% out, 10% at a quarter
+    weight, and heavy-out within hosts (``legacy_heavy``)."""
+    all_in = np.full(n, 0x10000, np.uint32)
+    out = all_in.copy()
+    out[rng.choice(n, n // 10, replace=False)] = 0
+    quarter = all_in.copy()
+    quarter[rng.choice(n, n // 10, replace=False)] = 0x4000
+    heavy = legacy_heavy(all_in, per_host, rng, hosts=2,
+                         out=per_host - 1, partial=n // 10)
+    return {"all_in": all_in, "out": out, "quarter": quarter,
+            "heavy": heavy}
+
+
+def legacy_epochs(rng):
+    """(L)'s weight epochs: 0 all in, 1..10 each marking 2 more OSDs out,
+    and H (``legacy_heavy``: 3 hosts with 15 of 20 OSDs out, 20 other OSDs
+    at 0x8000)."""
+    racks, hosts, per_host = LEGACY_SHAPE
+    n = racks * hosts * per_host
+    w = np.full(n, 0x10000, np.uint32)
+    order = rng.permutation(n)
+    epochs = {"0": w}
+    for e in range(1, LEGACY_EPOCHS + 1):
+        we = w.copy()
+        we[order[:2 * e]] = 0
+        epochs[str(e)] = we
+    epochs["H"] = legacy_heavy(w, per_host, rng)
+    return epochs
+
+
+def legacy_map_text():
+    """(L) as crushtool text: 1000 OSDs in 5 racks x 10 hosts x 20, every
+    bucket straw (v1), weights 1.000, no tunable lines, rules L1 and L2."""
+    return legacy_text_map(*LEGACY_SHAPE,
+                           [steps for steps, _ in LEGACY_RULES.values()])
+
+
+def _legacy_scheme_rows(args):
+    """Check worker: K8's kernel transcription
+    (tests/test_torch_crush_legacy_kernel.py) over a chunk of x: its rows and
+    the items it hashes per x (what K8's instruction bound counts)."""
+    m, ruleno, size, xs, weight = args
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from test_torch_crush_legacy_kernel import legacy_scheme
+    from ceph_tpu_torch.ops.crush_legacy import LegacyFastRule
+    rows, hashed, _, _ = legacy_scheme(
+        LegacyFastRule(m, ruleno, size, device="cpu"), xs, weight)
+    return [(row, int(h)) for row, h in zip(rows, hashed)]
+
+
+def _legacy_pair(rule, x, w):
+    """K8 and its plain version (on the card) over the same x: (max abs
+    error, the plain version's wall in s, x taking a permutation draw, x
+    taking a local retry)."""
+    from ceph_tpu_torch.ops import crush_legacy as cl
+    got, gcnt, _ = cl.crush_legacy(rule, x, w)
+    stats = {}
+    rule._tables = None           # the plain version's whole cost, tables too
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, wcnt, res = cl.crush_legacy_plain(rule, x, w, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if res.any():
+        raise AssertionError("plain version left x past its window")
+    err = max(int_err(got, want), int_err(gcnt, wcnt))
+    return (err, wall, int(stats["perm"].sum()), int(stats["local"].sum()))
+
+
+def legacy_checks(dev):
+    """3l: K8 against its plain version on the card, byte-exact: every rule
+    and weight vector of the small legacy maps at 4096 x, and (L)'s first
+    LEGACY_CHECK_X x of each rule and epoch.  The plain version marks the x
+    that took a permutation draw or a local retry: on (L) both must be
+    > 0."""
+    from ceph_tpu_torch.crush.compiler import CrushCompiler
+    from ceph_tpu_torch.ops import crush_legacy as cl
+    out = {"max_abs_err": 0, "small": {}, "L": {}}
+    xs = torch.from_numpy((np.arange(4096, dtype=np.uint64) * 2654435761
+                           & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+                          ).to(dev)
+    for name, (text, rules) in legacy_small_maps().items():
+        m = CrushCompiler().compile(text).crush
+        per_host = m.max_devices // sum(1 for b in m.buckets
+                                        if b is not None and b.type == 1)
+        ws = legacy_weights(m.max_devices, per_host,
+                            np.random.default_rng(SEED))
+        for rno, size in rules:
+            rule = cl.LegacyFastRule(m, rno, size, device=dev)
+            for wn, w in ws.items():
+                wd = torch.from_numpy(w.view(np.int32)).to(dev)
+                err, _, perm, local = _legacy_pair(rule, xs, wd)
+                out["small"][f"{name} rule {rno} {wn}"] = [err, perm, local]
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                if err:
+                    raise AssertionError(f"K8 != plain: {name} rule {rno} "
+                                         f"{wn}")
+    log(f"check legacy: K8 == plain on {len(out['small'])} (map, rule, "
+        f"weights) of the small maps at 4096 x; x with a perm draw / a "
+        f"local retry per case: "
+        + json.dumps({k: v[1:] for k, v in out["small"].items()}))
+    m = CrushCompiler().compile(legacy_map_text()).crush
+    x = torch.arange(LEGACY_CHECK_X, dtype=torch.int32, device=dev)
+    epochs = legacy_epochs(np.random.default_rng(SEED))
+    perm_all = local_all = 0
+    for rno, (key, (_, size)) in enumerate(LEGACY_RULES.items()):
+        rule = cl.LegacyFastRule(m, rno, size, device=dev)
+        for e, w in epochs.items():
+            wd = torch.from_numpy(w.view(np.int32)).to(dev)
+            err, wall, perm, local = _legacy_pair(rule, x, wd)
+            out["L"][f"{key} {e}"] = {"max_abs_err": err, "plain_s": wall,
+                                      "perm_x": perm, "local_x": local}
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            perm_all += perm
+            local_all += local
+            if err:
+                raise AssertionError(f"K8 != plain: (L) {key} epoch {e}")
+    out["L_perm_x"], out["L_local_x"] = perm_all, local_all
+    log(f"check legacy (L): K8 == plain on the first {LEGACY_CHECK_X} x of "
+        f"each rule and epoch; x with a perm draw {perm_all}, with a local "
+        f"retry {local_all}: " + json.dumps(out["L"]))
+    if not perm_all or not local_all:
+        raise AssertionError("(L): no checked x took a permutation draw "
+                             "or a local retry")
+    return out
+
+
+def legacy_drive(dev):
+    """4l: the path.  ``crushtool -c`` of (L)'s text into a binary map,
+    ``decode_crushmap``, then ``LegacyFastRule(...).map_batch`` over all
+    100000 x for L1 and L2 in every epoch (the K8 count reset just before,
+    read after; residual_fraction 0.0 every time).  Returns the rows of a
+    2000-x sample per rule and epoch as host jobs (``crush_do_rule`` and
+    K8's transcription), the walls, the rules and the map's path."""
+    from ceph_tpu_torch.crush.binfmt import decode_crushmap
+    from ceph_tpu_torch.ops import crush_legacy as cl
+    from ceph_tpu_torch.tools import crushtool
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "legacy")
+    os.makedirs(d, exist_ok=True)
+    txt, binf = os.path.join(d, "L.txt"), os.path.join(d, "L.bin")
+    with open(txt, "w") as f:
+        f.write(legacy_map_text())
+    if crushtool.main(["-c", txt, "-o", binf], device=dev) != 0:
+        raise AssertionError("crushtool -c failed on (L)")
+    with open(binf, "rb") as f:
+        m = decode_crushmap(f.read()).crush
+    if (m.choose_local_tries, m.choose_local_fallback_tries,
+            m.choose_total_tries, m.chooseleaf_descend_once,
+            m.chooseleaf_vary_r) != (2, 5, 19, 0, 0):
+        raise AssertionError("(L) did not compile to the legacy tunables")
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    sample = np.sort(np.random.default_rng(SEED).choice(
+        CRUSH_X, LEGACY_SAMPLE, replace=False))
+    epochs = legacy_epochs(np.random.default_rng(SEED))
+    rules = {key: cl.LegacyFastRule(m, rno, size, device=dev)
+             for rno, (key, (_, size)) in enumerate(LEGACY_RULES.items())}
+    cl.launches.reset()
+    walls, jobs, rows0 = {}, [], None
+    for key, rule in rules.items():
+        walls[key] = {}
+        for e, w in epochs.items():
+            n0 = cl.launches.n
+            t0 = time.perf_counter()
+            res, cnt = rule.map_batch(xs, w)
+            walls[key][e] = time.perf_counter() - t0
+            if cl.launches.n == n0:
+                raise AssertionError(f"K8 did not launch: {key} epoch {e}")
+            if rule.residual_fraction != 0.0:
+                raise AssertionError(f"{key} epoch {e}: residual "
+                                     f"{rule.residual_fraction}")
+            got = [[int(v) for v in res[x, :cnt[x]]] for x in sample]
+            wl = [int(v) for v in w]
+            jobs.append((f"legacy {key} epoch {e}", got, _do_rule_rows,
+                         [(m, rule.ruleno, c, rule.result_max, wl)
+                          for c in _chunks(sample, CHECK_PROCS)]))
+            jobs.append((f"legacy {key} epoch {e} transcription", got,
+                         _legacy_scheme_rows,
+                         [(m, rule.ruleno, rule.result_max, c, wl)
+                          for c in _chunks(sample, CHECK_PROCS)]))
+            if key == "L1" and e == "0":
+                rows0 = (res, cnt)
+    launches = cl.launches.n
+    log(f"drive legacy: crushtool -c (L) -> decode_crushmap -> "
+        f"LegacyFastRule.map_batch of {CRUSH_X} x, rules "
+        f"{sorted(rules)} x epochs {sorted(epochs)}: K8 launches "
+        f"{launches}, residual_fraction 0.0 every time; map_batch walls "
+        + json.dumps(walls))
+    return {"launches": launches, "walls": walls, "rules": rules,
+            "epochs": epochs, "jobs": jobs, "rows0": rows0, "bin": binf,
+            "map": m}
+
+
+def legacy_tester(drive):
+    """4l: ``crushtool -i L.bin --test --rule 0 --num-rep 3 --min-x 0
+    --max-x 1023 --show-mappings`` (its own process, as a user runs it)
+    prints the rows K8 gave for those x in epoch 0."""
+    argv = ["-i", drive["bin"], "--test", "--rule", "0", "--num-rep", "3",
+            "--min-x", "0", "--max-x", "1023", "--show-mappings"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "ceph_tpu_torch.tools.crushtool", *argv],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"crushtool --test failed: {proc.stderr}")
+    res, cnt = drive["rows0"]
+    want = [f"CRUSH rule 0 x {x} ["
+            + ",".join(str(int(v)) for v in res[x, :cnt[x]]) + "]"
+            for x in range(1024)]
+    if proc.stdout.splitlines() != want:
+        raise AssertionError("crushtool --test --show-mappings != K8")
+    log(f"tester legacy: crushtool --test --show-mappings over x 0..1023 "
+        f"prints K8's rows ({wall:.2f} s, its own process)")
+    return {"wall_s": wall, "lines": len(want)}
+
+
+def legacy_times(drive, checks, items, dev):
+    """5l: K8 per rule and epoch over 100000 x, replayed from a CUDA graph
+    of 3 launches (the kernel's own time); its instruction bound: the items
+    its transcription hashes per x over the 2000-x sample, scaled to
+    100000 x, times OPS_PER_DRAW at the card's instruction rate; the
+    plain version's wall on its 4096 x (3l) and the map_batch walls
+    (4l)."""
+    from ceph_tpu_torch.ops import crush_legacy as cl
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    times = {}
+    for key, rule in drive["rules"].items():
+        for e, w in drive["epochs"].items():
+            wd = torch.from_numpy(w.view(np.int32)).to(dev)
+            ms = graph_ms(lambda: cl.crush_legacy(rule, xd, wd), launches=3,
+                          samples=5)
+            per_x = items[f"legacy {key} epoch {e} transcription"]
+            ops = per_x * CRUSH_X * OPS_PER_DRAW
+            times[f"{key} {e}"] = {
+                "ms": ms, "items_per_x": per_x,
+                "bound_ms": ops / INSTR_PER_S * 1e3,
+                "plain_ms_4096_x": checks["L"][f"{key} {e}"]["plain_s"] * 1e3,
+                "map_batch_wall_s": drive["walls"][key][e]}
+    log("time legacy " + json.dumps(times))
+    return times
+
+
+def legacy_slice(dev) -> dict:
+    """Phases 3l, 4l and 5l of the legacy slice on ``dev``."""
+    import multiprocessing
+    t_start = time.perf_counter()
+    checks = legacy_checks(dev)
+    drive = legacy_drive(dev)
+    tester = legacy_tester(drive)
+    ctx = multiprocessing.get_context("spawn")
+    t_check = time.perf_counter()
+    items = {}
+    with ctx.Pool(CHECK_PROCS) as pool:
+        pending = [(what, got, fn, pool.map_async(fn, args))
+                   for what, got, fn, args in drive["jobs"]]
+        host = [(what, got, res) for what, got, fn, res in pending
+                if fn is _do_rule_rows]
+        n_rows = check_pending(host)
+        for what, got, fn, res in pending:
+            if fn is not _legacy_scheme_rows:
+                continue
+            part = [r for chunk in res.get() for r in chunk]
+            if [row for row, _ in part] != got:
+                raise AssertionError(f"{what}: K8 != its transcription")
+            items[what] = float(np.mean([h for _, h in part]))
+        pool.close()
+        pool.join()
+    log(f"check legacy: {n_rows} sampled rows equal crush_do_rule and K8's "
+        f"transcription on the host ({time.perf_counter() - t_check:.1f} s "
+        f"in {CHECK_PROCS} workers)")
+    times = legacy_times(drive, checks, items, dev)
+    out = {"checks": checks, "launches": drive["launches"],
+           "walls": drive["walls"], "tester": tester, "times": times,
+           "checked_rows": n_rows,
+           "seconds": time.perf_counter() - t_start}
+    log(f"legacy phases took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2076,6 +2485,18 @@ def main() -> int:
     log(f"after crush timing: clocks.sm, clocks.max.sm, power.draw, temp: "
         f"{clocks}")
 
+    # -- 3l / 4l / 5l: the legacy slice, after the earlier slices' phases,
+    # which run as they did before it ---------------------------------------------
+    legacy = legacy_slice(dev)
+    results["legacy"] = legacy
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    log(f"after legacy timing: clocks.sm, clocks.max.sm, power.draw, temp: "
+        f"{clocks}")
+    k8 = legacy["times"]["L1 0"]
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -2172,7 +2593,23 @@ def main() -> int:
         "ms_flagged_by_config": {n: t["k6_flagged_ms"]
                                  for n, t in ct.items()},
         "bound_ms_flagged_by_config": {n: t["k6_flagged_bound_ms"]
-                                       for n, t in ct.items()}}]}
+                                       for n, t in ct.items()}}, {
+        "name": "crush_legacy", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_legacy.cu",
+        "replaces": "ceph_tpu/ops/crush_legacy.py:387",
+        "launches": legacy["launches"],
+        "max_abs_err": legacy["checks"]["max_abs_err"],
+        "ms": k8["ms"], "plain_ms": k8["plain_ms_4096_x"], "plain_x": 4096,
+        "bound_ms": k8["bound_ms"], "bound_by": "operations",
+        "library_ms": None, "items_per_x": k8["items_per_x"],
+        "ptxas": ptxas_usage(ptxas.get("crush_legacy", [])),
+        "ms_by_rule_epoch": {n: t["ms"] for n, t in legacy["times"].items()},
+        "bound_ms_by_rule_epoch": {n: t["bound_ms"]
+                                   for n, t in legacy["times"].items()},
+        "plain_ms_4096_x_by_rule_epoch": {
+            n: t["plain_ms_4096_x"] for n, t in legacy["times"].items()},
+        "perm_x": legacy["checks"]["L_perm_x"],
+        "local_x": legacy["checks"]["L_local_x"]}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -21,7 +21,8 @@ from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.gf.tables import expand_to_bitmatrix
 from ceph_tpu_torch.gf.word_codec import reed_sol_van_matrix_w
 from ceph_tpu_torch.ops import (_build, crc32c_device, crush_fast,
-                                fused_encode_crc, gf_pallas, resident)
+                                crush_legacy, fused_encode_crc, gf_pallas,
+                                resident)
 from ceph_tpu_torch.ops.gf_matmul import (DeviceRSBackend,
                                           DeviceWordRSBackend,
                                           expand_to_bitmatrix_w)
@@ -93,7 +94,8 @@ def test_cuda_source_includes_no_jax(path):
     for line in (REPO / path).read_text().splitlines():
         if line.lstrip().startswith("#include"):
             assert line.split()[1].strip('<>"') in (
-                "cuda_runtime.h", "stdint.h", "lookup.cuh"), (path, line)
+                "cuda_runtime.h", "stdint.h", "lookup.cuh",
+                "crush_common.cuh"), (path, line)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -289,8 +291,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build("no_such_kernel")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("fused_encode_crc")
-    assert _build.sources() == ["crc32c", "crush_fast", "fused_encode_crc",
-                                "gf_bit_matmul"]
+    assert _build.sources() == ["crc32c", "crush_fast", "crush_legacy",
+                                "fused_encode_crc", "gf_bit_matmul"]
 
 
 def test_build_path_tracks_source(monkeypatch, tmp_path):
@@ -433,3 +435,50 @@ def test_osdmap_mapping_routes_only_compile_errors_to_host(monkeypatch):
         monkeypatch.setattr(mapping_mod, "compile_fast_rule", broken)
         with pytest.raises(exc):
             OSDMapMapping(device="cpu").update(m)
+
+
+def test_walk_sees_the_legacy_slice():
+    """The package walk reaches crushtool's text and binary forms, its
+    dumps, the legacy mapper and crushtool itself, and K8 lives in a
+    source the build knows."""
+    mods = _modules()
+    for m in ("crush.compiler", "crush.binfmt", "crush.dumpfmt",
+              "crush.treedump", "ops.crush_legacy", "tools.crushtool"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    src = (PKG / "csrc" / "crush_legacy.cu").read_text()
+    assert 'extern "C" int crush_legacy_launch(' in src
+    assert '#include "crush_common.cuh"' in src
+    assert "crush_legacy_launch" in crush_legacy._SIGNATURES
+    assert "crush_legacy" in _build.sources()
+
+
+def _legacy_map():
+    import chip_smoke
+    from ceph_tpu_torch.crush.compiler import CrushCompiler
+    text, _ = chip_smoke.legacy_small_maps()["rack3x3x4"]
+    return CrushCompiler().compile(text).crush
+
+
+def test_legacy_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    m = _legacy_map()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_legacy.LegacyFastRule(m, 0, 3, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_legacy.LegacyFastRule(m, 0, 3)               # the default
+
+
+def test_legacy_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """K8's wrapper on a tensor off the CPU goes to the kernel or raises:
+    no plain version, no launch counted."""
+    def boom(*a, **kw):
+        raise AssertionError("plain version called for a device tensor")
+    rule = crush_legacy.LegacyFastRule(_legacy_map(), 0, 3, device="cpu")
+    monkeypatch.setattr(crush_legacy, "crush_legacy_plain", boom)
+    before = crush_legacy.launches.n
+    x = torch.empty(16, dtype=torch.int32, device="meta")
+    w = torch.empty(36, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="meta"):
+        crush_legacy.crush_legacy(rule, x, w)
+    assert crush_legacy.launches.n == before
