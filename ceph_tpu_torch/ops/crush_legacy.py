@@ -12,11 +12,12 @@ or rejection first retries at the failing bucket, draws from
 firstn rule of such a map (single take, chained chooses, chooseleaf of
 depth 1 in the last step, vary_r 0) for a batch of x.
 
-- On the card, K8 (``crush_legacy``, ``csrc/crush_legacy.cu``): one
-  thread per x walks mapper.c's ``crush_choose_firstn`` to the reference's
-  own end: every descent of ``choose_tries``, every local retry, the
-  permutation draws on demand.  So no x is left over and nothing is
-  replayed on the host: ``residual_fraction`` is 0.0 there.
+- On the card, K8 (``crush_legacy``, ``csrc/crush_legacy.cu``): a group
+  of 4 lanes per x walks mapper.c's ``crush_choose_firstn`` to the
+  reference's own end: every descent of ``choose_tries``, every local
+  retry, the permutation draws on demand, each straw draw shared by the
+  group's lanes.  No x is left over and nothing is replayed on the host:
+  ``residual_fraction`` is 0.0 there.
 - On the CPU, its plain version ``crush_legacy_plain``: the JAX module's
   formulation carried over (draw tables T/P for every bucket and retry
   value, the masked retry state machines of each stage and of the
@@ -211,13 +212,14 @@ class LegacyFastRule:
         counts = cnt_t.cpu().numpy().copy()
         residual = res_t.cpu().numpy()
         self._residual_frac = float(residual.mean()) if len(xs) else 0.0
-        wl = [int(v) for v in w32]
-        for i in np.nonzero(residual)[0]:
-            r = crush_do_rule(self.m, self.ruleno, int(xs[i]),
-                              self.result_max, wl)
-            out[i, :] = NONE
-            out[i, :len(r)] = r
-            counts[i] = len(r)
+        if self._residual_frac:
+            wl = [int(v) for v in w32]
+            for i in np.nonzero(residual)[0]:
+                r = crush_do_rule(self.m, self.ruleno, int(xs[i]),
+                                  self.result_max, wl)
+                out[i, :] = NONE
+                out[i, :len(r)] = r
+                counts[i] = len(r)
         return out, counts
 
     @property

@@ -147,7 +147,7 @@ kept for a whole list of x) adds:
    K6's ptxas registers, stack and spill in the ``kernels`` line.
 
 The legacy slice (K8, ``csrc/crush_legacy.cu``: the legacy-tunables mapper
-of ``ops/crush_legacy.py``, one thread per x) adds, after 5c, on (L): 1000
+of ``ops/crush_legacy.py``) adds, after 5c, on (L): 1000
 OSDs in 5 racks x 10 hosts x 20, every bucket straw (v1), compiled by
 ``crushtool -c`` from text without tunable lines (so choose_local_tries 2,
 choose_local_fallback_tries 5, choose_total_tries 19), with rules L1
@@ -166,17 +166,28 @@ other OSDs at 0x8000):
    per rule and epoch (K8 must launch every time, residual_fraction 0.0);
    ``crushtool -i L.bin --test --show-mappings`` (x 0..1023, its own
    process) prints K8's rows; a 2000-x sample per rule and epoch equals the
-   host ``crush_do_rule`` and K8's transcription
-   (``tests/test_torch_crush_legacy_kernel.py``) in a pool of workers;
+   host ``crush_do_rule`` and K8's one-thread walk (``_Thread``,
+   ``tests/test_torch_crush_legacy_kernel.py``) in a pool of workers;
 5l. K8 per rule and epoch over 100000 x from a CUDA graph of 3 launches,
    against its instruction bound (the items the transcription hashes per x
    over the sample, scaled, at OPS_PER_DRAW each), the plain version's wall
    on its 4096 x, and the ``map_batch`` walls.
 
+K8's group redesign (a group of 4 lanes per x; each straw draw shared by
+the group and reduced by xor shuffles; slot state in registers; one flat
+machine per group between draws) adds:
+
+3l. a wide map (3 racks x 2 hosts x 40 OSDs: host draws of ten rounds of
+   the group's lanes) to the maps K8 is held against its plain version on;
+5l. the ptxas registers, stack and spill of both instances in the
+   ``kernels`` line.
+
 ``python3 chip_smoke.py --k6-parent DIR`` builds and checks nothing else:
 after phases 1-2 it times K6 of this tree in turns with K6 of the checkout
 of the port under DIR (``k6_parent_turns``, one log line per configuration)
-and prints the same last line.
+and prints the same last line.  ``--k8-parent DIR`` does the same for K8
+(``k8_parent_turns``): (L)'s 100000 x for L1 and L2 at epochs 0, 10 and H,
+both trees' rows equal.
 
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -1741,6 +1752,21 @@ def crush_slice(dev, div64=None) -> dict:
     return crush
 
 
+def load_parent_port(parent_dir, name):
+    """The port's package of another checkout under ``parent_dir``, loaded
+    under the module name ``name`` (its kernels build from its own sources
+    into its own build directory)."""
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(parent_dir), "ceph_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def k6_parent_turns(parent_dir, dev) -> dict:
     """``--k6-parent DIR``: K6 of this tree in turns with the K6 of another
     checkout of the port under ``DIR`` (its package loaded under another
@@ -1752,15 +1778,8 @@ def k6_parent_turns(parent_dir, dev) -> dict:
     this tree, the other tree again).  Every launch's rows must equal the
     others'."""
     import importlib
-    import importlib.util
     from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
-    pkg = os.path.join(os.path.abspath(parent_dir), "ceph_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "k6_parent", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["k6_parent"] = mod
-    spec.loader.exec_module(mod)
+    load_parent_port(parent_dir, "k6_parent")
     pk = importlib.import_module("k6_parent.ops.crush_kernels")
     xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
     w = np.full(CRUSH_OSDS, 0x10000, np.uint32)
@@ -1811,6 +1830,42 @@ def k6_parent_turns(parent_dir, dev) -> dict:
             out[name]["flagged_x"] = int(n_live)
             log(f"k6 against {parent_dir} {name}: " + json.dumps(out[name]))
             del fr, work, rows
+    return out
+
+
+def k8_parent_turns(parent_dir, dev) -> dict:
+    """``--k8-parent DIR``: K8 of this tree in turns with the K8 of another
+    checkout of the port under ``DIR`` (its package loaded under another
+    name, its ``crush_legacy.cu`` built from its own sources into its own
+    build directory), over (L)'s 100000 x for L1 and L2 at epochs 0, 10
+    and H: CUDA graphs of 3 launches replayed in turns (the other tree,
+    this tree, the other tree again).  The two trees' rows and counts must
+    be equal."""
+    import importlib
+    from ceph_tpu_torch.crush.compiler import CrushCompiler
+    from ceph_tpu_torch.ops import crush_legacy as cl
+    load_parent_port(parent_dir, "k8_parent")
+    pl = importlib.import_module("k8_parent.ops.crush_legacy")
+    m = CrushCompiler().compile(legacy_map_text()).crush
+    epochs = legacy_epochs(np.random.default_rng(SEED))
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    out = {}
+    for rno, (key, (_, size)) in enumerate(LEGACY_RULES.items()):
+        rule = cl.LegacyFastRule(m, rno, size, device=dev)
+        prule = pl.LegacyFastRule(m, rno, size, device=dev)
+        for e in ("0", str(LEGACY_EPOCHS), "H"):
+            wd = torch.from_numpy(epochs[e].view(np.int32)).to(dev)
+            a = pl.crush_legacy(prule, xd, wd)
+            b = cl.crush_legacy(rule, xd, wd)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"K8 {key} epoch {e}: trees disagree")
+            t = graph_turns_ms([lambda: pl.crush_legacy(prule, xd, wd),
+                                lambda: cl.crush_legacy(rule, xd, wd)]
+                               * 2, launches=3, samples=5)
+            name = f"{key} {e}"
+            out[name] = {"other_tree_ms": [t[0], t[2]], "ms": t[1],
+                         "ms_again": t[3]}
+            log(f"k8 against {parent_dir} {name}: " + json.dumps(out[name]))
     return out
 
 
@@ -1898,6 +1953,18 @@ def legacy_small_maps():
     }
 
 
+def legacy_wide_maps():
+    """A legacy map whose hosts are wider than a warp (3 racks x 2 hosts x
+    40 OSDs), so a host draw takes several rounds of K8's group of lanes:
+    name -> (text, [(rule id, result_max)]), as legacy_small_maps."""
+    take, emit = "step take default", "step emit"
+    rules = [[take, "step chooseleaf firstn 0 type host", emit],
+             [take, "step choose firstn 2 type rack",
+              "step chooseleaf firstn 2 type host", emit]]
+    return {"wide3x2x40": (legacy_text_map(3, 2, 40, rules),
+                           [(0, 3), (1, 4)])}
+
+
 def legacy_heavy(w, per_host, rng, hosts=3, out=15, partial=20):
     """``w`` with ``hosts`` hosts losing ``out`` of their OSDs and
     ``partial`` other OSDs at 0x8000: local retries that run long enough
@@ -1952,8 +2019,8 @@ def legacy_map_text():
 
 
 def _legacy_scheme_rows(args):
-    """Check worker: K8's kernel transcription
-    (tests/test_torch_crush_legacy_kernel.py) over a chunk of x: its rows and
+    """Check worker: K8's one-thread walk (``_Thread`` of
+    tests/test_torch_crush_legacy_kernel.py) over a chunk of x: its rows and
     the items it hashes per x (what K8's instruction bound counts)."""
     m, ruleno, size, xs, weight = args
     sys.path.insert(0, os.path.join(os.path.dirname(
@@ -1985,18 +2052,19 @@ def _legacy_pair(rule, x, w):
 
 
 def legacy_checks(dev):
-    """3l: K8 against its plain version on the card, byte-exact: every rule
-    and weight vector of the small legacy maps at 4096 x, and (L)'s first
-    LEGACY_CHECK_X x of each rule and epoch.  The plain version marks the x
-    that took a permutation draw or a local retry: on (L) both must be
-    > 0."""
+    """3l: K8 against its plain version on the card, byte-exact: every
+    rule and weight vector of the small legacy maps and of the wide map at
+    4096 x, and (L)'s first LEGACY_CHECK_X x of each rule and epoch.  The
+    plain version marks the x that took a permutation draw or a local
+    retry: on (L) both must be > 0."""
     from ceph_tpu_torch.crush.compiler import CrushCompiler
     from ceph_tpu_torch.ops import crush_legacy as cl
     out = {"max_abs_err": 0, "small": {}, "L": {}}
     xs = torch.from_numpy((np.arange(4096, dtype=np.uint64) * 2654435761
                            & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
                           ).to(dev)
-    for name, (text, rules) in legacy_small_maps().items():
+    for name, (text, rules) in {**legacy_small_maps(),
+                                **legacy_wide_maps()}.items():
         m = CrushCompiler().compile(text).crush
         per_host = m.max_devices // sum(1 for b in m.buckets
                                         if b is not None and b.type == 1)
@@ -2013,8 +2081,8 @@ def legacy_checks(dev):
                     raise AssertionError(f"K8 != plain: {name} rule {rno} "
                                          f"{wn}")
     log(f"check legacy: K8 == plain on {len(out['small'])} (map, rule, "
-        f"weights) of the small maps at 4096 x; x with a perm draw / a "
-        f"local retry per case: "
+        f"weights) of the small and wide maps at 4096 x; x with a perm "
+        f"draw / a local retry per case: "
         + json.dumps({k: v[1:] for k, v in out["small"].items()}))
     m = CrushCompiler().compile(legacy_map_text()).crush
     x = torch.arange(LEGACY_CHECK_X, dtype=torch.int32, device=dev)
@@ -2248,9 +2316,11 @@ def main() -> int:
         for fn, c in (per_fn or {}).items():
             log(f"  sass[{name}] {fn} " + json.dumps(c))
     results["sass"] = sass
-    if "--k6-parent" in sys.argv:
-        parent = sys.argv[sys.argv.index("--k6-parent") + 1]
-        k6_parent_turns(parent, dev)
+    for flag, turns in (("--k6-parent", k6_parent_turns),
+                        ("--k8-parent", k8_parent_turns)):
+        if flag not in sys.argv:
+            continue
+        turns(sys.argv[sys.argv.index(flag) + 1], dev)
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
-"""K8's kernel, transcribed line for line and held against the host
+"""K8's semantics, walked line for line for one x and held against the host
 ``crush_do_rule`` and the kernel's plain version, exactly.
 
-``_Thread`` transcribes ``crush_legacy_kernel`` of ``csrc/crush_legacy.cu``
-for one x: ``bucket_draw`` (straw v1 u64 draw, first maximum; straw2 s64
+``_Thread`` is the one-thread account of what ``csrc/crush_legacy.cu``
+computes: ``bucket_draw`` (straw v1 u64 draw, first maximum; straw2 s64
 quotient, first minimum), ``perm_draw`` (the Fisher-Yates prefix over a
 scratch of the bucket's size), ``retry_draw``, ``choose_leaf`` (the
 chooseleaf recursion as an inner loop), ``choose_firstn`` (retry_bucket /
-retry_descent as the kernel's loop) and the kernel's stage chaining and
-EMIT.  It also counts what the kernel hashes per x (straw items, Fisher-Yates
-steps, is_out tests), which ``chip_smoke.py`` scales into K8's bound, and the
-x that take a permutation draw or a local retry.  Change it with the kernel.
+retry_descent as one loop) and the stage chaining and EMIT.  It also
+counts what the walk hashes per x (straw items, Fisher-Yates steps, is_out
+tests), which ``chip_smoke.py`` scales into K8's bound, and the x that
+take a permutation draw or a local retry.  The kernel itself, a group of
+lanes per x, is transcribed by ``_Group`` in
+``test_torch_crush_legacy_group.py``: change that with the kernel, and
+this with the semantics.
 
 The maps and weight vectors are ``chip_smoke.py``'s small legacy maps (36-80
 OSDs compiled from crushtool text without tunable lines, so with the legacy
@@ -36,9 +39,9 @@ X = 256
 
 
 class _Thread:
-    """``crush_legacy_kernel`` for one x at a time, with the kernel's
-    counts: ``hashed`` (hash32_3 / hash32_2 evaluations), ``perm`` (draws
-    from the permutation), ``local`` (retries at the failing bucket)."""
+    """K8's walk for one x at a time, with its counts: ``hashed``
+    (hash32_3 / hash32_2 evaluations), ``perm`` (draws from the
+    permutation), ``local`` (retries at the failing bucket)."""
 
     def __init__(self, rule: tl.LegacyFastRule, weight):
         C = rule.C
