@@ -3,15 +3,18 @@
 // Replaces the jitted XLA functions of ceph_tpu/ops/crush_fast.py (K7):
 //
 // - K7a crush_descend: FastRule._candidates (:592) through _descend (:489), _straw2_int (:431)
-//   and _straw2_exact64 (:445).  One thread per flattened lane (x, start bucket, r, position)
-//   walks `depth` levels down the map; each level is one straw2 draw over the bucket's items
-//   (mapper.c:322-367): u = hash32_3(x, id, r) & 0xFFFF, then on a level whose buckets all have
-//   one uniform weight w >= 0x10000 the i32 quotient T_w[u] = floor(G[u] / w) - 2^31 from a
-//   64K table, elsewhere the exact s64 quotient G[u] / w, G[u] = 2^48 - crush_ln(u) (a zero
-//   weight draws 2^62).  The first strict minimum wins, as the reference's strict-greater update
-//   does, so a bucket whose weights are all zero still returns item 0.  The main descent, the
-//   mid-stage descents of chained rules and the leaf attempts are all launches of this kernel
-//   on differently flattened lanes (the broadcasts stay in torch, ops/crush_fast.py).
+//   and _straw2_exact64 (:445).  One launch per stage of the candidate phase: the grid is
+//   (N parent lanes) x (R retries x P weight-set positions), and thread (lane, r, p) reads the
+//   lane's x and start bucket and walks `depth` levels down the map, each level one straw2
+//   draw over the bucket's items (mapper.c:322-367): u = hash32_3(x, id, r) & 0xFFFF, then on a
+//   level whose buckets all have one uniform weight w >= 0x10000 the i32 quotient
+//   T_w[u] = floor(G[u] / w) - 2^31 from a 64K table, elsewhere floor(G[u] / w) exactly: from
+//   the item's int64 table of its weight where the map has few distinct weights, else as a
+//   multiply-high by the weight's magic number (straw2_quotient); G[u] = 2^48 - crush_ln(u)
+//   (a zero weight draws 2^62).  The first strict minimum wins, as the reference's
+//   strict-greater update does, so a bucket whose weights are all zero still returns item 0.
+//   For a leaf rule the same thread then draws the candidate's L leaf attempts with
+//   _candidates' sub-r and position and writes them into the (R, L, P, N) table.
 // - K7b crush_resolve: FastRule._resolve (:714), _resolve_firstn (:752), _resolve_indep (:826)
 //   and _resolve_packed (:882).  One thread per x replays the firstn/indep retry semantics
 //   (mapper.c:443-636, :638-790) over the cached candidates of its parents x numrep slots:
@@ -33,8 +36,9 @@
 //   steps with the tries, recurse tries, vary_r and stable in force, EMIT) for each x with the
 //   rule's full choose_tries and recurse_tries, exactly as crush_do_rule (mapper.c:883-1087)
 //   does, firstn's count and indep's out_size bounded by what is left of result_max.  Each draw
-//   is K7a's: the quotient table of a bucket whose items all weigh one w >= 0x10000, else the
-//   s64 G[u] / w.
+//   (straw2_win) hashes with hash32_3 and takes the quotient table of a bucket whose items all
+//   weigh one w >= 0x10000, else the s64 G[u] / w (K7a's split hash and multiply-high are not
+//   taken here).
 //
 //   Bound: instructions, ~141 per straw2 item drawn (K7a's draw, below) times the items this
 //   run's x draw (the plain version counts them).  The main path launches K6 on the first
@@ -65,18 +69,22 @@
 // Candidates are laid out (R, P, N) and leaf attempts (R, L, P, N) with the lane N on the fast
 // axis, so a warp's loads of one (r, position) are 32 neighbouring words.
 //
-// Bound on this card.  K7a: integer instructions.  A draw is one hash32_3 (5 Jenkins mixes of
-// 9 lines, each at least a 3-input add, a shift and an XOR), the mask, the table gather, the
-// compare and the select, ~141 instructions; the tables it gathers from (64K x 4 B per
-// weight, 512 KiB for G) stay in L2.  At 100000 x, firstn size 3 on 50 hosts of 20 OSDs,
-// that is 700,000 lanes x 70 draws, 6.9e9 instructions, ~0.21 ms at the card's instruction
-// rate (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz; adds may run on the FMA pipe, so the
-// integer pipe's 64 lanes are no bound).  The exact s64 divide of a non-uniform level is a
-// software routine of a few dozen instructions on top.  K7b: bytes, the candidates and leaf
-// attempts read once and the packed rows written once: ~8 MB for firstn size 3 (2.4 us at
-// 3.35 TB/s), ~150 MB for the EC rule, 12 slots x 5 rounds x 5 leaf attempts (45 us).  Its
-// reads depend on the slots decided before them, and a thread skips the rounds a slot no
-// longer needs, so it is latency-bound, not bandwidth-bound.  K6: see above.
+// Bound on this card.  K7a: integer instructions.  A draw is one hash32_3 (5 Jenkins mixes of 9
+// lines, each at least a 3-input add, a shift and an XOR), the mask, the table gather, the compare
+// and the select, ~141 instructions (a draw on a 64-bit quotient ~3 more); the tables it gathers
+// from (256 KiB per i32 weight, 512 KiB per int64 one or G << 15) stay in L2.  At 100000 x, firstn
+// size 3 on 50 hosts of 20 OSDs, that is 700,000 threads x 70 draws, 6.9e9 instructions, ~0.21 ms
+// at the card's instruction rate (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz).  As ptxas compiles
+// hash32_3, 120 of its 140 instructions issue on the integer pipe, which takes half that rate, and
+// a hash-only probe (crush_probe.cu) runs it at the integer pipe's ceiling; so K7a's draw takes the
+// hash with 7 of each mix's 9 subtractions on the FMA pipe (IMADs by 0xFFFFFFFF, hash32_3_split):
+// 173 instructions, 86 integer and 84 FMA, the fastest split the probe timed (0.90 of hash32_3's
+// time).  Its index arithmetic is one IMAD.WIDE per load (elem), and the lanes' (x, start, r,
+// position) come from the thread's index, so nothing but the tables and the outputs moves through
+// memory.  K7b: bytes, the candidates and leaf attempts read once and the packed rows written once:
+// ~8 MB for firstn size 3 (2.4 us at 3.35 TB/s), ~150 MB for the EC rule, 12 slots x 5 rounds x 5
+// leaf attempts (45 us).  Its reads depend on the slots decided before them, and a thread skips the
+// rounds a slot no longer needs, so it is latency-bound, not bandwidth-bound.  K6: see above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,7 +113,7 @@ struct MapTables {
   int nb, s, npos;
 };
 
-// One straw2 draw from bucket b at position p: the item at the first strict minimum of the
+// K6's straw2 draw from bucket b at position p: the item at the first strict minimum of the
 // bucket's quotients, from quotient table `table` (>= 0) or the exact s64 G[u] / w.  U items'
 // hashes are interleaved (K6's lone threads have no other warps to hide their latency).
 template <int U>
@@ -142,22 +150,147 @@ __device__ __forceinline__ int straw2_win(const MapTables& t, int b, uint32_t x,
 
 // ---- K7a ---------------------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-crush_descend_kernel(const int* __restrict__ xs, const int* __restrict__ start,
-                     const int* __restrict__ rs, const int* __restrict__ pos,
-                     int* __restrict__ out, long long n, MapTables t, unsigned int_mask, int depth) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t x = (uint32_t)xs[i];
-  const uint32_t r = (uint32_t)rs[i];
-  const int p = min(pos[i], t.npos - 1);
-  int b = start[i];
+// What K7a reads of the map: a straw2 weight enters as its item's int64 table or its
+// multiply-high word (Q64 or not), an i32 table on an integer level.
+struct DescentMap {
+  const int* items;                  // (nb, S) item ids, NONE past a bucket's size
+  const int* hash_ids;               // (nb, S) ids hashed in the draw
+  const int* sizes;                  // (nb,)
+  const unsigned long long* magic;   // (npos, nb, S) m | t << 58 of each weight, 0 for a zero one
+  const int* qidx;                   // (nb,) quotient table of a bucket on an integer level
+  const int* qtables;                // (n_tables, 65536) i32 quotients, biased by -2^31
+  const unsigned long long* g15;     // (65536,) G[u] << 15
+  const int* qitem;                  // (npos, nb, S) i64 quotient table of each item, -1 zero
+  const long long* q64;              // (n_q64, 65536) floor(G[u] / w); both null: magic
+  int nb, s, npos;
+};
+
+// One launch's grid: blockIdx.y = r * P + p, the threads of blockIdx.x the N parent lanes.
+struct DescentGrid {
+  const int* xl;      // (N,) x of each parent lane
+  const int* roots;   // (N,) bucket index each lane starts from
+  int* cand;          // (R, P, N)
+  int* leaf;          // (R, L, P, N) when L > 0
+  long long n;
+  int p_count, l_count;
+  int depth, leaf_depth;           // levels of the candidate and of each leaf attempt (0: the
+  unsigned int_mask, leaf_mask;    // candidate is its own leaf); levels on the i32 tables
+  int leaf_firstn, vary_r, numrep;
+};
+
+constexpr unsigned long long kMagicMask = (1ULL << 58) - 1;
+
+// floor(G / w) for 0 <= G <= 2^48: the high word of (G << 15) * m, shifted right by t, with
+// t = ceil(log2 w) and m = ceil(2^(49 + t) / w) packed in one word (ops/crush_fast.py,
+// straw2_magic).  m w - 2^(49 + t) < w, so the error of the product stays below one unit.
+__device__ __forceinline__ unsigned long long straw2_quotient(unsigned long long g15,
+                                                              unsigned long long w) {
+  return __umul64hi(g15, w & kMagicMask) >> (unsigned)(w >> 58);
+}
+
+// base + i, as one IMAD.WIDE.U32 (i < 2^32); left to itself ptxas widens a loop's index with
+// 64-bit adds on the integer pipe before every load
+template <class T>
+__device__ __forceinline__ const T* elem(const T* base, uint32_t i) {
+  unsigned long long p;
+  asm("mad.wide.u32 %0, %1, %2, %3;"
+      : "=l"(p)
+      : "r"(i), "n"((int)sizeof(T)), "l"((unsigned long long)base));
+  return (const T*)p;
+}
+
+// One straw2 draw from bucket b at position p: the item at the first strict minimum of the
+// quotients, from quotient table `table` (>= 0), else from each item's int64 table (Q64; one
+// IMAD.WIDE and a gather) or the multiply-high of its weight (~10 more instructions, half of
+// them IMADs).  The tables measured ~5% faster on maps of up to 48 distinct weights and slower
+// from 64 on, where their 512 KiB each no longer stay in L2 (ops/crush_fast.py,
+// Q64_MAX_TABLES).
+template <bool Q64>
+__device__ __forceinline__ int descend_draw(const DescentMap& t, int b, uint32_t x, uint32_t r,
+                                            int p, int table, uint32_t neg1) {
+  const uint32_t size = (uint32_t)__ldg(t.sizes + b);
+  const long long row = (long long)b * t.s;
+  const int* ids = t.hash_ids + row;
+  uint32_t win = 0;
+  if (table >= 0) {
+    const int* q = t.qtables + ((long long)table << 16);
+    int best = 0;
+    for (uint32_t k = 0; k < size; ++k) {
+      const uint32_t u = hash32_3_split(x, (uint32_t)__ldg(elem(ids, k)), r, neg1) & 0xFFFFu;
+      const int v = __ldg(elem(q, u));
+      if (k == 0 || v < best) { best = v; win = k; }
+    }
+  } else {
+    const long long at = (long long)p * t.nb * t.s + row;
+    unsigned long long best = 0;
+    for (uint32_t k = 0; k < size; ++k) {
+      unsigned long long v = (unsigned long long)kZeroDraw;
+      if constexpr (Q64) {
+        const int tq = __ldg(elem(t.qitem + at, k));
+        if (tq >= 0) {
+          const uint32_t u = hash32_3_split(x, (uint32_t)__ldg(elem(ids, k)), r, neg1) & 0xFFFFu;
+          v = (unsigned long long)__ldg(elem(t.q64 + ((long long)tq << 16), u));
+        }
+      } else {
+        const unsigned long long w = __ldg(elem(t.magic + at, k));
+        if ((uint32_t)(w >> 32)) {    // m >= 2^49: only a zero weight has a zero high word
+          const uint32_t u = hash32_3_split(x, (uint32_t)__ldg(elem(ids, k)), r, neg1) & 0xFFFFu;
+          v = straw2_quotient(__ldg(elem(t.g15, u)), w);
+        }
+      }
+      if (k == 0 || v < best) { best = v; win = k; }
+    }
+  }
+  return __ldg(elem(t.items + row, win));
+}
+
+template <bool Q64>
+__device__ __forceinline__ int descend_path(const DescentMap& t, int b, uint32_t x, uint32_t r,
+                                            int p, int depth, unsigned mask,
+                                            uint32_t neg1) {
   int item = 0;
   for (int d = 0; d < depth; ++d) {
-    item = straw2_win<1>(t, b, x, r, p, ((int_mask >> d) & 1u) ? __ldg(t.qidx + b) : -1);
+    item = descend_draw<Q64>(t, b, x, r, p, ((mask >> d) & 1u) ? __ldg(t.qidx + b) : -1, neg1);
     b = max(-1 - item, 0);
   }
-  out[i] = item;
+  return item;
+}
+
+// Thread (lane, r, p) writes cand[r, p, lane] and, for a leaf rule, its L leaf attempts
+// leaf[r, :, p, lane], drawn from the candidate's bucket with _candidates' sub-r and position:
+// firstn (r >> (vary_r - 1)) + f2 (f2 alone when vary_r is 0) at position p; indep
+// rep + r + numrep f2 at position rep = r % numrep.
+template <bool Q64>
+__global__ void __launch_bounds__(kThreads)
+crush_descend_kernel(DescentMap t, DescentGrid g, uint32_t neg1) {
+  const long long lane = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= g.n) return;
+  const int r = (int)blockIdx.y / g.p_count;
+  const int pi = (int)blockIdx.y - r * g.p_count;
+  const uint32_t x = (uint32_t)__ldg(g.xl + lane);
+  const int item = descend_path<Q64>(t, __ldg(g.roots + lane), x, (uint32_t)r,
+                                     min(pi, t.npos - 1), g.depth, g.int_mask, neg1);
+  g.cand[(long long)blockIdx.y * g.n + lane] = item;
+  if (g.l_count == 0) return;
+  int sub_r, lpos, step;
+  if (g.leaf_firstn) {
+    sub_r = g.vary_r ? r >> (g.vary_r - 1) : 0;
+    lpos = pi;
+    step = 1;
+  } else {
+    lpos = r % g.numrep;
+    sub_r = lpos + r;
+    step = g.numrep;
+  }
+  lpos = min(lpos, t.npos - 1);
+  const int lb = max(-1 - item, 0);
+  int* out = g.leaf + ((long long)r * g.l_count * g.p_count + pi) * g.n + lane;
+  for (int f2 = 0; f2 < g.l_count; ++f2) {
+    out[(long long)f2 * g.p_count * g.n] =
+        g.leaf_depth ? descend_path<Q64>(t, lb, x, (uint32_t)(sub_r + step * f2), lpos,
+                                         g.leaf_depth, g.leaf_mask, neg1)
+                     : item;
+  }
 }
 
 // ---- K7b ---------------------------------------------------------------------------------------
@@ -945,18 +1078,31 @@ inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kTh
 
 }  // namespace
 
-extern "C" int crush_descend_launch(const void* xs, const void* start, const void* rs,
-                                    const void* pos, void* out, long long n, const void* items,
-                                    const void* hash_ids, const void* sizes, const void* weights,
-                                    const void* qidx, const void* qtables, const void* g, int nb,
-                                    int s, int npos, int int_mask, int depth, void* stream) {
+extern "C" int crush_descend_launch(const void* xl, const void* roots, void* cand, void* leaf,
+                                    long long n, int r_count, int p_count, int l_count,
+                                    const void* items, const void* hash_ids, const void* sizes,
+                                    const void* magic, const void* qidx, const void* qtables,
+                                    const void* g15, const void* qitem, const void* q64, int nb,
+                                    int s, int npos, int depth, int int_mask, int leaf_depth,
+                                    int leaf_mask, int leaf_firstn, int vary_r, int numrep,
+                                    void* stream) {
+  if (r_count < 1 || p_count < 1 || (long long)r_count * p_count > 65535 || l_count < 0 ||
+      (l_count > 0 && leaf == nullptr) || (qitem == nullptr) != (q64 == nullptr) ||
+      (!leaf_firstn && numrep < 1))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  MapTables t{(const int*)items, (const int*)hash_ids, (const int*)sizes,
-              (const uint32_t*)weights, (const int*)qidx, (const int*)qtables,
-              (const long long*)g, nb, s, npos};
-  crush_descend_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)xs, (const int*)start, (const int*)rs, (const int*)pos, (int*)out, n, t,
-      (unsigned)int_mask, depth);
+  const DescentMap t{(const int*)items, (const int*)hash_ids, (const int*)sizes,
+                     (const unsigned long long*)magic, (const int*)qidx, (const int*)qtables,
+                     (const unsigned long long*)g15, (const int*)qitem, (const long long*)q64,
+                     nb, s, npos};
+  const DescentGrid g{(const int*)xl, (const int*)roots, (int*)cand, (int*)leaf, n, p_count,
+                      l_count, depth, leaf_depth, (unsigned)int_mask, (unsigned)leaf_mask,
+                      leaf_firstn, vary_r, numrep};
+  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)(r_count * p_count));
+  if (q64 != nullptr)
+    crush_descend_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(t, g, 0xFFFFFFFFu);
+  else
+    crush_descend_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(t, g, 0xFFFFFFFFu);
   return (int)cudaGetLastError();
 }
 

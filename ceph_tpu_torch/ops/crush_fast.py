@@ -9,12 +9,16 @@ there; every part the JAX module jits is a kernel of
 1. *Candidates* (topology only, cached per batch of x): for every x and
    every retry r the rule could consume, the full descent root -> failure
    domain (-> leaf), one straw2 draw per level.  ``crush_descend`` (K7a)
-   runs one flattened batch of lanes; the main descent, the middle steps
-   of a chained rule and the leaf attempts are calls of it on lanes the
-   torch glue broadcasts.  Draws are always exact: the i32 quotient table
-   of a level whose buckets have one uniform weight >= 0x10000, otherwise
-   the s64 quotient ``G[u] // w``.  So there is no float draw and no risk
-   flag from a draw.
+   is one launch per stage over the stage's parent lanes and its (R, P)
+   grid of retries and weight-set positions (``DescentSpec``); each thread
+   derives its lane from its index, and on the last stage of a leaf rule
+   it also draws its candidate's leaf attempts.  Draws are always exact:
+   the i32 quotient table of a level whose buckets have one uniform weight
+   >= 0x10000, otherwise ``G[u] // w``, which the kernel gathers from the
+   item's int64 quotient table on a map of at most ``Q64_MAX_TABLES``
+   distinct weights and otherwise takes as a multiply-high by the weight's
+   magic number (``straw2_magic``), and the plain version divides.  So
+   there is no float draw and no risk flag from a draw.
 2. *Resolution* (per weight vector): ``crush_resolve`` (K7b) replays the
    firstn/indep retry semantics over the cached candidates, one thread per
    x, and packs each x into one row ``[slots..., count | residual << 16]``.
@@ -47,6 +51,7 @@ before any launch.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -66,7 +71,7 @@ from ..crush.constants import (
 from ..crush.types import CrushMap
 from . import _build
 from .crush_kernels import (
-    MAX_REP, QTABLE_MIN_W, _SIGNATURES, CompiledCrushMap, compile_map,
+    G_EXACT, MAX_REP, QTABLE_MIN_W, _SIGNATURES, CompiledCrushMap, compile_map,
     crush_rule, crush_rule_plain_into, g_table, hash32_2, hash32_3,
     quotient_table)
 from .gf_pallas import LaunchCounter
@@ -147,29 +152,127 @@ def _level_frontiers(m: CrushMap, root: int, n_levels: int) -> List[List[int]]:
 
 # ---- K7a: the descent ---------------------------------------------------------
 
+# K7a's multiply-high form of a straw2 weight w: m | t << 58 with t =
+# ceil(log2 w) and m = ceil(2^(49 + t) / w) (< 2^51), so that floor(G / w)
+# is the high word of (G << 15) * m shifted right by t for every
+# 0 <= G < 2^49 (Granlund-Montgomery: m w - 2^(49 + t) < w <= 2^t); 0 for a
+# zero weight, whose draw is 2^62
+MAGIC_SHIFT = 58
+G_SHIFT = 15
+
+
+def straw2_magic(w: np.ndarray) -> np.ndarray:
+    """The multiply-high word of each u32 weight of ``w`` (uint64)."""
+    w = np.asarray(w, dtype=np.uint32)
+    out = np.zeros(w.shape, dtype=np.uint64)
+    for v in np.unique(w):
+        v = int(v)
+        if v:
+            t = (v - 1).bit_length()
+            m = -(-(1 << (49 + t)) // v)
+            out[w == v] = m | (t << MAGIC_SHIFT)
+    return out
+
+
+def straw2_quotient(g: int, word: int) -> int:
+    """floor(g / w) from w's multiply-high word, as K7a computes it."""
+    m = word & ((1 << MAGIC_SHIFT) - 1)
+    return (((g << G_SHIFT) * m) >> 64) >> (word >> MAGIC_SHIFT)
+
+
+# K7a draws a level without an i32 quotient table from one int64 table
+# floor(G[u] / w) per distinct weight (512 KiB each, a table index per
+# item) while the map has at most this many distinct nonzero weights, and
+# otherwise by the multiply-high.  ``chip_smoke.py --k7a-forms`` timed both
+# on the (n) map with 4 to 1000 tables (H100, PERF.md section 6): the
+# tables ~5% faster on the EC rule up to 48 of them (24 MiB), 13% slower
+# at 64 (32 MiB, past what L2 keeps), 2.5x slower at 1000
+Q64_MAX_TABLES = 48
+
+
+def item_quotient_tables(w: np.ndarray, max_tables=Q64_MAX_TABLES):
+    """(qitem, q64): each item's table index ((npos, nb, S) int32, -1 for a
+    zero weight) and the tables ((n, 65536) int64 floor(G[u] / w)) of the
+    u32 weights ``w``; None when they have more than ``max_tables``
+    distinct nonzero values (None: no limit)."""
+    w = np.asarray(w, dtype=np.uint32)
+    uniq = [int(v) for v in np.unique(w) if v]
+    if max_tables is not None and len(uniq) > max_tables:
+        return None
+    qitem = np.full(w.shape, -1, dtype=np.int32)
+    for i, v in enumerate(uniq):
+        qitem[w == v] = i
+    q64 = (np.stack([G_EXACT // np.int64(v) for v in uniq]) if uniq
+           else np.zeros((1, 0x10000), dtype=np.int64))
+    return qitem, q64
+
+
+@functools.lru_cache(maxsize=None)
+def g15_table(device: torch.device) -> torch.Tensor:
+    """G[u] << 15 for every 16-bit u, K7a's multiply-high operand."""
+    return torch.from_numpy(G_EXACT << np.int64(G_SHIFT)).to(device)
+
+
 @dataclass
 class DescentTables:
     """What K7a reads besides its lanes: the compiled map, each bucket's
-    quotient table index, the quotient tables, G, and per level whether
-    it draws from the tables (``int_levels``)."""
+    quotient table index, the quotient tables, per level whether it draws
+    from them (``int_levels``), G (the plain version divides it), and for
+    the kernel's other levels each item's int64 quotient table
+    (``item_quotient_tables``; None past ``Q64_MAX_TABLES`` weights) or
+    else G << 15 and each weight's multiply-high word (``magic``, (npos,
+    nb, S) int64 bits of ``straw2_magic``)."""
     cm: CompiledCrushMap
     qidx: torch.Tensor        # (nb,) int32
     qtables: torch.Tensor     # (n_tables, 65536) int32, or (1, 1) unused
     g: torch.Tensor           # (65536,) int64
     int_levels: Tuple[bool, ...]
+    g15: torch.Tensor         # (65536,) int64
+    magic: torch.Tensor       # (npos, nb, S) int64
+    qitem: Optional[torch.Tensor] = None   # (npos, nb, S) int32
+    q64: Optional[torch.Tensor] = None     # (n, 65536) int64
 
     def mask(self, base_level: int, depth: int) -> int:
         return sum(1 << d for d in range(depth)
                    if self.int_levels[base_level + d])
 
 
-def crush_descend_plain(x: torch.Tensor, start: torch.Tensor,
-                        r: torch.Tensor, pos: torch.Tensor,
-                        tabs: DescentTables, base_level: int,
-                        depth: int) -> torch.Tensor:
-    """(N,) lanes -> (N,) int32 items after ``depth`` straw2 draws from
-    bucket index ``start``; ``_descend`` / ``_straw2_int`` /
-    ``_straw2_exact64`` step by step (argmin: first index wins)."""
+@dataclass(frozen=True)
+class DescentSpec:
+    """One K7a launch over N parent lanes: the (R, P) grid of retries and
+    weight-set positions, the levels of the candidate draw, and the leaf
+    attempts drawn from each candidate: ``L`` of them (0: none), each
+    ``leaf_depth`` levels from level ``base_level + depth`` on (0: the
+    candidate is its own leaf), with firstn's sub-r ``(r >> (vary_r - 1))
+    + f2`` (``f2`` when vary_r is 0) at position p (the parent step's
+    outpos, mapper.c:561-562), or indep's ``rep + r + numrep * f2`` at
+    position ``rep = r % numrep``."""
+    R: int
+    P: int
+    base_level: int
+    depth: int
+    L: int = 0
+    leaf_depth: int = 0
+    leaf_firstn: bool = True
+    vary_r: int = 0
+    numrep: int = 1
+
+    def leaf_lanes(self, r: torch.Tensor, p: torch.Tensor):
+        """(sub-r of attempt 0, step per attempt, position) of lanes at
+        retry ``r`` and grid position ``p``."""
+        if self.leaf_firstn:
+            sub_r = (r >> (self.vary_r - 1) if self.vary_r
+                     else torch.zeros_like(r))
+            return sub_r, 1, p
+        rep = r % self.numrep
+        return rep + r, self.numrep, rep
+
+
+def _descend_lanes(x, start, r, pos, tabs: DescentTables, base_level: int,
+                   depth: int) -> torch.Tensor:
+    """(n,) flat lanes -> (n,) int32 items after ``depth`` straw2 draws
+    from bucket index ``start``: ``_descend`` / ``_straw2_int`` /
+    ``_straw2_exact64`` step by step (argmin: the first index wins)."""
     cm = tabs.cm
     S = cm.max_size
     lane = torch.arange(S, device=x.device)
@@ -199,6 +302,37 @@ def crush_descend_plain(x: torch.Tensor, start: torch.Tensor,
     return out
 
 
+def crush_descend_plain(xl: torch.Tensor, roots: torch.Tensor,
+                        tabs: DescentTables, spec: DescentSpec
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of K7a; the same contract as ``crush_descend``.
+    It flattens the grid into lanes and divides G by each weight."""
+    N = xl.shape[0]
+    dev = xl.device
+    R, P, L = spec.R, spec.P, spec.L
+    shape = (R, P, N)
+    x = xl.view(1, 1, N).expand(shape).reshape(-1)
+    start = roots.view(1, 1, N).expand(shape).reshape(-1)
+    r = torch.arange(R, dtype=torch.int64, device=dev).view(R, 1, 1).expand(
+        shape).reshape(-1)
+    p = torch.arange(P, dtype=torch.int64, device=dev).view(1, P, 1).expand(
+        shape).reshape(-1)
+    item = _descend_lanes(x, start, r, p, tabs, spec.base_level, spec.depth)
+    cand = item.view(R, P, N)
+    if not L:
+        return cand, None
+    if not spec.leaf_depth:
+        return cand, cand.unsqueeze(1).expand(R, L, P, N).contiguous()
+    sub_r, step, lpos = spec.leaf_lanes(r, p)
+    lb = (-1 - item.to(torch.int64)).clamp(min=0)
+    leaf = torch.empty((R, L, P, N), dtype=torch.int32, device=dev)
+    for f2 in range(L):
+        leaf[:, f2] = _descend_lanes(
+            x, lb, sub_r + step * f2, lpos, tabs, spec.base_level + spec.depth,
+            spec.leaf_depth).view(R, P, N)
+    return cand, leaf
+
+
 def _check_lanes(*ts: torch.Tensor) -> None:
     n = ts[0].shape
     for t in ts:
@@ -210,37 +344,52 @@ def _check_lanes(*ts: torch.Tensor) -> None:
             raise ValueError("lanes must be contiguous")
 
 
-def crush_descend(x: torch.Tensor, start: torch.Tensor, r: torch.Tensor,
-                  pos: torch.Tensor, tabs: DescentTables, base_level: int,
-                  depth: int) -> torch.Tensor:
-    """K7a on (N,) int32 lanes: x (u32 bits), start bucket index, r,
-    weight-set position.  A CPU tensor takes ``crush_descend_plain``; a
-    CUDA tensor launches the kernel on the current stream or raises."""
-    _check_lanes(x, start, r, pos)
-    if x.device.type == "cpu":
-        return crush_descend_plain(x, start, r, pos, tabs, base_level, depth)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"crush_descend: no kernel for device {x.device}")
+def crush_descend(xl: torch.Tensor, roots: torch.Tensor,
+                  tabs: DescentTables, spec: DescentSpec
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K7a over (N,) int32 parent lanes, x (u32 bits) and start bucket
+    index: cand (R, P, N) int32 and, when ``spec.L``, leaf (R, L, P, N)
+    int32 (else None).  A CPU tensor takes ``crush_descend_plain``; a CUDA
+    tensor launches the kernel on the current stream or raises: one thread
+    per (lane, r, p), which draws the candidate and then its leaf
+    attempts."""
+    _check_lanes(xl, roots)
+    if xl.device.type == "cpu":
+        return crush_descend_plain(xl, roots, tabs, spec)
+    if xl.device.type != "cuda":
+        raise RuntimeError(f"crush_descend: no kernel for device {xl.device}")
     cm = tabs.cm
-    if any(t.device != x.device for t in (start, r, pos, cm.items,
-                                           tabs.qtables, tabs.g)):
+    if any(t is not None and t.device != xl.device
+           for t in (roots, cm.items, tabs.qtables, tabs.g15, tabs.magic,
+                     tabs.qitem, tabs.q64)):
         raise ValueError("lanes and map tables must share one device")
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
+    if not 1 <= spec.R * spec.P <= 65535:
+        raise ValueError(f"grid R x P = {spec.R * spec.P} outside 1..65535")
+    N = xl.shape[0]
+    dev = xl.device
+    cand = torch.empty((spec.R, spec.P, N), dtype=torch.int32, device=dev)
+    leaf = (torch.empty((spec.R, spec.L, spec.P, N), dtype=torch.int32,
+                        device=dev) if spec.L else None)
+    if N == 0:
+        return cand, leaf
     lib = _build.load("crush_fast", _SIGNATURES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lb = spec.base_level + spec.depth
+    q64 = tabs.q64 is not None
     rc = lib.crush_descend_launch(
-        x.data_ptr(), start.data_ptr(), r.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), x.numel(), cm.items.data_ptr(),
-        cm.hash_ids.data_ptr(), cm.sizes.data_ptr(), cm.weights.data_ptr(),
-        tabs.qidx.data_ptr(), tabs.qtables.data_ptr(), tabs.g.data_ptr(),
-        cm.nbuckets, cm.max_size, cm.npos, tabs.mask(base_level, depth),
-        depth, stream)
+        xl.data_ptr(), roots.data_ptr(), cand.data_ptr(),
+        leaf.data_ptr() if spec.L else None, N, spec.R, spec.P, spec.L,
+        cm.items.data_ptr(), cm.hash_ids.data_ptr(), cm.sizes.data_ptr(),
+        tabs.magic.data_ptr(), tabs.qidx.data_ptr(), tabs.qtables.data_ptr(),
+        tabs.g15.data_ptr(), tabs.qitem.data_ptr() if q64 else None,
+        tabs.q64.data_ptr() if q64 else None, cm.nbuckets, cm.max_size,
+        cm.npos, spec.depth, tabs.mask(spec.base_level, spec.depth),
+        spec.leaf_depth, tabs.mask(lb, spec.leaf_depth),
+        int(spec.leaf_firstn), spec.vary_r, spec.numrep, stream)
     if rc != 0:
         raise RuntimeError(f"crush_descend_launch failed: cudaError {rc}")
     descend_launches.n += 1
-    return out
+    return cand, leaf
 
 
 # ---- K7b: the resolution --------------------------------------------------------
@@ -717,41 +866,51 @@ class FastRule:
         dev = self.device
         qt = (np.stack(tables) if tables
               else np.zeros((1, 1), dtype=np.int32))
+        magic = straw2_magic(self.C._weights_np).view(np.int64)
+        q64 = item_quotient_tables(self.C._weights_np)
+        if q64 is not None:
+            q64 = [torch.from_numpy(t).to(dev) for t in q64]
         return DescentTables(self.C, torch.from_numpy(qidx).to(dev),
                              torch.from_numpy(qt).to(dev), g_table(dev),
-                             tuple(lvl_int))
+                             tuple(lvl_int), g15_table(dev),
+                             torch.from_numpy(magic).to(dev),
+                             *(q64 or (None, None)))
 
     # ---- candidate phase (topology only; cached across epochs) -------------
-    @staticmethod
-    def _lanes(xl, roots, R: int, P: int):
-        """Flatten (R, P, N) lanes: x, start bucket, r, position."""
-        N = xl.shape[0]
-        dev = xl.device
-
-        def flat(t):
-            return t.expand(R, P, N).reshape(-1).contiguous()
-        r = torch.arange(R, dtype=torch.int32, device=dev)
-        p = torch.arange(P, dtype=torch.int32, device=dev)
-        return (flat(xl.view(1, 1, N)), flat(roots.view(1, 1, N)),
-                flat(r.view(R, 1, 1)), flat(p.view(1, P, 1)))
-
     def _mid_candidates(self, st: dict, xl, roots, valid):
         """Candidates and the collision-only resolution of one middle
         choose step over N parent lanes: picks (N, slots), risky (N,)."""
         n, rounds, P = st["numrep"], st["n_rounds"], st["posP"]
         R = n + rounds - 1 if st["firstn"] else n * rounds
-        xf, bf, rf, pf = self._lanes(xl, roots, R, P)
-        item = self._descend(xf, bf, rf, pf, self.tables, st["base_level"],
-                             st["depth"])
+        cand, _ = self._descend(xl, roots, self.tables, DescentSpec(
+            R, P, st["base_level"], st["depth"]))
         spec = ResolveSpec(numrep=n, n_rounds=rounds, tries=st["tries"],
                            firstn=st["firstn"], P=P)
         none = torch.zeros(1, dtype=torch.int32, device=xl.device)
-        return self._resolve(spec, item.view(R, P, -1), None, xl, valid,
+        return self._resolve(spec, cand, None, xl, valid,
                              torch.zeros_like(valid), none, 1, st["slots"],
                              1)
 
+    def descent_spec(self) -> DescentSpec:
+        """The last stage's K7a launch: the failure-domain candidates and,
+        for a leaf rule, their leaf attempts."""
+        R = (self.numrep + self.n_rounds - 1 if self.firstn
+             else self.numrep * self.n_rounds)
+        L = leaf_depth = 0
+        if self.leafy:
+            L = self.n_leaf
+            # chooseleaf over devices: every leaf attempt is the item itself
+            if self.leaf_depth or self.target_type != 0:
+                leaf_depth = self.leaf_depth or 1
+        return DescentSpec(R, self.posP, self.base_level, self.last_depth,
+                           L=L, leaf_depth=leaf_depth,
+                           leaf_firstn=self.firstn, vary_r=self.vary_r,
+                           numrep=self.numrep)
+
     def _candidates(self, xd: torch.Tensor):
-        """One flattened descent over all (x, parent, retry) lanes.
+        """The candidate phase: the middle steps' descents and collision
+        passes, then one K7a launch over all (x, parent, retry, position)
+        lanes that draws the candidates and their leaf attempts.
 
         Returns cand (R, P, N) failure-domain items, leaf (R, L, P, N)
         leaf items (None when not leafy), the initial per-lane risk (N,),
@@ -771,46 +930,12 @@ class FastRule:
             flat = sel.reshape(-1)
             valid = valid.repeat_interleave(n) & (flat != NONE)
             roots = (-1 - flat).clamp(min=0)
-        N = X * self.parents
-        P = self.posP
-        R = (self.numrep + self.n_rounds - 1 if self.firstn
-             else self.numrep * self.n_rounds)
-        xf, root, rf, pf = self._lanes(xl, roots, R, P)
-        item = self._descend(xf, root, rf, pf, self.tables, self.base_level,
-                             self.last_depth)
-        cand = item.view(R, P, N)
-        if P == 1:
+        cand, leaf = self._descend(xl, roots, self.tables,
+                                   self.descent_spec())
+        if self.posP == 1:
             # without positions a lane's middle-step risk rolls up to its x
             risky = risky.view(X, self.parents).any(1).repeat_interleave(
                 self.parents)
-        L = self.n_leaf
-        if not self.leafy:
-            leaf = None
-        elif self.leaf_depth == 0 and self.target_type == 0:
-            # chooseleaf over devices: every leaf attempt is the item itself
-            leaf = cand.unsqueeze(1).expand(R, L, P, N).contiguous()
-        else:
-            M = R * P * N
-            if self.firstn:
-                sub_r = (rf >> (self.vary_r - 1) if self.vary_r
-                         else torch.zeros_like(rf))
-                # leaf draw position = the parent step's outpos
-                # (mapper.c:561-562), the materialised p axis
-                lpos = pf
-            else:
-                rep = rf % self.numrep
-                sub_r = rep + rf      # + numrep * ft2 per attempt below
-                lpos = rep
-            ft2 = torch.arange(L, dtype=torch.int32, device=dev)[:, None]
-            step = 1 if self.firstn else self.numrep
-            rl = (sub_r[None, :] + step * ft2).reshape(-1)
-
-            def rep_l(t):
-                return t[None, :].expand(L, M).reshape(-1).contiguous()
-            lv = self._descend(rep_l(xf), rep_l((-1 - item).clamp(min=0)),
-                               rl, rep_l(lpos), self.tables, self.depth,
-                               self.leaf_depth or 1)
-            leaf = lv.view(L, R, P, N).permute(1, 0, 2, 3).contiguous()
         return cand, leaf, risky, valid, xl
 
     # ---- resolution phase (per weight vector) ------------------------------

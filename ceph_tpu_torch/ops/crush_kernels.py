@@ -71,8 +71,9 @@ _LL = ctypes.c_longlong
 # every entry point of csrc/crush_fast.cu (K6 here, K7a/K7b in crush_fast.py)
 _SIGNATURES = {
     "crush_descend_launch": (
-        [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-         _I, _I, _I, _I, _I, _VP], _I),
+        [_VP, _VP, _VP, _VP, _LL, _I, _I, _I,
+         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP], _I),
     "crush_resolve_launch": (
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],

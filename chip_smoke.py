@@ -94,8 +94,9 @@ m=4's ``create_rule`` (chooseleaf indep, size 12):
    rows of the four configurations at 100000 x under four weight vectors
    (all in, one out, ten out, a random mix), and of the small shapes
    (chained firstn/indep/chooseleaf rules, choose_args with 3 positions, a
-   zero-weight host, a map with no quotient-table level) at 4096 x, whose
-   ``map_batch`` also goes against ``crush_do_rule``;
+   zero-weight host, a map with no quotient-table level, and (since K7a's
+   redesign) (n)-style host weights with weights below 0x10000 among them)
+   at 4096 x, whose ``map_batch`` also goes against ``crush_do_rule``;
 4c. the main path, counts reset just before: per configuration
    ``compile_fast_rule(...).map_batch`` of 100000 x, then 10 epochs, epoch e
    with OSD (7e+3) % 1000 out (the K7a count must not move on them); an
@@ -142,9 +143,8 @@ kept for a whole list of x) adds:
 5c. K6 over all x in both forms, in turns; the most straw2 items one
    flagged x draws (``crush_rule_plain``'s ``draws``);
    K7c (the changed-row extraction, torch) over epoch 10 against epoch 9
-   by graph replay, against its byte bound; K7a's bound on levels that
-   draw on the s64 divide counts the divide's instructions in its SASS;
-   K6's ptxas registers, stack and spill in the ``kernels`` line.
+   by graph replay, against its byte bound; K6's ptxas registers, stack
+   and spill in the ``kernels`` line.
 
 The legacy slice (K8, ``csrc/crush_legacy.cu``: the legacy-tunables mapper
 of ``ops/crush_legacy.py``) adds, after 5c, on (L): 1000
@@ -182,12 +182,33 @@ machine per group between draws) adds:
 5l. the ptxas registers, stack and spill of both instances in the
    ``kernels`` line.
 
+K7a's redesign (one launch per stage: a thread per (lane, r, position)
+derives its lanes from its index and draws its candidate's leaf attempts;
+the hash split across the integer and FMA pipes; per-item int64 quotient
+tables, or a multiply-high, in place of the s64 divide) adds, before 3c:
+
+3h. the hash alone (``csrc/crush_probe.cu``): ``hash32_3`` and K7a's
+   ``hash32_3_split`` (part of each mix on the FMA pipe) over 2^22 x 256
+   hashes, both forms' folded words equal, timed in turns, with their SASS
+   ALU / FMA counts per hash and thread-instructions per SM per clock; K7a's SASS
+   must call no subroutine.  In 5c K7a's launches are also timed, in the
+   same turns, in the draw form K7a does not take (every level on the
+   multiply-high on (u); the multiply-high in place of the per-item int64
+   quotient tables on (n)), and the SASS class counts of every kernel are
+   logged in phase 2.
+
 ``python3 chip_smoke.py --k6-parent DIR`` builds and checks nothing else:
 after phases 1-2 it times K6 of this tree in turns with K6 of the checkout
 of the port under DIR (``k6_parent_turns``, one log line per configuration)
 and prints the same last line.  ``--k8-parent DIR`` does the same for K8
 (``k8_parent_turns``): (L)'s 100000 x for L1 and L2 at epochs 0, 10 and H,
-both trees' rows equal.
+both trees' rows equal.  ``--k7a-parent DIR`` (``k7a_parent_turns``) times
+the candidate phase and its K7a launches of both trees in turns on the four
+configurations at 100000 x, both trees' cand and leaf tables equal.
+``--k7a-forms`` (``k7a_form_turns``) times K7a's per-item int64 quotient
+tables against its multiply-high in turns on (n) maps of 4 to 1000
+distinct weights, both forms' tables equal: the measurement behind
+``Q64_MAX_TABLES``.
 
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -327,13 +348,20 @@ def ptxas_usage(lines):
     return usage
 
 
+# SASS opcodes that issue on the integer (ALU) pipe: 16 lanes per SM
+# sub-partition, one warp instruction every other clock; IMAD* runs on the
+# FMA pipe
+ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA")
+
+
 def sass_counts(so_path, nvcc):
-    """{kernel: {"POPC": n, "LDS": n, "instructions": n, "subroutines":
-    {address: n}}} from the SASS of a built library (static counts: each
-    instruction once, loops not multiplied; a subroutine the compiler
-    emits inside a kernel and reaches by ``CALL.REL``, such as the s64
-    divide, counted from its address to its ``RET``), or None when the
-    toolkit has no ``cuobjdump``."""
+    """{kernel: {"POPC": n, "LDS": n, "instructions": n, "alu": n, "fma":
+    n, "opcodes": {head: n}, "subroutines": {address: n}}} from the SASS of
+    a built library (static counts: each instruction once, loops not
+    multiplied; ``alu`` the ALU_OPS, ``fma`` the IMAD forms; a subroutine
+    the compiler emits inside a kernel and reaches by ``CALL.REL``, such
+    as the s64 divide, counted from its address to its ``RET``), or None
+    when the toolkit has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(nvcc or ""), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
@@ -344,17 +372,24 @@ def sass_counts(so_path, nvcc):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = kernel_name(m.group(1))
-            counts[name] = {"POPC": 0, "LDS": 0, "instructions": 0}
+            counts[name] = {"POPC": 0, "LDS": 0, "instructions": 0,
+                            "alu": 0, "fma": 0, "opcodes": {}}
             code[name] = []
             continue
         ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_.]*)(.*)", line)
         if not name or not ins:
             continue
-        counts[name]["instructions"] += 1
+        c = counts[name]
+        c["instructions"] += 1
         head = ins.group(2).split(".")[0]
         if head in ("POPC", "LDS"):
-            counts[name][head] += 1
+            c[head] += 1
+        if head in ALU_OPS:
+            c["alu"] += 1
+        elif head.startswith("IMAD"):
+            c["fma"] += 1
+        c["opcodes"][head] = c["opcodes"].get(head, 0) + 1
         code[name].append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
     for name, listing in code.items():
         subs = {}
@@ -371,13 +406,6 @@ def sass_counts(so_path, nvcc):
                 subs[target.group(1)] = n
         counts[name]["subroutines"] = subs
     return counts
-
-
-def div64_instructions(sass, kernel: str):
-    """The s64 divide's instructions in ``kernel``'s SASS: its longest
-    ``CALL.REL`` subroutine (K7a calls no other), or None."""
-    subs = ((sass or {}).get(kernel) or {}).get("subroutines", {})
-    return max(subs.values()) if subs else None
 
 
 def wall_s(fn, runs: int = RUNS, warmup: int = 1) -> float:
@@ -1009,17 +1037,94 @@ CRUSH_EPOCHS = 10
 OSDMAP_PG_NUM = {"rep": 65536, "ec": 32768}
 OSDMAP_SAMPLE = 2048              # PGs per pool held against the scalar path
 CHECK_PROCS = 7                   # host checks beside the main process
-# K7a instructions per straw2 draw, at the fewest the card can take: hash32_3
+# Instructions per straw2 draw, at the fewest the card can take: hash32_3
 # (the seed XORs as two 3-input logic ops, then 5 mixes of 9 lines, each a
 # 3-input add, a shift and an XOR), the 16-bit mask, the table gather, the
-# compare and the select
+# compare and the select.  The bound of K7a, K6 and K8 counts them at
+# INSTR_PER_S.  It stays so after the hash probe (3h): hash32_3 as ptxas
+# compiles it runs at the integer pipe's 64 thread-instructions per SM per
+# clock (120 of its 140 SASS instructions per hash issue there), but the
+# split form K7a draws with runs its 173 at ~101, past the integer pipe's
+# rate, so the same work is not bound by that pipe.  Neither form reaches
+# the full issue rate (128): the hash alone measured 0.58 (hash32_3) and
+# 0.65 (the split) of this bound on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6)
 OPS_PER_DRAW = 2 + 5 * 9 * 3 + 4
+# a draw on a level without an i32 quotient table (K7a's per-item int64
+# table, or its multiply-high) adds the 64-bit compare and select and the
+# item's table index; the multiply-high's product is not counted: the
+# bound counts the work at its fewest instructions
+WIDE_DRAW_OPS = 3
 # the card's instruction rate: 132 SMs x 4 schedulers x one warp
-# instruction (32 lanes) per clock at 1.98 GHz, whichever pipe runs it.  The
-# integer pipe alone (INT32_OPS_PER_S, half this) is no bound for K7a: the
-# compiler moves adds onto the FMA pipe (IMAD), and K7a's first chip run
-# beat that rate
+# instruction (32 lanes) per clock at 1.98 GHz, whichever pipe runs it; the
+# integer pipe (IADD3, LOP3, SHF, ...) takes half of it, IMAD the FMA pipe
 INSTR_PER_S = 132 * 4 * 32 * 1.98e9
+# the hash probe's forms, by its kernel's SPLIT argument
+HASH_FORMS = ("hash32_3", "hash32_3_split")
+
+
+HASH_PROBE_THREADS = 1 << 22     # threads of the hash probe, n_id ids each
+HASH_PROBE_IDS = 256
+HASH_PROBE_UNROLL = 16            # kProbeUnroll of csrc/crush_probe.cu
+
+
+def sm_clock_hz() -> float:
+    """The card's SM clock now, from nvidia-smi (MHz -> Hz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def hash_probe(dev, sass, sm_count) -> dict:
+    """3h: the rjenkins hash alone (``csrc/crush_probe.cu``), ``hash32_3``
+    and K7a's ``hash32_3_split``, each over 2^22 x 256 (x, id, r): both
+    forms' XOR-folded words equal; each form's time (CUDA events, in turns,
+    3 launches per sample), hashes/s, and its SASS per hash (the kernel's
+    static ALU / FMA / all counts over the 16 hashes of its loop step, loop
+    overhead included) times hashes/s as thread-instructions per SM per
+    clock at the clock read right after."""
+    import ctypes
+    from ceph_tpu_torch.ops import _build
+    I, VP = ctypes.c_int, ctypes.c_void_p
+    lib = _build.load("crush_probe", {
+        "crush_hash_probe_launch": ([I, VP, ctypes.c_longlong, I, I, VP], I)})
+    outs = [torch.empty(HASH_PROBE_THREADS, dtype=torch.int32, device=dev)
+            for _ in HASH_FORMS]
+
+    def run(f):
+        def go():
+            rc = lib.crush_hash_probe_launch(
+                f, outs[f].data_ptr(), HASH_PROBE_THREADS, HASH_PROBE_IDS, 7,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"crush_hash_probe_launch failed: {rc}")
+        return go
+    fns = [run(f) for f in range(len(HASH_FORMS))]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    if not torch.equal(outs[1], outs[0]):
+        raise AssertionError("hash32_3_split != hash32_3")
+    ms = turns_ms(fns, runs=5, warmup=1, reps=3)
+    clock = sm_clock_hz()
+    hashes = HASH_PROBE_THREADS * HASH_PROBE_IDS
+    per_fn = (sass or {}).get("crush_probe") or {}
+    forms = {}
+    for f, form in enumerate(HASH_FORMS):
+        c = per_fn.get(f"crush_hash_probe_kernel<{f}>", {})
+        per_hash = {k: c[k] / HASH_PROBE_UNROLL
+                    for k in ("alu", "fma", "instructions") if k in c}
+        rate = hashes / (ms[f] / 1e3)
+        entry = {"ms": ms[f], "hashes_per_s": rate, "sass_per_hash": per_hash}
+        for k, v in per_hash.items():
+            entry[f"{k}_per_sm_clk"] = rate * v / sm_count / clock
+        forms[form] = entry
+        log(f"hash probe {form} " + json.dumps(entry))
+    log(f"hash probe: the split at {ms[1] / ms[0]:.3f} of hash32_3's time, "
+        f"{clock / 1e6:.0f} MHz")
+    return {"forms": forms, "clock_hz": clock, "hashes": hashes,
+            "sm_count": sm_count}
 
 
 def _do_rule_rows(args):
@@ -1039,13 +1144,15 @@ def _pg_rows(args):
     return [m.pg_to_up_acting_osds(pg_t(pool_id, int(ps))) for ps in pss]
 
 
-def crush_remap_map(uniform: bool):
+def crush_remap_map(uniform: bool, distinct: int = 0):
     """measure_crush_remap's map (ceph_tpu/bench/workloads.py:1838-1861)
     through the port's CrushWrapper: 1000 OSDs in 50 hosts of 20, straw2,
     jewel tunables, (u) weights 0x10000 or (n) 0x8000 x {1..4} from
     default_rng(7).  Rules: ``data`` (chooseleaf firstn over hosts, size 3)
     and the one jerasure k=8 m=4's create_rule adds (chooseleaf indep over
-    hosts, size 12)."""
+    hosts, size 12).  With ``distinct`` the OSD weights instead take that
+    many distinct values from 0x8000 to 0x20000, spread over the OSDs by a
+    permutation from default_rng(7)."""
     from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
     from ceph_tpu_torch.ec import create_erasure_code
     cw = CrushWrapper()
@@ -1053,10 +1160,14 @@ def crush_remap_map(uniform: bool):
     cw.set_type_name(10, "root")
     cw.set_tunables_profile("jewel")
     rng_w = np.random.default_rng(7)
+    if distinct:
+        vals = np.linspace(0x8000, 0x20000, distinct).astype(np.int64)
+        spread = vals[rng_w.permutation(CRUSH_OSDS) % distinct]
     hosts = []
     for h in range(CRUSH_OSDS // CRUSH_PER_HOST):
         osds = list(range(h * CRUSH_PER_HOST, (h + 1) * CRUSH_PER_HOST))
         ws = ([0x10000] * CRUSH_PER_HOST if uniform else
+              [int(spread[o]) for o in osds] if distinct else
               [int(v) * 0x8000
                for v in rng_w.integers(1, 5, size=CRUSH_PER_HOST)])
         hosts.append(cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"host{h}", osds,
@@ -1154,6 +1265,17 @@ def small_crush_cases():
     cases.append(("no_quotient_levels", cw, n,
                   cw.add_simple_rule("data", "default", "host",
                                      mode="firstn"), 3, None))
+    # (n)-style host weights with weights below 0x10000 among them, more
+    # distinct weights (40 OSD weights and the hosts' sums) than K7a keeps
+    # int64 tables for: the multiply-high at small and large shifts
+    mixed = [0x8000, 0x10000, 0x18000, 0x20000, 0x1234, 0xFFFF, 0x7FFF,
+             0x10001, 0x3, 0x8001, 0xFFFE, 0x20001] + [
+                 0x9000 + 0x1111 * k for k in range(28)]
+    cw, n = _small_map(12, 4, lambda h, i: mixed[(4 * h + i) % 40])
+    for mode in ("firstn", "indep"):
+        cases.append((f"mixed_low_weights_{mode}", cw, n,
+                      cw.add_simple_rule(mode, "default", "host", mode=mode),
+                      3, None))
     return cases
 
 
@@ -1494,46 +1616,98 @@ def straw2_host_times(calls: int = 200, repeats: int = 5) -> dict:
             "numpy_min": mapper.STRAW2_NUMPY_MIN}
 
 
-def _draws_per_lane(fr, base_level, depth, s64_only=False):
-    """Items one lane of a K7a call draws: the bucket sizes of its levels
+def _draws_per_lane(fr, base_level, depth, wide_only=False):
+    """Items one lane of a K7a path draws: the bucket sizes of its levels
     (each level's frontier buckets share one size in these maps; the
-    widest is taken otherwise); with ``s64_only`` only the levels that
-    draw on the s64 divide."""
+    widest is taken otherwise); with ``wide_only`` only the levels that
+    draw on a 64-bit quotient (no i32 quotient table)."""
     m = fr.C.map
     ints = fr.integer_exact_levels
     return sum(max(m.bucket(b).size for b in fr.level_frontiers[base_level
                                                                  + d])
                for d in range(depth)
-               if not (s64_only and ints[base_level + d]))
+               if not (wide_only and ints[base_level + d]))
 
 
-def crush_times(drive_rules, dev, div64=None):
+def k7a_draws(fr, n, spec, wide_only=False):
+    """Items one K7a launch of ``spec`` over ``n`` parent lanes draws: per
+    (lane, r, p) thread the candidate's levels, then L leaf attempts."""
+    per = _draws_per_lane(fr, spec.base_level, spec.depth, wide_only)
+    if spec.L and spec.leaf_depth:
+        per += spec.L * _draws_per_lane(fr, spec.base_level + spec.depth,
+                                        spec.leaf_depth, wide_only)
+    return n * spec.R * spec.P * per
+
+
+def record_descents(fr, xd):
+    """The K7a calls of one candidate phase of ``fr`` over ``xd``: their
+    arguments, to replay."""
+    calls = []
+    orig = fr._descend
+
+    def record(*a):
+        calls.append(a)
+        return orig(*a)
+    fr._descend = record
+    try:
+        fr._candidates(xd)
+    finally:
+        fr._descend = orig
+    return calls
+
+
+def k7a_alternative(fr, calls):
+    """The draw form K7a does not take, on one configuration's launches,
+    for the timing of step 3: where every level draws on an i32 quotient
+    table ((u)), the same launches with every level on the multiply-high;
+    where a level draws on per-item int64 quotient tables ((n)), the same
+    launches with the multiply-high there.  Returns (what, a function
+    running them), after holding their outputs equal to the path's."""
+    import dataclasses
+    from ceph_tpu_torch.ops import crush_fast as cf
+    tabs = dataclasses.replace(fr.tables, qitem=None, q64=None)
+    if all(fr.integer_exact_levels):
+        tabs = dataclasses.replace(
+            tabs, int_levels=(False,) * len(tabs.int_levels))
+        what = "every_level_mulhi"
+    elif fr.tables.q64 is not None:
+        what = "mulhi"
+    else:
+        raise AssertionError("no alternative draw form to time")
+
+    def run():
+        return [cf.crush_descend(a[0], a[1], tabs, a[3]) for a in calls]
+    for (c1, l1), (c2, l2) in zip(run(), [cf.crush_descend(*a)
+                                          for a in calls]):
+        if not (torch.equal(c1, c2) and (l1 is None) == (l2 is None)
+                and (l1 is None or torch.equal(l1, l2))):
+            raise AssertionError(f"K7a {what} != the path's tables")
+    return what, run
+
+
+def crush_times(drive_rules, dev, wide_ops=0):
     """5c: K7a over one full candidate phase per configuration (each of its
-    launches replayed on the same lanes), K7b per epoch, and their plain
-    versions; CUDA events, 10 launches per sample, medians.  K7b's byte
-    bound counts what this epoch's resolve reads: the cand (and leaf)
-    entries of the (slot, round) pairs it evaluates, which the plain
-    version counts, the per-lane inputs, the weights and the rows."""
+    launches replayed on the same lanes, in turns with the phase and with
+    the draw form K7a does not take, ``k7a_alternative``), K7b per epoch,
+    and their plain versions; CUDA events, 10 launches per sample, medians.
+    K7a's bound counts OPS_PER_DRAW per item drawn plus ``wide_ops`` per
+    draw on a 64-bit quotient (a level without an i32 table).  K7b's byte bound counts what this epoch's resolve
+    reads: the cand (and leaf) entries of the (slot, round) pairs it
+    evaluates, which the plain version counts, the per-lane inputs, the
+    weights and the rows."""
     from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
     times = {}
     xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
     for name, (fr, _, _, w) in drive_rules.items():
-        calls = []
-        orig = fr._descend
-
-        def record(*a):
-            calls.append(a)
-            return orig(*a)
-        fr._descend = record
-        fr._candidates(xd)
-        fr._descend = orig
-        draws = sum(a[0].numel() * _draws_per_lane(fr, a[5], a[6])
-                    for a in calls)
-        s64_draws = sum(a[0].numel() * _draws_per_lane(fr, a[5], a[6], True)
-                        for a in calls)
-        cand_ms, k7a_ms = turns_ms([
+        calls = record_descents(fr, xd)
+        draws = sum(k7a_draws(fr, a[0].numel(), a[3]) for a in calls)
+        wide_draws = sum(k7a_draws(fr, a[0].numel(), a[3], True)
+                          for a in calls)
+        alt, alt_run = k7a_alternative(fr, calls)
+        cand_ms, k7a_ms, alt_ms = turns_ms([
             lambda: fr._candidates(xd),
-            lambda: [cf.crush_descend(*a) for a in calls]], reps=REPS)
+            lambda: [cf.crush_descend(*a) for a in calls], alt_run],
+            reps=REPS)
         k7a_plain = cuda_ms(lambda: [cf.crush_descend_plain(*a)
                                      for a in calls], runs=3, warmup=1)
         wd = torch.from_numpy(w.view(np.int32)).to(dev)
@@ -1583,7 +1757,7 @@ def crush_times(drive_rules, dev, div64=None):
         k7b_plain = cuda_ms(lambda: cf.crush_resolve_plain(
             fr.spec, cand, leaf, xl, valid, risk0, wd, fr.parents,
             fr.result_max, 0), runs=3, warmup=1)
-        ops = draws * OPS_PER_DRAW + s64_draws * (div64 or 0)
+        ops = draws * OPS_PER_DRAW + wide_draws * wide_ops
         rows = CRUSH_X * (fr.result_max + 1) * 4
         lane_bytes = sum(t.numel() * t.element_size()
                          for t in (risk0, valid, xl, wd))
@@ -1600,9 +1774,10 @@ def crush_times(drive_rules, dev, div64=None):
         times[name] = {
             "k7a_launches_per_phase": len(calls),
             "k7a_lanes": sum(a[0].numel() for a in calls),
-            "k7a_draws": draws, "k7a_s64_draws": s64_draws,
-            "k7a_div64_instructions": div64, "k7a_ops": ops,
+            "k7a_draws": draws, "k7a_wide_draws": wide_draws,
+            "k7a_wide_ops": wide_ops, "k7a_ops": ops,
             "candidate_phase_ms": cand_ms, "k7a_ms": k7a_ms,
+            "k7a_alternative": alt, "k7a_alternative_ms": alt_ms,
             "k7a_plain_ms": k7a_plain,
             "k7a_bound_ms": ops / INSTR_PER_S * 1e3,
             "k7b_ms": k7b_ms, "k7b_host_launch_ms": k7b_host_ms,
@@ -1667,14 +1842,24 @@ def tester_phase(cw, rules, dev) -> dict:
     return out
 
 
-def crush_slice(dev, div64=None) -> dict:
-    """Phases 3c, 4c and 5c of the CRUSH slice on ``dev``; returns what
-    they measured ("launches", "max_abs_err", "times", ...).  ``div64``:
-    the s64 divide's instructions in K7a's SASS, for its bound."""
-    # -- 3c. K7a / K7b against their plain versions ---------------------------
+def crush_slice(dev, sass, sm_count) -> dict:
+    """Phases 3h, 3c, 4c and 5c of the CRUSH slice on ``dev``; returns what
+    they measured ("launches", "max_abs_err", "times", "hash_probe",
+    ...).  ``sass``: ``sass_counts`` of every built source."""
     import multiprocessing
     from ceph_tpu_torch.ops import crush_fast, crush_kernels
     t_crush = time.perf_counter()
+    # -- 3h. the hash alone, in its forms -----------------------------------
+    probe = hash_probe(dev, sass, sm_count)
+    # K7a's SASS: no subroutine (the s64 divide is gone), its class counts
+    k7a_sass = {n: {k: c[k] for k in ("instructions", "alu", "fma",
+                                      "subroutines")}
+                for n, c in ((sass or {}).get("crush_fast") or {}).items()
+                if n.startswith("crush_descend_kernel")}
+    log(f"K7a SASS: {json.dumps(k7a_sass)}")
+    if any(c["subroutines"] for c in k7a_sass.values()):
+        raise AssertionError("K7a calls a subroutine (an s64 divide?)")
+    # -- 3c. K7a / K7b against their plain versions ---------------------------
     maps = {"u": crush_remap_map(True), "n": crush_remap_map(False)}
     configs = [(f"{k}_{mode}", cw, rno, size)
                for k, (cw, rules) in maps.items()
@@ -1744,9 +1929,11 @@ def crush_slice(dev, div64=None) -> dict:
     crush["tester"] = tester_phase(*maps["u"], dev)
 
     # -- 5c. CRUSH kernel times -------------------------------------------------
-    ct = crush_times(drive_rules, dev, div64)
+    ct = crush_times(drive_rules, dev, WIDE_DRAW_OPS)
     del drive_rules
     crush["times"] = ct
+    crush["hash_probe"] = probe
+    crush["k7a_sass"] = k7a_sass
     crush["seconds"] = time.perf_counter() - t_crush
     log(f"crush phases took {crush['seconds']:.1f} s")
     return crush
@@ -1830,6 +2017,106 @@ def k6_parent_turns(parent_dir, dev) -> dict:
             out[name]["flagged_x"] = int(n_live)
             log(f"k6 against {parent_dir} {name}: " + json.dumps(out[name]))
             del fr, work, rows
+    return out
+
+
+def k7a_parent_turns(parent_dir, dev) -> dict:
+    """``--k7a-parent DIR``: K7a and the candidate phase of this tree in
+    turns with those of another checkout of the port under ``DIR`` (its
+    package loaded under another name, its kernels built from its own
+    sources into its own build directory), on the four configurations at
+    100000 x: the phase (``FastRule._candidates``), then its K7a launches
+    alone, replayed on the same lanes, each in the order other tree, this
+    tree, this tree, other tree, 10 back to back per sample.  Both trees'
+    cand and leaf tables must be equal."""
+    import importlib
+    from ceph_tpu_torch.ops import crush_fast as cf
+    load_parent_port(parent_dir, "k7a_parent")
+    pf = importlib.import_module("k7a_parent.ops.crush_fast")
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    out = {}
+    for k, uniform in (("u", True), ("n", False)):
+        cw, rules = crush_remap_map(uniform)
+        for mode, (rno, size) in rules.items():
+            name = f"{k}_{mode}"
+            fr = cf.compile_fast_rule(cw.crush, rno, size, device=dev)
+            pfr = pf.compile_fast_rule(cw.crush, rno, size, device=dev)
+            got, want = fr._candidates(xd), pfr._candidates(xd)
+            for a, b in zip(got[:2], want[:2]):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"K7a {name}: trees disagree")
+            del got, want
+            calls, pcalls = record_descents(fr, xd), record_descents(pfr, xd)
+
+            def launches(mod, cs):
+                return lambda: [mod.crush_descend(*a) for a in cs]
+            other, this = (lambda: pfr._candidates(xd),
+                           lambda: fr._candidates(xd))
+            phase = turns_ms([other, this, this, other], reps=REPS)
+            other, this = launches(pf, pcalls), launches(cf, calls)
+            k7a = turns_ms([other, this, this, other], reps=REPS)
+            out[name] = {
+                "phase": {"other_tree_ms": [phase[0], phase[3]],
+                          "ms": [phase[1], phase[2]]},
+                "k7a": {"other_tree_ms": [k7a[0], k7a[3]],
+                        "ms": [k7a[1], k7a[2]],
+                        "other_tree_launches": len(pcalls),
+                        "launches": len(calls)}}
+            log(f"k7a against {parent_dir} {name}: " + json.dumps(out[name]))
+            del fr, pfr, calls, pcalls
+    return out
+
+
+# int64 quotient tables (distinct nonzero weights: the OSDs' and the hosts'
+# one) of the (n) maps ``--k7a-forms`` times K7a's two draw forms on; K7a
+# takes the tables up to Q64_MAX_TABLES of them
+K7A_FORM_TABLES = (4, 16, 32, 48, 64, 128, 256, 1000)
+
+
+def k7a_form_turns(dev) -> dict:
+    """``--k7a-forms``: K7a's two draws for a level without an i32 quotient
+    table, the per-item int64 quotient tables and the multiply-high, in
+    turns (tables, multiply-high, multiply-high, tables; 10 launches of a
+    candidate phase per sample) on the (n) map with its OSD weights taking
+    distinct values so that the map has each count of ``K7A_FORM_TABLES``
+    distinct weights, both rules at 100000 x.  Both forms' cand and leaf
+    tables must be equal."""
+    import dataclasses
+    from ceph_tpu_torch.ops import crush_fast as cf
+    xd = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    out = {}
+    for d in K7A_FORM_TABLES:
+        cw, rules = crush_remap_map(False, distinct=d - 1)
+        for mode, (rno, size) in rules.items():
+            fr = cf.compile_fast_rule(cw.crush, rno, size, device=dev)
+            qitem, q64 = cf.item_quotient_tables(fr.C._weights_np, None)
+            if q64.shape[0] != d:
+                raise AssertionError(f"{q64.shape[0]} tables, not {d}")
+            tables = dataclasses.replace(
+                fr.tables, qitem=torch.from_numpy(qitem).to(dev),
+                q64=torch.from_numpy(q64).to(dev))
+            mulhi = dataclasses.replace(fr.tables, qitem=None, q64=None)
+            calls = record_descents(fr, xd)
+
+            def run(tabs):
+                return lambda: [cf.crush_descend(a[0], a[1], tabs, a[3])
+                                for a in calls]
+            for (c1, l1), (c2, l2) in zip(run(tables)(), run(mulhi)()):
+                if not (torch.equal(c1, c2) and (l1 is None or
+                                                 torch.equal(l1, l2))):
+                    raise AssertionError(f"K7a forms disagree, {d} tables")
+            t = turns_ms([run(tables), run(mulhi), run(mulhi), run(tables)],
+                         reps=REPS)
+            name = f"{d}_{mode}"
+            out[name] = {"tables": d,
+                         "table_mib": q64.nbytes / 2**20,
+                         "tables_ms": [t[0], t[3]], "mulhi_ms": [t[1], t[2]],
+                         "taken": "tables" if fr.tables.q64 is not None
+                         else "mulhi"}
+            log(f"k7a forms {name}: " + json.dumps(out[name]))
+            del fr, tables, mulhi, calls, qitem, q64
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2314,13 +2601,19 @@ def main() -> int:
     sass = {n: sass_counts(so, probe["nvcc"]) for n, so in built.items()}
     for name, per_fn in sass.items():
         for fn, c in (per_fn or {}).items():
-            log(f"  sass[{name}] {fn} " + json.dumps(c))
+            log(f"  sass[{name}] {fn} " + json.dumps(
+                {k: v for k, v in c.items() if k != "opcodes"}))
     results["sass"] = sass
     for flag, turns in (("--k6-parent", k6_parent_turns),
+                        ("--k7a-parent", k7a_parent_turns),
+                        ("--k7a-forms", k7a_form_turns),
                         ("--k8-parent", k8_parent_turns)):
         if flag not in sys.argv:
             continue
-        turns(sys.argv[sys.argv.index(flag) + 1], dev)
+        if flag == "--k7a-forms":
+            turns(dev)
+        else:
+            turns(sys.argv[sys.argv.index(flag) + 1], dev)
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2543,8 +2836,7 @@ def main() -> int:
 
     # -- 3c / 4c / 5c: the CRUSH slice, after the earlier slices' phases, which
     # run as they did before it ----------------------------------------------------
-    crush = crush_slice(dev, div64_instructions(sass.get("crush_fast"),
-                                                "crush_descend_kernel"))
+    crush = crush_slice(dev, sass, probe["sm_count"])
     results["crush"] = crush
     crush_launches, crush_err, ct = (crush["launches"], crush["max_abs_err"],
                                      crush["times"])
@@ -2572,6 +2864,16 @@ def main() -> int:
     k7 = ct["u_firstn"]
     k6 = ct["u_ec"]          # the rule whose x K7b flags every epoch
     k3, k3w32 = wt["w16"], wt["w32"]
+    # the hash probe's reading, beside each kernel that draws hashes: the
+    # time of hash32_3 and of K7a's split, and their issue rates
+    hp = crush["hash_probe"]["forms"]
+    hash_reading = {
+        "hash32_3_ms": hp["hash32_3"]["ms"],
+        "split_ms": hp["hash32_3_split"]["ms"],
+        "hash32_3_alu_per_sm_clk": hp["hash32_3"].get("alu_per_sm_clk"),
+        "split_instructions_per_sm_clk": hp["hash32_3_split"].get(
+            "instructions_per_sm_clk"),
+        "hashes": crush["hash_probe"]["hashes"]}
     kernels = {"kernels": [{
         "name": "gf_bit_matmul", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
@@ -2623,7 +2925,18 @@ def main() -> int:
         "library_ms": None,
         "ms_by_config": {n: t["k7a_ms"] for n, t in ct.items()},
         "bound_ms_by_config": {n: t["k7a_bound_ms"] for n, t in ct.items()},
-        "div64_instructions": k7["k7a_div64_instructions"]}, {
+        "plain_ms_by_config": {n: t["k7a_plain_ms"] for n, t in ct.items()},
+        "candidate_phase_ms_by_config": {n: t["candidate_phase_ms"]
+                                         for n, t in ct.items()},
+        "launches_per_phase_by_config": {n: t["k7a_launches_per_phase"]
+                                         for n, t in ct.items()},
+        "alternative_ms_by_config": {
+            n: {t["k7a_alternative"]: t["k7a_alternative_ms"]}
+            for n, t in ct.items()},
+        "sass": crush["k7a_sass"],
+        "ptxas": {n: u for n, u in ptxas_usage(ptxas.get("crush_fast", [])).items()
+                  if n.startswith("crush_descend")},
+        "hash_probe": hash_reading}, {
         "name": "crush_resolve", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
@@ -2663,7 +2976,8 @@ def main() -> int:
         "ms_flagged_by_config": {n: t["k6_flagged_ms"]
                                  for n, t in ct.items()},
         "bound_ms_flagged_by_config": {n: t["k6_flagged_bound_ms"]
-                                       for n, t in ct.items()}}, {
+                                       for n, t in ct.items()},
+        "hash_probe": hash_reading}, {
         "name": "crush_legacy", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_legacy.cu",
         "replaces": "ceph_tpu/ops/crush_legacy.py:387",
@@ -2679,7 +2993,8 @@ def main() -> int:
         "plain_ms_4096_x_by_rule_epoch": {
             n: t["plain_ms_4096_x"] for n, t in legacy["times"].items()},
         "perm_x": legacy["checks"]["L_perm_x"],
-        "local_x": legacy["checks"]["L_local_x"]}]}
+        "local_x": legacy["checks"]["L_local_x"],
+        "hash_probe": hash_reading}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -461,35 +461,113 @@ def _h3(a, b, c):
     return tc.hash.crush_hash32_3(a & M32, b & M32, c & M32)
 
 
-def _descend_scheme(x, start, r, pos, tabs, base_level, depth):
-    """crush_descend_kernel, one lane at a time."""
+# csrc/crush_common.cuh's rjenkins hash with line j of each mix taking its
+# subtraction as two multiply-adds by 0xFFFFFFFF when bit j of ``sub`` is
+# set: 0 is hash32_3, K7A_SPLIT hash32_3_split (K7a's draw); on numpy
+# uint64 arrays of u32 values or on Python ints
+K7A_SPLIT = 0x7F
+_SEED, _NEG1 = 1315423911, 0xFFFFFFFF
+
+
+def hash_form(a, b, c, sub):
+    def sub2(bit, a, b, c):
+        if (sub >> bit) & 1:
+            return (c * _NEG1 + ((b * _NEG1 + a) & M32)) & M32
+        return (a - b - c) & M32
+
+    def mix(a, b, c):
+        a = sub2(0, a, b, c) ^ (c >> 13)
+        b = sub2(1, b, c, a) ^ ((a << 8) & M32)
+        c = sub2(2, c, a, b) ^ (b >> 13)
+        a = sub2(3, a, b, c) ^ (c >> 12)
+        b = sub2(4, b, c, a) ^ ((a << 16) & M32)
+        c = sub2(5, c, a, b) ^ (b >> 5)
+        a = sub2(6, a, b, c) ^ (c >> 3)
+        b = sub2(7, b, c, a) ^ ((a << 10) & M32)
+        c = sub2(8, c, a, b) ^ (b >> 15)
+        return a, b, c
+    one = a ^ a               # 0 of a's type, so the pads take it
+    h = a ^ b ^ c ^ (one + _SEED)
+    x, y = one + 231232, one + 1232
+    a, b, h = mix(a, b, h)
+    c, x, h = mix(c, x, h)
+    y, a, h = mix(y, a, h)
+    b, x, h = mix(b, x, h)
+    y, c, h = mix(y, c, h)
+    return h
+
+
+def _descend_scheme(xl, roots, tabs, spec):
+    """crush_descend_kernel, one thread (lane, r, p) at a time: the
+    candidate's levels, then its leaf attempts, each draw over the
+    bucket's items with K7a's hash form, the i32 table on an integer
+    level and elsewhere each item's int64 table or the multiply-high of
+    its weight."""
     cm = tabs.cm
     items, ids = cm.items.numpy(), cm.hash_ids.numpy()
     sizes = cm.sizes.numpy()
-    weights = cm.weights.numpy().view(np.uint32)
-    qidx, qt, g = tabs.qidx.numpy(), tabs.qtables.numpy(), tabs.g.numpy()
-    mask = tabs.mask(base_level, depth)
-    out = np.empty(len(x), np.int32)
-    for i in range(len(x)):
-        xv, rv = int(x[i]) & M32, int(r[i]) & M32
-        p = min(int(pos[i]), cm.npos - 1)
-        b, item = int(start[i]), 0
+    qidx, qt = tabs.qidx.numpy(), tabs.qtables.numpy()
+    magic = tabs.magic.numpy().view(np.uint64)
+    g15 = tabs.g15.numpy().view(np.uint64)
+    q64 = tabs.q64 is not None
+    qitem = tabs.qitem.numpy() if q64 else None
+    qtab = tabs.q64.numpy() if q64 else None
+    N, R, P, L = len(xl), spec.R, spec.P, spec.L
+
+    def draw(b, x, r, p, table):
+        size = int(sizes[b])
+        hid = (ids[b, :size].astype(np.int64) & M32).astype(np.uint64)
+        u = hash_form(np.uint64(x), hid, np.uint64(r), K7A_SPLIT) \
+            & np.uint64(0xFFFF)
+        win, best = 0, 0
+        for k in range(size):
+            if table >= 0:
+                v = int(qt[table, int(u[k])])
+            elif q64:
+                tq = int(qitem[p, b, k])
+                v = int(qtab[tq, int(u[k])]) if tq >= 0 else 1 << 62
+            else:
+                w = int(magic[p, b, k])
+                v = 1 << 62
+                if w >> 32:
+                    m, t = w & ((1 << 58) - 1), w >> 58
+                    v = ((int(g15[int(u[k])]) * m) >> 64) >> t
+            if k == 0 or v < best:
+                best, win = v, k
+        return int(items[b, win])
+
+    def path(b, x, r, p, depth, mask):
+        item = 0
         for d in range(depth):
-            win, best = 0, 0
-            for k in range(int(sizes[b])):
-                if (mask >> d) & 1:
-                    v = int(qt[qidx[b], _h3(xv, int(ids[b, k]), rv) & 0xFFFF])
-                else:
-                    wk = int(weights[p, b, k])
-                    v = 1 << 62
-                    if wk:
-                        v = int(g[_h3(xv, int(ids[b, k]), rv) & 0xFFFF]) // wk
-                if k == 0 or v < best:
-                    best, win = v, k
-            item = int(items[b, win])
+            item = draw(b, x, r, p, int(qidx[b]) if (mask >> d) & 1 else -1)
             b = max(-1 - item, 0)
-        out[i] = item
-    return out
+        return item
+
+    mask = tabs.mask(spec.base_level, spec.depth)
+    leaf_mask = tabs.mask(spec.base_level + spec.depth, spec.leaf_depth)
+    cand = np.empty((R, P, N), np.int32)
+    leaf = np.empty((R, L, P, N), np.int32) if L else None
+    for y in range(R * P):                    # blockIdx.y
+        r, pi = divmod(y, P)
+        for lane in range(N):
+            x = int(xl[lane]) & M32
+            item = path(int(roots[lane]), x, r, min(pi, cm.npos - 1),
+                        spec.depth, mask)
+            cand[r, pi, lane] = item
+            if not L:
+                continue
+            if spec.leaf_firstn:
+                sub_r = r >> (spec.vary_r - 1) if spec.vary_r else 0
+                lpos, step = pi, 1
+            else:
+                lpos = r % spec.numrep
+                sub_r, step = lpos + r, spec.numrep
+            lpos = min(lpos, cm.npos - 1)
+            for f2 in range(L):
+                leaf[r, f2, pi, lane] = path(
+                    max(-1 - item, 0), x, sub_r + step * f2, lpos,
+                    spec.leaf_depth, leaf_mask) if spec.leaf_depth else item
+    return cand, leaf
 
 
 def _is_out_scheme(weight, item, x):
@@ -679,11 +757,13 @@ def test_kernel_schemes_match_plain(case, monkeypatch):
     descend_plain = crush_fast.crush_descend_plain
     resolve_plain = crush_fast.crush_resolve_plain
 
-    def descend(x, start, r, pos, tabs, base_level, depth):
-        want = descend_plain(x, start, r, pos, tabs, base_level, depth)
-        got = _descend_scheme(x.numpy(), start.numpy(), r.numpy(),
-                              pos.numpy(), tabs, base_level, depth)
-        np.testing.assert_array_equal(got, want.numpy())
+    def descend(xl, roots, tabs, spec):
+        want = descend_plain(xl, roots, tabs, spec)
+        got = _descend_scheme(xl.numpy(), roots.numpy(), tabs, spec)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        assert (got[1] is None) == (want[1] is None)
+        if want[1] is not None:
+            np.testing.assert_array_equal(got[1], want[1].numpy())
         calls.append("descend")
         return want
 
@@ -742,5 +822,5 @@ def test_wrappers_take_plain_only_on_cpu(monkeypatch):
                                  torch.zeros(1, dtype=torch.int32), 1, 2)
     with pytest.raises(ValueError):
         crush_fast.crush_descend(torch.zeros(4, dtype=torch.int64),
-                                 *[torch.zeros(4, dtype=torch.int32)] * 3,
-                                 fr.tables, 0, 1)
+                                 torch.zeros(4, dtype=torch.int32),
+                                 fr.tables, fr.descent_spec())

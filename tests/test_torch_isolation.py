@@ -292,7 +292,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("fused_encode_crc")
     assert _build.sources() == ["crc32c", "crush_fast", "crush_legacy",
-                                "fused_encode_crc", "gf_bit_matmul"]
+                                "crush_probe", "fused_encode_crc",
+                                "gf_bit_matmul"]
 
 
 def test_build_path_tracks_source(monkeypatch, tmp_path):
@@ -383,9 +384,9 @@ def test_crush_non_cpu_tensor_never_takes_plain(monkeypatch):
     monkeypatch.setattr(crush_fast, "crush_descend_plain", boom)
     monkeypatch.setattr(crush_fast, "crush_resolve_plain", boom)
     before = (crush_fast.descend_launches.n, crush_fast.resolve_launches.n)
-    lanes = [torch.empty(16, dtype=torch.int32, device="meta")] * 4
+    lanes = [torch.empty(16, dtype=torch.int32, device="meta")] * 2
     with pytest.raises(RuntimeError, match="meta"):
-        crush_fast.crush_descend(*lanes, fr.tables, 0, 1)
+        crush_fast.crush_descend(*lanes, fr.tables, fr.descent_spec())
     R = fr.numrep + fr.n_rounds - 1
     cand = torch.empty((R, 1, 16), dtype=torch.int32, device="meta")
     leaf = torch.empty((R, fr.n_leaf, 1, 16), dtype=torch.int32,
