@@ -28,6 +28,7 @@ from typing import Dict, Sequence, Set
 import numpy as np
 import torch
 
+from ..common.kernel_trace import g_kernel_timer
 from .base import ErasureCode
 from .rs_codec import MatrixRSCodec, plan_decode
 
@@ -129,9 +130,13 @@ class ErasureCodeMatrixRS(ErasureCode):
 
     def encode_batch(self, data: np.ndarray) -> np.ndarray:
         """(S, k, C) uint8 -> (S, m, C) coding chunks; ONE device call for
-        all S stripes."""
+        all S stripes.  ``g_kernel_timer`` times it as ``ec_encode_batch``
+        on the card and ``ec_encode_batch_host`` for ``backend=host``, the
+        JAX package's names for its device and host routes."""
         self._check_stripe(data.shape[2])
-        return self._device_encode_batch(data)
+        name = "ec_encode_batch" if self.torch_device == "cuda" \
+            else "ec_encode_batch_host"
+        return g_kernel_timer.timed(name, self._device_encode_batch, data)
 
     def decode_batch(self, chunks: Dict[int, np.ndarray],
                      want) -> Dict[int, np.ndarray]:

@@ -6,13 +6,17 @@ the checkout (git-ignored), where the hash covers the source, the shared
 headers (``csrc/*.cuh``) and the flags: an edited source or header
 rebuilds, an unchanged one is reused.  Only
 sources inside this package are built.  A missing ``nvcc`` or a failed
-compile raises with the compiler's output; nothing falls back.
+compile raises with the compiler's output; nothing falls back.  Every
+``nvcc`` run (a cache miss) counts one compile in the device-flow
+profiler (``trace/devprof.py``), attributed to the active
+``g_devprof.stage()``; a cached ``.so`` counts nothing.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <so> csrc/<name>.cu
 """
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -23,6 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 from ..arch import find_nvcc
+from ..trace.devprof import g_devprof
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ceph_tpu_torch"
@@ -64,6 +69,7 @@ def build(name: str) -> Path:
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
+    g_devprof.note_compile()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src.name} "
@@ -75,10 +81,13 @@ def build(name: str) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Build every source at once: one nvcc process each, all started
-    together.  Raises the first failure after all have finished."""
+    together.  Raises the first failure after all have finished.  Each
+    worker runs in a copy of the caller's context, so its compile is
+    attributed to the caller's ``g_devprof.stage()``."""
     names = sources()
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
-        futs = {n: ex.submit(build, n) for n in names}
+        futs = {n: ex.submit(contextvars.copy_context().run, build, n)
+                for n in names}
     return {n: f.result() for n, f in futs.items()}
 
 

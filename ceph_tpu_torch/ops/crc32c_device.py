@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..trace.devprof import g_devprof
 from ..utils.crc32c import _TABLE
 from . import _build
 from .gf_matmul import resolve_device
@@ -176,11 +177,15 @@ _dev_lock = threading.Lock()
 
 def _on_device(key: tuple, device: torch.device, make) -> torch.Tensor:
     """``make()`` (uint32 numpy) as an int32 tensor on ``device``,
-    uploaded once per key and device."""
+    uploaded once per key and device and accounted at ``crc32c.tables``
+    (the port uploads the slicing, advance and coalesced tables; the JAX
+    package the slicing tables alone)."""
     with _dev_lock:
         t = _dev_cache.get((key, device))
         if t is None:
-            t = torch.as_tensor(make().view(np.int32), device=device)
+            host = make()
+            g_devprof.account_h2d("crc32c.tables", host.nbytes)
+            t = torch.as_tensor(host.view(np.int32), device=device)
             _dev_cache[(key, device)] = t
     return t
 
@@ -466,7 +471,9 @@ def crc32c_of_device_array(dev: torch.Tensor) -> int:
     read-verify path of still-resident shards)."""
     if dev.dim() != 1:
         raise ValueError(f"expected a 1-D tensor, got {tuple(dev.shape)}")
-    return int(to_u32(crc32c_kernel(dev.view(1, -1)))[0])
+    out = to_u32(crc32c_kernel(dev.view(1, -1)))
+    g_devprof.account_d2h("crc32c.verify_fetch", out.nbytes)
+    return int(out[0])
 
 
 def crc32c_device_padded(padded2d, lengths, device="cuda") -> np.ndarray:

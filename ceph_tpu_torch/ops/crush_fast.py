@@ -35,6 +35,12 @@ Per epoch, ``map_batch`` fetches only the rows that changed since the last
 weight vector (K7c, ``_delta``: a cumsum/scatter compaction in torch, no
 host sync before the one device-to-host copy).
 
+The device-flow profiler accounts the uploads of x and weights and the
+row fetches at the JAX package's sites (``crush.candidates``,
+``crush.map_batch``), and ``g_kernel_timer`` times the resolution as
+``crush_resolve``.  A full fetch moves the flagged count in front of the
+rows, 4 bytes more than the JAX package's.
+
 A CUDA tensor goes to the kernels or raises; only tensors on the CPU take
 the plain versions (``crush_descend_plain``, ``crush_resolve_plain``,
 ``crush_rule_plain``).  ``FastRule(..., plain=True)`` runs the plain
@@ -68,7 +74,9 @@ from ..crush.constants import (
     CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES, CRUSH_RULE_SET_CHOOSE_TRIES,
     CRUSH_RULE_TAKE,
 )
+from ..common.kernel_trace import g_kernel_timer
 from ..crush.types import CrushMap
+from ..trace.devprof import g_devprof
 from . import _build
 from .crush_kernels import (
     G_EXACT, MAX_REP, QTABLE_MIN_W, _SIGNATURES, CompiledCrushMap, compile_map,
@@ -1005,8 +1013,10 @@ class FastRule:
         xs = np.ascontiguousarray(xs, dtype=np.uint32)
         key = hashlib.sha1(xs.tobytes()).digest()
         if self._cand_key != key:
-            xd = torch.from_numpy(xs.view(np.int32)).to(self.device)
-            self._cand = self._candidates(xd)
+            g_devprof.account_h2d("crush.candidates", xs.nbytes)
+            with g_devprof.stage("crush.candidates"):
+                xd = torch.from_numpy(xs.view(np.int32)).to(self.device)
+                self._cand = self._candidates(xd)
             self._xd = xd
             self._cand_key = key
             self._prev_packed = None
@@ -1025,12 +1035,17 @@ class FastRule:
         self.prepare_candidates(xs)
         R = self.result_max
         X = xs.shape[0]
-        wd = torch.from_numpy(w32.view(np.int32)).to(self.device)
-        packed = self.exact_packed(wd)
+        g_devprof.account_h2d("crush.map_batch", w32.nbytes)
+        with g_devprof.stage("crush.map_batch"):
+            wd = torch.from_numpy(w32.view(np.int32)).to(self.device)
+            packed = g_kernel_timer.timed("crush_resolve",
+                                          self.exact_packed, wd)
         cap = min(self.delta_cap, X)
         if self._prev_packed is not None and self._host_out is not None:
-            flat = self._delta(packed, self._prev_packed, cap,
-                               self._n_flagged).cpu().numpy()
+            with g_devprof.stage("crush.map_batch"):
+                flat = self._delta(packed, self._prev_packed, cap,
+                                   self._n_flagged).cpu().numpy()
+            g_devprof.account_d2h("crush.map_batch", flat.nbytes)
             n_changed = int(flat[0])
             self._residual_frac = int(flat[1]) / X
             if n_changed <= cap:
@@ -1045,6 +1060,7 @@ class FastRule:
             # overflow: full fetch, and a larger cap for the next epochs
             self.delta_cap = min(2 * self.delta_cap, max(X, 1))
         flat = torch.cat([self._n_flagged, packed.reshape(-1)]).cpu().numpy()
+        g_devprof.account_d2h("crush.map_batch", flat.nbytes)
         full = flat[1:].reshape(X, R + 1)
         out = full[:, :R].copy()
         counts = full[:, R].copy()

@@ -17,6 +17,14 @@ jerasure's reed_sol codes at w = 16/32 work on little-endian w-bit words:
 ``expand_to_bitmatrix_w`` gives their (k*w, m*w) companion bitmatrix,
 ``gfw_bit_matmul`` is the contract of the JAX function of that name, and
 ``DeviceWordRSBackend`` encodes with it through the K3 kernel.
+
+The numpy entry points (``encode``, ``decode_data``) are the host<->device
+boundary of the EC path, and the device-flow profiler accounts both legs
+at the JAX package's sites (``gf_matmul.encode``, ``.decode``,
+``.encode_w``; counter bumps only, no sync).  Uploading a decode matrix
+is accounted at ``gf_matmul.decode_bits`` as the bytes the port moves:
+the 0/1 matrix and the kernel's nibble tables (the JAX package moves the
+int8 matrix alone).
 """
 from __future__ import annotations
 
@@ -27,10 +35,12 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..common.kernel_trace import g_kernel_timer
 from ..ec.rs_codec import DECODE_CACHE_ENTRIES
 from ..gf.bitmatrix import element_bitmatrix
 from ..gf.matrices import gf_invert_matrix
 from ..gf.tables import expand_to_bitmatrix
+from ..trace.devprof import g_devprof
 from .gf_pallas import (WORD_WIDTHS, BitMatrix, gf_bit_matmul_kernel,
                         gfw_bit_matmul_kernel)
 
@@ -102,8 +112,12 @@ class DeviceWordRSBackend:
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy)."""
-        t = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
-        return self.encode_device(t).cpu().numpy()
+        g_devprof.account_h2d("gf_matmul.encode_w", data.nbytes)
+        with g_devprof.stage("gf_matmul.encode_w"):
+            t = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+            out = self.encode_device(t).cpu().numpy()
+        g_devprof.account_d2h("gf_matmul.encode_w", out.nbytes)
+        return out
 
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """(S, k, C) uint8 tensor on this device -> (S, m, C) tensor."""
@@ -132,8 +146,16 @@ class DeviceRSBackend:
 
     # -- encode -------------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:
-        """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy)."""
-        return self.encode_device(self._to_device(data)).cpu().numpy()
+        """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy): the
+        whole batch crosses up, the coding chunks cross back, both legs
+        accounted at ``gf_matmul.encode``."""
+        g_devprof.account_h2d("gf_matmul.encode", data.nbytes)
+        with g_devprof.stage("gf_matmul.encode"):
+            out = g_kernel_timer.timed(
+                "gf_encode", lambda: self.encode_device(
+                    self._to_device(data)).cpu().numpy())
+        g_devprof.account_d2h("gf_matmul.encode", out.nbytes)
+        return out
 
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """(S, k, C) uint8 tensor on this device -> (S, m, C) tensor."""
@@ -156,6 +178,7 @@ class DeviceRSBackend:
         inv = gf_invert_matrix(sub)              # data = inv @ survivors
         bits = BitMatrix(expand_to_bitmatrix(inv[list(want_rows), :]),
                          self.device)
+        g_devprof.account_h2d("gf_matmul.decode_bits", bits.nbytes)
         with self._cache_lock:
             self._decode_bits_cache[key] = bits
             if len(self._decode_bits_cache) > DECODE_CACHE_ENTRIES:
@@ -166,8 +189,14 @@ class DeviceRSBackend:
                     want_rows: Sequence[int]) -> np.ndarray:
         """survivors (S, k, C) stacked in ``srcs`` order -> the requested
         data rows (S, len(want_rows), C), numpy in and out."""
-        return self.decode_data_device(self._to_device(survivors), srcs,
-                                       want_rows).cpu().numpy()
+        # a cache miss accounts the matrix upload first, as in JAX
+        self._decode_bits_for(tuple(srcs), tuple(want_rows))
+        g_devprof.account_h2d("gf_matmul.decode", survivors.nbytes)
+        with g_devprof.stage("gf_matmul.decode"):
+            out = self.decode_data_device(self._to_device(survivors), srcs,
+                                          want_rows).cpu().numpy()
+        g_devprof.account_d2h("gf_matmul.decode", out.nbytes)
+        return out
 
     def decode_data_device(self, survivors: torch.Tensor,
                            srcs: Sequence[int],

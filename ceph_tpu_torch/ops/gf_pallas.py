@@ -135,6 +135,12 @@ class BitMatrix:
         self.tables = torch.as_tensor(pack_tables(bits).view(np.int32),
                                       device=self.device)
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes this matrix holds on its device (0/1 bytes and tables)."""
+        return (self.bits.numel() * self.bits.element_size()
+                + self.tables.numel() * self.tables.element_size())
+
     @functools.cached_property
     def masks(self) -> torch.Tensor:
         """The first design's (8r, ceil(k/8)) u64 column masks, built on

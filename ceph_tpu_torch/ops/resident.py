@@ -26,6 +26,11 @@ budget's byte count is what the card frees when a shard goes
 kernels' plain versions.  ``launches.n`` counts fused calls on the card
 in either form; ``fused_encode_crc.fused_encode_crc_plain`` is the
 reference the card's result is held against.
+
+The device-flow profiler accounts the stripe upload at
+``ec.encode_resident`` (when the stripes come from host memory) and the
+crc fetch at ``ec.crc_fetch``, as the JAX package does: with them, the
+whole of this path's host<->device traffic.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from ..os_store.device_shard import DeviceShard
+from ..trace.devprof import g_devprof
 from .crc32c_device import crc32c_gather_kernel, to_u32
 from .fused_encode_crc import fused_encode_crc_kernel, one_pass
 from .gf_matmul import DeviceRSBackend
@@ -107,6 +113,7 @@ def encode_resident_shards(ec_impl, stripes: Union[np.ndarray, torch.Tensor]) \
         return None
     backend: DeviceRSBackend = ec_impl.device()
     if isinstance(stripes, np.ndarray):
+        g_devprof.account_h2d("ec.encode_resident", stripes.nbytes)
         data = torch.from_numpy(np.ascontiguousarray(stripes, dtype=np.uint8))
         data = data.to(backend.device)
     else:
@@ -119,8 +126,10 @@ def encode_resident_shards(ec_impl, stripes: Union[np.ndarray, torch.Tensor]) \
     if data.dim() != 3 or data.dtype != torch.uint8:
         raise ValueError(f"stripes must be (S, k, C) uint8, got "
                          f"{tuple(data.shape)} {data.dtype}")
-    bodies, crcs = _fused_encode_crc(data.contiguous(), backend.enc_bits)
-    crcs_np = to_u32(crcs)                 # the 4*n-byte fetch and fence
+    with g_devprof.stage("ec.encode_resident"):
+        bodies, crcs = _fused_encode_crc(data.contiguous(), backend.enc_bits)
+        crcs_np = to_u32(crcs)             # the 4*n-byte fetch and fence
+    g_devprof.account_d2h("ec.crc_fetch", crcs_np.nbytes)
     length = data.shape[0] * data.shape[2]
     return {i: DeviceShard(body, length, int(crcs_np[i]))
             for i, body in enumerate(bodies)}

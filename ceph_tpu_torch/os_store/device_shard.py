@@ -24,63 +24,68 @@ All state transitions (resident -> host) happen under the budget's one
 lock, so ``materialize`` may race from scrub, read and eviction at once
 and exactly one device->host copy happens.
 
-Not carried from the JAX package: the devprof accounting of the copies
-(``memstore.fetch_shard``, ``memstore.demote_shard``), which waits for
-the port's trace layer.  The six counters keep their names and live in
-the module-local ``Counters`` below.
+The one device->host copy of a shard's life is accounted by the
+device-flow profiler at ``memstore.fetch_shard`` (a first host read) or
+``memstore.demote_shard`` (budget pressure), as in the JAX package, and
+the six counters are the ``memstore_device`` perf-counter logger under
+the JAX package's indices and names.
 """
 from __future__ import annotations
 
-import threading
 import weakref
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..common.config import g_conf
+from ..common.lockdep import DebugLock, DebugRLock
+from ..common.perf_counters import PerfCounters, PerfCountersBuilder
+from ..trace.devprof import g_devprof
 
-# ---- counters (the JAX package's memstore_device family, by name) -----------
-l_msd_resident_bytes = "resident_bytes"     # gauge: resident shard bytes
-l_msd_resident_shards = "resident_shards"   # gauge: resident shard count
-l_msd_materializations = "materializations"  # lazy first host reads
-l_msd_demotions = "demotions"               # budget-pressure demotions
-l_msd_crc_device = "crc_device"             # digests from the device CRC
-l_msd_crc_host = "crc_host"                 # digests hashed on host bytes
-_COUNTERS = (l_msd_resident_bytes, l_msd_resident_shards,
-             l_msd_materializations, l_msd_demotions, l_msd_crc_device,
-             l_msd_crc_host)
+# ---- perf counters (perf dump / Prometheus memstore_device_*) --------------
+MEMSTORE_DEVICE_FIRST = 96100
+l_msd_resident_bytes = 96101    # gauge: device-resident shard bytes
+l_msd_resident_shards = 96102   # gauge: device-resident shard count
+l_msd_materializations = 96103  # lazy first-host-read materializations
+l_msd_demotions = 96104         # budget-pressure demotions to host bytes
+l_msd_crc_device = 96105        # HashInfo digests taken from the fused
+                                # device CRC (no host hashing)
+l_msd_crc_host = 96106          # HashInfo digests hashed on host bytes
+MEMSTORE_DEVICE_LAST = 96110
 
-
-class Counters:
-    """Named u64 counters and gauges with ``inc`` / ``set`` / ``dump``."""
-
-    def __init__(self, names):
-        self._vals: Dict[str, int] = {n: 0 for n in names}
-        self._lock = threading.Lock()
-
-    def inc(self, name: str, by: int = 1) -> None:
-        with self._lock:
-            self._vals[name] += by
-
-    def set(self, name: str, value: int) -> None:
-        with self._lock:
-            self._vals[name] = int(value)
-
-    def get(self, name: str) -> int:
-        with self._lock:
-            return self._vals[name]
-
-    def dump(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._vals)
+_msd_pc: Optional[PerfCounters] = None
+_msd_pc_lock = DebugLock("memstore_device_pc::init")
 
 
-_msd_pc = Counters(_COUNTERS)
-
-
-def memstore_device_perf_counters() -> Counters:
-    """The device-resident shard store's counters."""
+def memstore_device_perf_counters() -> PerfCounters:
+    """The device-resident shard store's counter logger (perf dump /
+    Prometheus ``ceph_daemon_memstore_device_*``)."""
+    global _msd_pc
+    if _msd_pc is not None:
+        return _msd_pc
+    with _msd_pc_lock:
+        if _msd_pc is None:
+            b = PerfCountersBuilder("memstore_device",
+                                    MEMSTORE_DEVICE_FIRST,
+                                    MEMSTORE_DEVICE_LAST)
+            b.add_u64(l_msd_resident_bytes, "resident_bytes",
+                      "device-resident shard body bytes (HBM)")
+            b.add_u64(l_msd_resident_shards, "resident_shards",
+                      "device-resident shard bodies")
+            b.add_u64_counter(l_msd_materializations, "materializations",
+                              "resident shards materialized to host "
+                              "bytes on first host read")
+            b.add_u64_counter(l_msd_demotions, "demotions",
+                              "resident shards demoted to host bytes "
+                              "by the os_memstore_device_bytes_max "
+                              "LRU budget")
+            b.add_u64_counter(l_msd_crc_device, "crc_device",
+                              "shard digests taken from the fused "
+                              "device CRC kernel")
+            b.add_u64_counter(l_msd_crc_host, "crc_host",
+                              "shard digests hashed from host bytes")
+            _msd_pc = b.create_perf_counters()
     return _msd_pc
 
 
@@ -95,7 +100,7 @@ class DeviceShardBudget:
 
     def __init__(self):
         # reentrant: a finalizer may run while this thread holds it
-        self.lock = threading.RLock()
+        self.lock = DebugRLock("DeviceShardBudget::lock")
         # id(shard) -> (weakref, nbytes); insertion order = LRU order
         self._entries: "OrderedDict[int, Tuple[weakref.ref, int]]" = \
             OrderedDict()
@@ -206,13 +211,15 @@ class DeviceShard:
 
     def materialize(self) -> bytes:
         """Host bytes; the first call is the one device->host copy of
-        this shard's life, later calls are free."""
+        this shard's life (accounted at ``memstore.fetch_shard``), later
+        calls are free."""
         if self._host is not None:
             return self._host
         with g_device_budget.lock:
             if self._host is not None:
                 return self._host
             host = self._to_host_locked()
+        g_devprof.account_d2h("memstore.fetch_shard", self.length)
         memstore_device_perf_counters().inc(l_msd_materializations)
         return host
 
@@ -221,13 +228,14 @@ class DeviceShard:
 
     def demote(self) -> None:
         """Budget-pressure copy-down: the same transition as
-        materialize, counted as a demotion."""
+        materialize, counted as a demotion (``memstore.demote_shard``)."""
         if self._host is not None:
             return
         with g_device_budget.lock:
             if self._host is not None:
                 return
             self._to_host_locked()
+        g_devprof.account_d2h("memstore.demote_shard", self.length)
         memstore_device_perf_counters().inc(l_msd_demotions)
 
     def corrupted(self) -> "DeviceShard":

@@ -23,6 +23,7 @@ x the candidate tables leave unresolved finish on K6 beside them).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +33,7 @@ from ..crush.hash import crush_hash32_2_np
 from ..crush.mapper import crush_do_rule
 from ..ops.crush_fast import compile_fast_rule
 from ..ops.gf_matmul import resolve_device
+from ..trace import g_perf_histograms, g_tracer, latency_axes
 from .osdmap import (
     CEPH_OSD_DEFAULT_PRIMARY_AFFINITY, CEPH_OSD_EXISTS, CEPH_OSD_UP, OSDMap,
 )
@@ -260,17 +262,24 @@ class OSDMapMapping:
 
     # ---- public -----------------------------------------------------------
     def update(self, osdmap: OSDMap) -> None:
-        """Recompute all pools (the whole-map remap every epoch leans on)."""
-        self.pools.clear()
-        crush_fp = self._crush_fingerprint(osdmap) if self.use_device \
-            else None
-        for pool_id, pool in osdmap.pools.items():
-            ps = np.arange(pool.pg_num, dtype=np.uint32)
-            pps = pool_pps(pool, pool_id, ps)
-            raw = self._raw_batch(osdmap, pool_id, pool, pps, crush_fp)
-            self.pools[pool_id] = self._postprocess(
-                osdmap, pool_id, pool, raw, pps)
-        self.epoch = osdmap.epoch
+        """Recompute all pools (the whole-map remap every epoch leans on)
+        inside a ``crush_map_update`` span; the latency lands in the
+        ``osdmap`` logger's ``crush_map_latency_histogram``."""
+        t0 = time.perf_counter()
+        with g_tracer.span("crush_map_update"):
+            self.pools.clear()
+            crush_fp = self._crush_fingerprint(osdmap) if self.use_device \
+                else None
+            for pool_id, pool in osdmap.pools.items():
+                ps = np.arange(pool.pg_num, dtype=np.uint32)
+                pps = pool_pps(pool, pool_id, ps)
+                raw = self._raw_batch(osdmap, pool_id, pool, pps, crush_fp)
+                self.pools[pool_id] = self._postprocess(
+                    osdmap, pool_id, pool, raw, pps)
+            self.epoch = osdmap.epoch
+        g_perf_histograms.get(
+            "osdmap", "crush_map_latency_histogram", latency_axes).inc(
+            (time.perf_counter() - t0) * 1e6)
 
     def get(self, pg: pg_t) -> Tuple[List[int], int, List[int], int]:
         pm = self.pools[pg.pool]

@@ -210,6 +210,24 @@ tables against its multiply-high in turns on (n) maps of 4 to 1000
 distinct weights, both forms' tables equal: the measurement behind
 ``Q64_MAX_TABLES``.
 
+The observability and bench-core slice adds, after 5l:
+
+4b. the port's own fenced bench (``ceph_tpu_torch/bench``) on the card,
+   with the kernel timer on: ``measure_encode`` and ``measure_decode``
+   (e=2) on ``gf_gen_rs_matrix(12, 8)`` at the JAX bench's full-mode
+   shapes (batch (64, 8, 131072), target 3 s, 3 repeats, 1 warmup), then
+   ``parity_check``; ``measure_crush_remap`` (1000 OSDs, 100000 PGs, 10
+   epochs) on the uniform and the nonuniform map.  Every kernel count is
+   set to 0 just before each step and read just after: K1 must move for
+   encode and decode, K7b and K6 (over the x K7b flags) for each remap.
+   Each schema metric is printed with its roofline verdict; the run fails
+   if a metric is not fenced or is suspect, if ``parity_check`` is false,
+   if a count does not move or if the remap recomputed an x on the host.
+   Then the device-flow profiler's dump (its compile count must equal the
+   nvcc builds of the run), the kernel timer's dump and the oplat stage
+   breakdown of the phase.  After 4c the ``crush_map_update`` histogram's
+   percentiles (``OSDMapMapping.update``, the OSDMap drive) are printed.
+
 Prints the ``{"kernels": [...]}`` line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -227,13 +245,17 @@ import time
 import numpy as np
 import torch
 
+# the one definition of the card's two peaks, shared with the bench's
+# roofline (NVIDIA H100 SXM, dense)
+from ceph_tpu_torch.bench.roofline import (
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_INT8_OPS_PER_S as INT8_OPS_PER_S)
+
 K, M = 8, 4
 CHUNK = 4096                      # osd_pool_erasure_code_stripe_unit
 OBJ_BYTES = 4 << 20
 N_OBJ = 64
 ERASED = (1, 9)
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM
-INT8_OPS_PER_S = 1979e12          # H100 SXM dense int8 tensor-core peak
 # H100 SXM 32-bit integer throughput: 132 SMs x 64 lanes x 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 RESIDENT_BUDGET = 4 << 30         # os_memstore_device_bytes_max for 4r
@@ -1145,37 +1167,26 @@ def _pg_rows(args):
 
 
 def crush_remap_map(uniform: bool, distinct: int = 0):
-    """measure_crush_remap's map (ceph_tpu/bench/workloads.py:1838-1861)
-    through the port's CrushWrapper: 1000 OSDs in 50 hosts of 20, straw2,
-    jewel tunables, (u) weights 0x10000 or (n) 0x8000 x {1..4} from
-    default_rng(7).  Rules: ``data`` (chooseleaf firstn over hosts, size 3)
-    and the one jerasure k=8 m=4's create_rule adds (chooseleaf indep over
-    hosts, size 12).  With ``distinct`` the OSD weights instead take that
-    many distinct values from 0x8000 to 0x20000, spread over the OSDs by a
-    permutation from default_rng(7)."""
-    from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
+    """measure_crush_remap's map, taken from ``bench.workloads``'s
+    ``remap_crush_map`` so that the map checked here and the map the bench
+    times have one source: 1000 OSDs in 50 hosts of 20, straw2, the
+    default (jewel) tunables, (u) weights 0x10000 or (n) 0x8000 x {1..4}
+    from default_rng(7), and its ``data`` rule (chooseleaf firstn over
+    hosts, size 3).  Added here: the rule a jerasure k=8 m=4's
+    create_rule adds (chooseleaf indep over hosts, size 12).  With
+    ``distinct`` each host is rebuilt with OSD weights of that many
+    distinct values from 0x8000 to 0x20000, spread over the OSDs by a
+    permutation from default_rng(7); the root's weights stay."""
+    from ceph_tpu_torch.bench.workloads import remap_crush_map
     from ceph_tpu_torch.ec import create_erasure_code
-    cw = CrushWrapper()
-    cw.set_type_name(1, "host")
-    cw.set_type_name(10, "root")
-    cw.set_tunables_profile("jewel")
-    rng_w = np.random.default_rng(7)
+    cw, data = remap_crush_map(CRUSH_OSDS, uniform or bool(distinct))
     if distinct:
         vals = np.linspace(0x8000, 0x20000, distinct).astype(np.int64)
-        spread = vals[rng_w.permutation(CRUSH_OSDS) % distinct]
-    hosts = []
-    for h in range(CRUSH_OSDS // CRUSH_PER_HOST):
-        osds = list(range(h * CRUSH_PER_HOST, (h + 1) * CRUSH_PER_HOST))
-        ws = ([0x10000] * CRUSH_PER_HOST if uniform else
-              [int(spread[o]) for o in osds] if distinct else
-              [int(v) * 0x8000
-               for v in rng_w.integers(1, 5, size=CRUSH_PER_HOST)])
-        hosts.append(cw.add_bucket(CRUSH_BUCKET_STRAW2, 1, f"host{h}", osds,
-                                   ws, id=-(h + 2)))
-    cw.set_max_devices(CRUSH_OSDS)
-    cw.add_bucket(CRUSH_BUCKET_STRAW2, 10, "default", hosts,
-                  [0x10000 * CRUSH_PER_HOST] * len(hosts), id=-1)
-    data = cw.add_simple_rule("data", "default", "host", mode="firstn")
+        spread = vals[np.random.default_rng(7).permutation(CRUSH_OSDS)
+                      % distinct]
+        for h in range(CRUSH_OSDS // CRUSH_PER_HOST):
+            osds = list(range(h * CRUSH_PER_HOST, (h + 1) * CRUSH_PER_HOST))
+            cw.rebuild_bucket(-(h + 2), osds, [int(spread[o]) for o in osds])
     codec = create_erasure_code({"plugin": "jerasure", "k": "8", "m": "4"})
     ec = codec.create_rule("ec", cw)
     if data < 0 or ec < 0:
@@ -2551,6 +2562,154 @@ def legacy_slice(dev) -> dict:
     return out
 
 
+BENCH_BATCH = (64, K, 1 << 17)    # the JAX bench's full mode (__main__.py:78-80)
+BENCH_TARGET_S, BENCH_REPEATS, BENCH_WARMUP = 3.0, 3, 1
+BENCH_SEED = 1234
+BUILD_STAGE = "chip_smoke.build"  # devprof stage of phase 2's nvcc runs
+
+
+def bench_slice(dev, batch_shape=BENCH_BATCH, target_s=BENCH_TARGET_S,
+                remap=(CRUSH_OSDS, CRUSH_X, CRUSH_EPOCHS)) -> dict:
+    """4b: the port's fenced bench on ``dev``, each step's kernel counts
+    set to 0 just before it and read just after.  Returns the metrics, the
+    counts per step and the dumps; raises on any failed gate."""
+    from ceph_tpu_torch.bench import workloads as bw
+    from ceph_tpu_torch.common.kernel_trace import g_kernel_timer
+    from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
+    from ceph_tpu_torch.ops import crush_fast, crush_kernels, gf_pallas
+    from ceph_tpu_torch.trace import g_devprof, g_oplat
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "crush_descend": crush_fast.descend_launches,
+                "crush_resolve": crush_fast.resolve_launches,
+                "crush_rule": crush_kernels.rule_launches}
+    t_phase = time.perf_counter()
+    matrix = gf_gen_rs_matrix(K + M, K)
+    batch = np.random.default_rng(BENCH_SEED).integers(
+        0, 256, size=batch_shape, dtype=np.uint8)
+    stage0 = g_oplat.snapshot()
+    n_fenced = 0
+    launches, metrics, remap_keys = {}, [], {}
+    g_kernel_timer.reset()
+    g_kernel_timer.enable()
+
+    def counted(step, fn):
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        launches[step] = {n: c.n for n, c in counters.items()}
+        return out
+
+    # The timed step (salt XOR, then K1) at the batch the bench times,
+    # held byte for byte against K1's plain version on the same salted
+    # input, for the encode matrix and for the e=2 decode matrix.  These
+    # launches are the check's, not the path's: the counts are reset
+    # before each step below.
+    data = torch.from_numpy(batch).to(dev)
+    step_errs = {}
+    for name, bits in (("encode", bw.encode_bitmatrix(matrix, dev)),
+                       ("decode", bw.decode_bitmatrix(matrix, 2, dev))):
+        for salt in (0x9E3779B9, 0x12345678):
+            got = bw.salted_matmul_step()(data, bits, salt)
+            s32 = salt - (1 << 32) if salt >> 31 else salt
+            salted = (data.view(torch.int32) ^ s32).view(torch.uint8)
+            want = gf_pallas.gf_bit_matmul_plain(salted, bits.bits)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            step_errs[f"{name}@{salt:#x}"] = err
+            if got.shape != want.shape or err:
+                raise AssertionError(f"bench {name} step at {batch_shape} "
+                                     f"disagrees with plain: {err}")
+            del got, want, salted
+    del data
+    log("bench salted step == plain at " + json.dumps(
+        list(batch_shape)) + " " + json.dumps(step_errs))
+    compiles0 = g_devprof.snapshot()["compiles"]
+
+    try:
+        kw = dict(target_seconds=target_s, repeats=BENCH_REPEATS,
+                  warmup=BENCH_WARMUP, device=dev)
+        for step, fn in (("encode", bw.measure_encode),
+                         ("decode", bw.measure_decode)):
+            m = counted(step, lambda: fn(matrix, batch, **kw))
+            metrics.append(m)
+            n_fenced += m["n_steps"] * (BENCH_REPEATS + BENCH_WARMUP)
+        parity = counted("parity_check",
+                         lambda: bw.parity_check(matrix, device=dev))
+        remaps = {}
+        for uniform, infix in ((True, ""), (False, "_nonuniform")):
+            keys = {}
+            r = counted(f"remap{infix or '_uniform'}",
+                        lambda: bw.measure_crush_remap(
+                            *remap, uniform=uniform, infix=infix,
+                            partial=keys.update, device=dev))
+            remap_keys.update(keys)
+            remaps[infix or "_uniform"] = {
+                "wall_ms": r[0], "dev_ms": r[1], "host_ms": r[2],
+                "residual_fraction": r[3], "rtt_ms": r[4]}
+            metrics.extend(r[5])
+    finally:
+        g_kernel_timer.enable(False)
+    wall_s = time.perf_counter() - t_phase
+    for m in metrics:
+        rl = m.get("roofline", {})
+        hbm_share = (rl["implied_hbm_gibs"] / rl["peak_hbm_gibs"]
+                     if rl.get("peak_hbm_gibs") else None)
+        log(f"bench {m['name']} {m['value']} {m['unit']} fenced="
+            f"{m['fenced']} suspect={m.get('suspect', False)} roofline="
+            f"{rl.get('verdict', 'n/a')} model={rl.get('workload')} "
+            f"implied_hbm_gibs={rl.get('implied_hbm_gibs')} "
+            f"hbm_share={hbm_share} rtt_ms={m.get('rtt_ms')} "
+            f"n_steps={m.get('n_steps')} stats=" + json.dumps(m["stats"]))
+    log(f"bench parity_check {parity}; launches per step "
+        + json.dumps(launches) + "; remap " + json.dumps(remaps)
+        + "; remap keys " + json.dumps(remap_keys))
+    bad = [m["name"] for m in metrics
+           if not m["fenced"] or m.get("suspect", False)]
+    if bad:
+        raise AssertionError(f"bench metrics not fenced or suspect: {bad}")
+    if not parity:
+        raise AssertionError("bench parity_check failed on the card")
+    for step in ("encode", "decode", "parity_check"):
+        if not launches[step]["gf_bit_matmul"]:
+            raise AssertionError(f"bench {step}: K1 did not launch")
+    for infix in ("_uniform", "_nonuniform"):
+        n = launches[f"remap{infix}"]
+        flagged = remaps[infix]["residual_fraction"] > 0
+        if not n["crush_resolve"] or (flagged and not n["crush_rule"]):
+            raise AssertionError(f"bench remap{infix}: K7b or K6 did not "
+                                 f"launch: {n}")
+    replayed = {k: v for k, v in remap_keys.items()
+                if k.endswith("host_replayed")}
+    if len(replayed) != 2 or any(replayed.values()):
+        raise AssertionError(f"bench remap recomputed x on the host: "
+                             f"{replayed}")
+    prof = g_devprof.dump()
+    log("bench devprof " + json.dumps(prof))
+    # Every nvcc run of this process happened in phase 2's build stage
+    # and is attributed there (the build's worker threads carry the
+    # stage), none later; the bench compiled nothing while it timed.
+    from ceph_tpu_torch.ops import _build
+    compiles = {site: v["compiles"] for site, v in prof["sites"].items()
+                if v["compiles"]}
+    bench_compiles = g_devprof.snapshot()["compiles"] - compiles0
+    if (not prof["sites"] or compiles != (
+            {BUILD_STAGE: len(_build.build_logs)} if _build.build_logs
+            else {}) or bench_compiles):
+        raise AssertionError(
+            f"devprof: compiles by stage {compiles}, "
+            f"{len(_build.build_logs)} nvcc builds, {bench_compiles} in "
+            f"the bench, sites {sorted(prof['sites'])}")
+    timer = g_kernel_timer.dump()
+    log("bench kernel timer " + json.dumps(timer))
+    stages = g_oplat.breakdown_since(stage0, wall_s, max(n_fenced, 1))
+    log("bench oplat stage_breakdown " + json.dumps(stages))
+    log(f"bench phase took {wall_s:.1f} s")
+    return {"metrics": metrics, "parity_check": parity,
+            "launches": launches, "remaps": remaps, "remap_keys": remap_keys,
+            "devprof": prof, "kernel_timer": timer,
+            "stage_breakdown": stages, "seconds": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2565,6 +2724,7 @@ def main() -> int:
     from ceph_tpu_torch.ops import _build, gf_pallas
     from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
     from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.trace import g_devprof
 
     dev = torch.device("cuda")
     results: dict = {}
@@ -2582,7 +2742,8 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with g_devprof.stage(BUILD_STAGE):
+        built = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"build {sorted(built)} in {build_s:.2f} s")
     ptxas = {}
@@ -2838,6 +2999,16 @@ def main() -> int:
     # run as they did before it ----------------------------------------------------
     crush = crush_slice(dev, sass, probe["sm_count"])
     results["crush"] = crush
+    # the OSDMap drive's updates, as the osdmap logger's histogram saw them
+    from ceph_tpu_torch.trace import g_perf_histograms, latency_axes
+    from ceph_tpu_torch.trace.histogram import hist_percentiles
+    upd = g_perf_histograms.get("osdmap", "crush_map_latency_histogram",
+                                latency_axes)
+    crush["crush_map_update_histogram"] = {
+        "count": upd.total_count, "sum_usec": upd.axis0_sum,
+        **hist_percentiles(upd)}
+    log("crush_map_update histogram (usec) "
+        + json.dumps(crush["crush_map_update_histogram"]))
     crush_launches, crush_err, ct = (crush["launches"], crush["max_abs_err"],
                                      crush["times"])
     clocks = subprocess.run(
@@ -2859,6 +3030,14 @@ def main() -> int:
         f"{clocks}")
     k8 = legacy["times"]["L1 0"]
 
+    # -- 4b. the port's fenced bench, after the earlier slices' phases, which
+    # run as they did before it ------------------------------------------------
+    bench = bench_slice(dev)
+    results["bench"] = bench
+    bench_n = {n: sum(step[n] for step in bench["launches"].values())
+               for n in ("gf_bit_matmul", "crush_descend", "crush_resolve",
+                         "crush_rule")}
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -2878,7 +3057,8 @@ def main() -> int:
         "name": "gf_bit_matmul", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
-        "launches": launches + res_launches["gf_bit_matmul"] + family_k1,
+        "launches": (launches + res_launches["gf_bit_matmul"] + family_k1
+                     + bench_n["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -2918,7 +3098,8 @@ def main() -> int:
         "name": "crush_descend", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:592",
-        "launches": crush_launches["crush_descend"],
+        "launches": crush_launches["crush_descend"]
+        + bench_n["crush_descend"],
         "max_abs_err": crush_err["crush_descend"],
         "ms": k7["k7a_ms"], "plain_ms": k7["k7a_plain_ms"],
         "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
@@ -2940,7 +3121,8 @@ def main() -> int:
         "name": "crush_resolve", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
-        "launches": crush_launches["crush_resolve"],
+        "launches": crush_launches["crush_resolve"]
+        + bench_n["crush_resolve"],
         "max_abs_err": crush_err["crush_resolve"],
         "ms": k7["k7b_ms"], "plain_ms": k7["k7b_plain_ms"],
         "bound_ms": k7["k7b_bound_ms"], "bound_by": "bytes",
@@ -2954,7 +3136,7 @@ def main() -> int:
         "name": "crush_rule", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_kernels.py:436",
-        "launches": crush_launches["crush_rule"],
+        "launches": crush_launches["crush_rule"] + bench_n["crush_rule"],
         "max_abs_err": crush_err["crush_rule"],
         "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
         "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",
