@@ -3,7 +3,9 @@ remap, all through the fenced harness.
 
 Port of the single-device, cluster-free part of
 ``ceph_tpu/bench/workloads.py``: ``measure_encode``, ``measure_decode``,
-``parity_check`` and ``measure_crush_remap`` with the helpers they share.
+``parity_check``, ``measure_host_native`` (the native C++ region coder),
+``measure_dispatch_coalesce`` and ``measure_ec_pipeline`` (the dispatch
+scheduler) and ``measure_crush_remap`` with the helpers they share.
 Everything here returns schema metrics (schema.py) built from fenced
 timings (fence.py), summarized over repeats (stats.py), and stamped with
 a roofline verdict (roofline.py).  Per-kernel timings flow through
@@ -15,22 +17,20 @@ Every entry point runs on the card unless the caller passes
 from cache) and the fetch-drain fence are both load-bearing.
 
 Not here yet: the mesh branch of ``_measure_fenced_gf`` (it raises until
-the port has its mesh modules), ``measure_host_native`` and the remap's
-native host baseline (they wait for the port's native library: the remap
-reports ``host_ms`` None, decided before it runs), and the workloads
-that need a cluster.
+the port has its mesh modules) and the workloads that need a mesh or a
+cluster.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .fence import fenced_time, measure_rtt
-from .roofline import (EC_DECODE_K8M4_SALTED, EC_ENCODE_K8M4_SALTED,
-                       validate_reading)
+from .roofline import (EC_DECODE_K8M4_SALTED, EC_ENCODE_K8M4,
+                       EC_ENCODE_K8M4_SALTED, validate_reading)
 from .schema import make_metric
 from .stats import repeat_measure, summarize
 from ..common.perf_counters import PerfCounters, PerfCountersBuilder
@@ -277,6 +277,351 @@ def parity_check(matrix: np.ndarray, device="cuda") -> bool:
     return bool(np.array_equal(got, data[:, :2, :]))
 
 
+def measure_host_native(matrix: np.ndarray, data2d: np.ndarray,
+                        target_seconds: float = 1.5) -> Dict[str, Any]:
+    """GiB/s of the native C++ region coder (``native.native_rs_encode``)
+    on one (k, C) object.  Host execution completes synchronously, so the
+    reading is fenced by construction.  The library is built on first use;
+    a failed build raises."""
+    from ..native import native_rs_encode
+    rows = matrix[K:]
+    object_size = int(data2d.shape[0]) * int(data2d.shape[1])
+    native_rs_encode(rows, data2d)  # build, warm tables
+
+    def one_sample() -> float:
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < target_seconds / 3:
+            native_rs_encode(rows, data2d)
+            n += 1
+        dt = time.perf_counter() - t0
+        one_sample.n_ops += n
+        # the whole region is host codec compute: one stage, so the
+        # native baseline's stage_breakdown reconciles trivially
+        g_oplat.record("bench", "host_compute", dt * 1e6)
+        return n * object_size / dt / (1 << 30)
+
+    one_sample.n_ops = 0
+    flow0 = g_devprof.snapshot()
+    stage0 = g_oplat.snapshot()
+    wall_t0 = time.perf_counter()
+    st = repeat_measure(one_sample, repeats=3, warmup=0)
+    wall_s = time.perf_counter() - wall_t0
+    # the native path never crosses the device boundary: its devflow
+    # block is the zero-copy baseline the device paths are judged by
+    devflow = _devflow_since(flow0, max(one_sample.n_ops, 1))
+    rl = validate_reading(st["median"], EC_ENCODE_K8M4, "cpu", "", 1)
+    return make_metric("ec_encode_host_native", st["median"], "GiB/s",
+                       fenced=True, rtt_s=0.0, stats=st, roofline=rl,
+                       extra={"platform": "cpu", "devflow": devflow,
+                              "stage_breakdown": _stage_breakdown_since(
+                                  stage0, wall_s,
+                                  max(one_sample.n_ops, 1))})
+
+
+def _dispatch_codec(device, object_bytes: int):
+    """(codec, device, stripe_info_t, want) of the dispatch workloads: the
+    k=8 m=4 reed_sol_van ``cuda`` plugin (the JAX package's ``tpu``),
+    with ``backend=host`` when the caller asks for the CPU, and objects
+    of ``object_bytes`` as one stripe each."""
+    from ..ec.cuda_plugin import ErasureCodeCuda
+    from ..osd.ecutil import stripe_info_t
+    if object_bytes % K:
+        raise ValueError(f"object_bytes {object_bytes} is not a multiple "
+                         f"of k={K}")
+    dev = resolve_device(device)
+    impl = ErasureCodeCuda()
+    impl.init({"k": str(K), "m": str(M), "technique": "reed_sol_van",
+               "backend": "cuda" if dev.type == "cuda" else "host"})
+    return impl, dev, stripe_info_t(K, object_bytes), set(range(K + M))
+
+
+def _saved_dispatch_conf() -> Dict[str, Any]:
+    from ..common.config import g_conf
+    return {name: g_conf.values.get(name) for name in
+            ("ec_dispatch_batch_max", "ec_dispatch_batch_window_us")}
+
+
+def _restore_dispatch_conf(saved: Dict[str, Any]) -> None:
+    from ..common.config import g_conf
+    for name, v in saved.items():
+        if v is None:
+            g_conf.rm_val(name)
+        else:
+            g_conf.set_val(name, v)
+
+
+def measure_dispatch_coalesce(*, n_requests: int = 8,
+                              object_bytes: int = 65536,
+                              target_seconds: float = 0.6,
+                              repeats: int = 3, warmup: int = 1,
+                              rtt_s: Optional[float] = None,
+                              device="cuda"
+                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """N concurrent k=8 m=4 encodes of ``object_bytes`` through the
+    dispatch scheduler: coalesced (one padded device call per flush,
+    batch_max trigger) vs serial dispatch (window=0 exact passthrough,
+    one device call per request).
+
+    Fencing: both paths return fully host-materialized chunk buffers —
+    the device output is fetched before the clock stops, which is the
+    drain contract (fence.py) by construction; the measured region
+    therefore includes one transport round trip per device call, which
+    is exactly the per-call overhead the coalesced path amortizes.  The
+    RTT is measured and reported, never subtracted.  Inputs are salted
+    per pass so no layer can serve a repeat from cache.
+    """
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+
+    impl, dev, sinfo, want = _dispatch_codec(device, object_bytes)
+    rng = np.random.default_rng(20260803)
+    base = rng.integers(0, 256, size=(n_requests, object_bytes),
+                        dtype=np.uint8)
+    if rtt_s is None:
+        rtt_s = measure_rtt(device=dev)
+    saved = _saved_dispatch_conf()
+    pc = bench_perf_counters()
+
+    def one_pass(coalesced: bool) -> None:
+        payloads = np.bitwise_xor(base, np.uint8(_next_salt() & 0xFF))
+        if coalesced:
+            futs = [g_dispatcher.submit_encode(sinfo, impl, payloads[i],
+                                               want)
+                    for i in range(n_requests)]
+            for f in futs:
+                f.result()
+        else:
+            for i in range(n_requests):
+                g_dispatcher.encode(sinfo, impl, payloads[i], want)
+        pc.inc(l_bench_dispatches, 1 if coalesced else n_requests)
+        pc.inc(l_bench_bytes, n_requests * object_bytes)
+
+    def make_sampler(coalesced: bool, rounds: int):
+        def sample() -> float:
+            if coalesced:
+                g_conf.set_val("ec_dispatch_batch_max", n_requests)
+                g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+            else:
+                g_conf.set_val("ec_dispatch_batch_window_us", 0)
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                one_pass(coalesced)
+            dt = time.perf_counter() - t0
+            pc.tinc(l_bench_fence_time, dt)
+            return rounds * n_requests * object_bytes / dt / (1 << 30)
+
+        return sample
+
+    try:
+        results = {}
+        flows = {}
+        breakdowns = {}
+        for mode in ("serial", "coalesced"):
+            coalesced = mode == "coalesced"
+            # warm the build, then calibrate rounds per sample so the
+            # region dwarfs a single fence round trip
+            make_sampler(coalesced, 1)()
+            t0 = time.perf_counter()
+            make_sampler(coalesced, 1)()
+            per_pass = max(time.perf_counter() - t0, 1e-6)
+            rounds = max(1, min(
+                int(max(target_seconds / max(repeats, 1),
+                        4.0 * rtt_s) / per_pass), 256))
+            flow0 = g_devprof.snapshot()
+            stage0 = g_oplat.snapshot()
+            wall_t0 = time.perf_counter()
+            results[mode] = repeat_measure(
+                make_sampler(coalesced, rounds),
+                repeats=repeats, warmup=warmup)
+            wall_s = time.perf_counter() - wall_t0
+            n_ops = rounds * n_requests * (repeats + warmup)
+            flows[mode] = _devflow_since(flow0, n_ops)
+            breakdowns[mode] = _stage_breakdown_since(stage0, wall_s,
+                                                      n_ops)
+    finally:
+        _restore_dispatch_conf(saved)
+        g_dispatcher.flush()
+    platform, kind, ndev = _device_info(dev)
+    mets = []
+    for mode, name in (("coalesced", "ec_dispatch_coalesce_fenced"),
+                       ("serial", "ec_dispatch_serial_fenced")):
+        st = results[mode]
+        rl = validate_reading(st["median"], EC_ENCODE_K8M4, platform,
+                              kind, ndev)
+        extra = {"n_requests": n_requests, "object_bytes": object_bytes,
+                 "platform": platform, "devflow": flows[mode],
+                 "stage_breakdown": breakdowns[mode]}
+        if mode == "coalesced":
+            extra["serial_gibs"] = round(results["serial"]["median"], 4)
+            extra["speedup"] = round(
+                st["median"] / max(results["serial"]["median"], 1e-9), 3)
+            extra["batch_occupancy"] = n_requests
+        mets.append(make_metric(name, st["median"], "GiB/s", fenced=True,
+                                rtt_s=rtt_s, stats=st, roofline=rl,
+                                extra=extra))
+    return mets[0], mets[1]
+
+
+def measure_ec_pipeline(*, n_requests: int = 64,
+                        object_bytes: int = 65536, depth: int = 8,
+                        target_seconds: float = 0.6,
+                        repeats: int = 3, warmup: int = 1,
+                        rtt_s: Optional[float] = None, device="cuda"
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """N sequential k=8 m=4 encodes of ``object_bytes`` from ONE
+    submitter thread: pipeline depth ``depth`` (non-blocking dispatch
+    futures with continuation completion, window drained by a forced
+    flush at the depth boundary — the ECBackend backpressure rule) vs
+    depth 1 (the synchronous submit → result() per op).  The depth-1 leg
+    models why a lone OSD op thread never fills a batch: each op demands
+    its result inline, so every encode pays a full dispatch.
+
+    Fencing: completion is a continuation observing the fully
+    host-materialized chunk buffers, so the clock stops only after the
+    device output crossed back to the host (the drain contract, as in
+    measure_dispatch_coalesce); the RTT is measured and reported, never
+    subtracted.  Inputs are salted per pass.  The occupancy the pipeline
+    achieved is read back from the dispatcher's batch-occupancy
+    histogram (``mean_batch_occupancy``); byte-identity of the pipelined
+    outputs against the depth-1 path is checked every run
+    (``identical``).
+    """
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+    from ..trace import g_perf_histograms, occupancy_axes
+
+    impl, dev, sinfo, want = _dispatch_codec(device, object_bytes)
+    rng = np.random.default_rng(20260804)
+    base = rng.integers(0, 256, size=(n_requests, object_bytes),
+                        dtype=np.uint8)
+    if rtt_s is None:
+        rtt_s = measure_rtt(device=dev)
+    saved = _saved_dispatch_conf()
+    pc = bench_perf_counters()
+    occ_hist = g_perf_histograms.get(
+        "dispatch", "dispatch_batch_occupancy_histogram",
+        occupancy_axes)
+
+    def one_pass(d: int, collect: Optional[List] = None) -> None:
+        payloads = np.bitwise_xor(base, np.uint8(_next_salt() & 0xFF))
+        if d <= 1:
+            for i in range(n_requests):
+                out = g_dispatcher.encode(sinfo, impl, payloads[i],
+                                          want)
+                if collect is not None:
+                    collect.append(out)
+            pc.inc(l_bench_dispatches, n_requests)
+        else:
+            done = [None] * n_requests
+            inflight = [0]
+            for i in range(n_requests):
+                if inflight[0] >= d:
+                    # the per-PG window is full: backpressure drains it
+                    # by executing the batch inline (never by waiting)
+                    g_dispatcher.flush()
+                fut = g_dispatcher.submit_encode(sinfo, impl,
+                                                 payloads[i], want)
+                inflight[0] += 1
+
+                def on_ready(f, i=i):
+                    inflight[0] -= 1
+                    done[i] = f.result()    # resolved: host buffers
+
+                fut.add_done_callback(on_ready)
+            g_dispatcher.flush()            # completion fence
+            if any(r is None for r in done):
+                raise RuntimeError("a pipelined encode never resolved")
+            if collect is not None:
+                collect.extend(done)
+            pc.inc(l_bench_dispatches, (n_requests + d - 1) // d)
+        pc.inc(l_bench_bytes, n_requests * object_bytes)
+
+    def make_sampler(d: int, rounds: int):
+        def sample() -> float:
+            g_conf.set_val("ec_dispatch_batch_max", max(d, 1))
+            g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                one_pass(d)
+            dt = time.perf_counter() - t0
+            pc.tinc(l_bench_fence_time, dt)
+            return rounds * n_requests * object_bytes / dt / (1 << 30)
+
+        return sample
+
+    try:
+        # byte-identity receipt: the same salted payloads through both
+        # depths must produce identical chunk buffers
+        salt_before = _SALT[0]
+        g_conf.set_val("ec_dispatch_batch_max", depth)
+        g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+        piped: List = []
+        one_pass(depth, collect=piped)
+        _SALT[0] = salt_before          # replay the same inputs
+        serial: List = []
+        one_pass(1, collect=serial)
+        identical = all(
+            sorted(a) == sorted(b)
+            and all(np.asarray(a[i]).tobytes()
+                    == np.asarray(b[i]).tobytes() for i in a)
+            for a, b in zip(piped, serial))
+        results = {}
+        flows = {}
+        breakdowns = {}
+        occupancy = None
+        for d in (1, depth):
+            make_sampler(d, 1)()        # warm
+            t0 = time.perf_counter()
+            make_sampler(d, 1)()
+            per_pass = max(time.perf_counter() - t0, 1e-6)
+            rounds = max(1, min(
+                int(max(target_seconds / max(repeats, 1),
+                        4.0 * rtt_s) / per_pass), 256))
+            if d == depth:
+                occ0 = (occ_hist.axis0_sum, occ_hist.total_count)
+            flow0 = g_devprof.snapshot()
+            stage0 = g_oplat.snapshot()
+            wall_t0 = time.perf_counter()
+            results[d] = repeat_measure(make_sampler(d, rounds),
+                                        repeats=repeats, warmup=warmup)
+            wall_s = time.perf_counter() - wall_t0
+            n_ops = rounds * n_requests * (repeats + warmup)
+            flows[d] = _devflow_since(flow0, n_ops)
+            # depth-1's breakdown is device_call-dominated (every op
+            # demands its own flush), depth-8 grows a real batch_window
+            # share and its coverage approaches the achieved occupancy
+            breakdowns[d] = _stage_breakdown_since(stage0, wall_s,
+                                                   n_ops)
+            if d == depth:
+                ds = occ_hist.axis0_sum - occ0[0]
+                dn = occ_hist.total_count - occ0[1]
+                occupancy = round(ds / dn, 2) if dn else 0.0
+    finally:
+        _restore_dispatch_conf(saved)
+        g_dispatcher.flush()
+    platform, kind, ndev = _device_info(dev)
+    mets = []
+    for d, name in ((depth, "ec_pipeline_fenced"),
+                    (1, "ec_pipeline_depth1_fenced")):
+        st = results[d]
+        rl = validate_reading(st["median"], EC_ENCODE_K8M4, platform,
+                              kind, ndev)
+        extra = {"n_requests": n_requests, "object_bytes": object_bytes,
+                 "pipeline_depth": d, "platform": platform,
+                 "devflow": flows[d],
+                 "stage_breakdown": breakdowns[d]}
+        if d == depth:
+            extra["depth1_gibs"] = round(results[1]["median"], 4)
+            extra["speedup"] = round(
+                st["median"] / max(results[1]["median"], 1e-9), 3)
+            extra["mean_batch_occupancy"] = occupancy
+            extra["identical"] = bool(identical)
+        mets.append(make_metric(name, st["median"], "GiB/s",
+                                fenced=True, rtt_s=rtt_s, stats=st,
+                                roofline=rl, extra=extra))
+    return mets[0], mets[1]
+
+
 def remap_crush_map(n_osds: int, uniform: bool):
     """``measure_crush_remap``'s map: ``n_osds`` OSDs in hosts of 20,
     straw2, (u) weights 0x10000 or (n) 0x8000 x {1..4} from
@@ -325,14 +670,18 @@ def measure_crush_remap(n_osds=1000, n_pgs=100_000, epochs=10,
         consumer pays per epoch.  The drain RTT is measured and
         reported; the un-subtracted total is also published.
 
+      - host: the native C++ mapper (``native.NativeCrushMapper``) over
+        the first 2000 x with every OSD in, extrapolated to all x.
+
     ``partial`` is the milestone callback: flat keys flush to the caller
     the moment they exist; the port adds ``crush@_host_replayed``, the x
     recomputed on the host (none: K6 finishes them on the device).
     Returns (wall_ms, dev_ms, host_ms, residual_fraction, rtt_ms,
-    metrics); ``host_ms`` is None until the port has its native mapper.
-    A reading the schema refuses raises.
+    metrics).  A reading the schema refuses raises, and so does a failed
+    build of the native library.
     """
     import sys
+    from ..native import NativeCrushMapper
     from ..ops.crush_fast import compile_fast_rule
     dev = resolve_device(device)
     cw, rno = remap_crush_map(n_osds, uniform)
@@ -355,7 +704,16 @@ def measure_crush_remap(n_osds=1000, n_pgs=100_000, epochs=10,
             partial({k.replace("@", infix): v for k, v in kv.items()})
 
     metrics = []
-    host_ms = None          # no native host baseline in the port yet
+
+    # the native-host baseline first: pure C++ on the host
+    nm = NativeCrushMapper(cw.crush)
+    sample = 2000
+    t0 = time.perf_counter()
+    nm.do_rule_batch(rno, list(range(sample)), 3, [0x10000] * n_osds)
+    host_ms = (time.perf_counter() - t0) * (n_pgs / sample) * 1000
+    if uniform:
+        report(crush_remap_native_host_ms=round(host_ms, 2))
+    mark("native host baseline")
 
     fr = compile_fast_rule(cw.crush, rno, 3, device=dev)
     mark("compile_fast_rule (host tables)")

@@ -75,6 +75,13 @@ class ErasureCode(ErasureCodeInterface):
                                    "CPU)")
         self.backend_name = name
 
+    def _use_device(self) -> bool:
+        """True for ``backend=cuda``, False for ``backend=host``: the
+        dispatcher's choice of whether to pad a flush's stripes to a power
+        of two (``dispatch/batch.py``), as the JAX package pads on its
+        device path only."""
+        return self.backend_name == "cuda"
+
     @property
     def torch_device(self) -> str:
         """The torch device of the chosen backend."""

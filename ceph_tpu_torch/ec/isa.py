@@ -22,6 +22,9 @@ DEFAULT_M = 3
 
 
 class ErasureCodeIsa(ErasureCodeMatrixRS):
+    # the isa and cuda plugins share matrix semantics by construction, so
+    # their requests of one (technique, k, m) share a dispatch flush
+    signature_family = "isa-matrix"
 
     def __init__(self):
         super().__init__()

@@ -65,6 +65,9 @@ def _systematic(coding: np.ndarray, dtype=np.uint8) -> np.ndarray:
 
 
 class ErasureCodeJerasure(ErasureCodeMatrixRS):
+    # jerasure matrices differ from isa's for the same (technique, k,
+    # m), so the family keeps its requests in their own dispatch groups
+    signature_family = "jerasure"
 
     def __init__(self, technique: str = "reed_sol_van"):
         super().__init__()
@@ -169,11 +172,12 @@ class ErasureCodeJerasure(ErasureCodeMatrixRS):
     # -- device layout ------------------------------------------------------
     def device(self):
         if self.is_word_code:
-            if self._device is None:
-                from ..ops.gf_matmul import DeviceWordRSBackend
-                self._device = DeviceWordRSBackend(
-                    self.codec.matrix, self.w, self.torch_device)
-            return self._device
+            with self._device_lock:
+                if self._device is None:
+                    from ..ops.gf_matmul import DeviceWordRSBackend
+                    self._device = DeviceWordRSBackend(
+                        self.codec.matrix, self.w, self.torch_device)
+                return self._device
         return super().device()
 
     def _stripe_block(self) -> int:

@@ -23,6 +23,7 @@ caller; the port never answers a device request from the CPU.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Sequence, Set
 
 import numpy as np
@@ -49,12 +50,43 @@ class ErasureCodeMatrixRS(ErasureCode):
     # chunks (jerasure word/bitmatrix codes): decode uses the host codec
     _device_decode_supported = True
 
+    # matrix codes are stripe- and block-independent, so the dispatch
+    # scheduler (dispatch/) may coalesce signature-equal requests into
+    # one padded device call
+    dispatch_batchable = True
+    # codecs with byte-identical matrix semantics share a family so their
+    # requests group across plugins (cuda == isa by construction); None =
+    # the concrete class name
+    signature_family: "str | None" = None
+
+    # the JAX package's mesh may shard this codec's decode: true when
+    # decode_batch's device path is the plain inverted-survivor-matrix
+    # bit-matmul on raw (S, n_src, C) stacks.  Kept for the port's mesh
+    # (not ported yet), with the JAX package's rule.
+    @property
+    def mesh_decode_shardable(self) -> bool:
+        return self.mesh_row_shardable and self._device_decode_supported
+
+    def codec_signature(self):
+        """The dispatcher's grouping key: everything the coding matrix is
+        derived from.  Two codecs with equal signatures encode and decode
+        byte-identically, so their requests may share a call."""
+        return (self.signature_family or type(self).__name__,
+                self.k, self.m,
+                getattr(self, "technique", ""),
+                getattr(self, "w", 0),
+                getattr(self, "packetsize", 0),
+                tuple(self.chunk_mapping))
+
     def __init__(self):
         super().__init__()
         self.k = 0
         self.m = 0
         self.codec: MatrixRSCodec | None = None
         self._device = None  # lazy DeviceRSBackend
+        # the dispatcher runs flushes from whichever submitter thread
+        # flushes, so two threads may ask for the backend at once
+        self._device_lock = threading.Lock()
 
     # -- sizing -------------------------------------------------------------
     def get_chunk_count(self) -> int:
@@ -78,11 +110,12 @@ class ErasureCodeMatrixRS(ErasureCode):
 
     # -- backend ------------------------------------------------------------
     def device(self):
-        if self._device is None:
-            from ..ops.gf_matmul import DeviceRSBackend
-            self._device = DeviceRSBackend(self.codec.matrix,
-                                           self.torch_device)
-        return self._device
+        with self._device_lock:
+            if self._device is None:
+                from ..ops.gf_matmul import DeviceRSBackend
+                self._device = DeviceRSBackend(self.codec.matrix,
+                                               self.torch_device)
+            return self._device
 
     def _stripe_block(self) -> int:
         """Per-stripe chunk-size granularity (1 = pointwise byte codes;
@@ -119,10 +152,18 @@ class ErasureCodeMatrixRS(ErasureCode):
 
     # -- batched stripe API (ECUtil striping, osd/ECUtil.cc:120-159) --------
     def _device_encode_batch(self, data: np.ndarray) -> np.ndarray:
-        """(S, k, C) numpy -> (S, m, C) numpy on the backend's device."""
-        t = torch.from_numpy(np.ascontiguousarray(data)).to(
-            self.torch_device)
-        return self.encode_batch_device(t).cpu().numpy()
+        """(S, k, C) numpy -> (S, m, C) numpy on the backend's device.  On
+        the card the upload and the fetch are accounted where the JAX
+        package's device route accounts them (``gf_matmul.encode``, or
+        ``gf_matmul.encode_w`` for the word codes)."""
+        if self.torch_device != "cuda":
+            return self.encode_batch_device(
+                torch.from_numpy(np.ascontiguousarray(data))).numpy()
+        from ..ops.gf_matmul import device_round_trip
+        site = "gf_matmul.encode_w" if getattr(self, "is_word_code", False) \
+            else "gf_matmul.encode"
+        return device_round_trip(site, self.encode_batch_device, data,
+                                 self.torch_device)
 
     def _device_encode(self, data: np.ndarray) -> np.ndarray:
         """(k, C) -> (m, C) on the backend's device."""

@@ -58,6 +58,22 @@ class ErasureCodePluginRegistry:
                 profile: ErasureCodeProfile) -> ErasureCodeInterface:
         return self.get(name).make(profile)
 
+    def preload(self, names) -> None:
+        """Load each named plugin now (``osd_erasure_code_plugins``);
+        an unknown name raises."""
+        for n in names:
+            self.get(n)
+
+    def names(self):
+        """Every built-in plugin, sorted: the JAX package's list with
+        ``cuda`` for ``tpu``.  ``regenerating`` is not in it: the port
+        takes that code with ``ECBackend`` and the OSD."""
+        with self._lock:
+            for n in ("jerasure", "isa", "cuda", "lrc", "shec",
+                      "example_xor"):
+                self._load_builtin(n)
+            return sorted(self._plugins)
+
     # lazy built-in registration (avoids import cycles)
     def _load_builtin(self, name: str) -> None:
         if name in self._plugins:

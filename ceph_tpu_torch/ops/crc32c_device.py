@@ -348,7 +348,7 @@ def _launch(device: torch.device, n: int, *, src=None, dst=None,
         device_coalesced_tables(device).data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"crc32c_launch failed: cudaError {rc}")
-    launches.n += count
+    launches.add(count)
     return out
 
 

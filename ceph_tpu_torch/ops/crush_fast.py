@@ -396,7 +396,7 @@ def crush_descend(xl: torch.Tensor, roots: torch.Tensor,
         int(spec.leaf_firstn), spec.vary_r, spec.numrep, stream)
     if rc != 0:
         raise RuntimeError(f"crush_descend_launch failed: cudaError {rc}")
-    descend_launches.n += 1
+    descend_launches.add(1)
     return cand, leaf
 
 
@@ -646,7 +646,7 @@ def crush_resolve(spec: ResolveSpec, cand: torch.Tensor,
             int(spec.gate), width, mode, stream)
         if rc != 0:
             raise RuntimeError(f"crush_resolve_launch failed: cudaError {rc}")
-        resolve_launches.n += 1
+        resolve_launches.add(1)
     return (out, risky) if mode == 1 else out
 
 

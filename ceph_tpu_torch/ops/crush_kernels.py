@@ -792,7 +792,7 @@ def crush_rule(prog: RuleProgram, x: torch.Tensor, weight: torch.Tensor,
             weight.data_ptr(), weight.shape[0], R, stream)
         if rc != 0:
             raise RuntimeError(f"crush_rule_launch failed: cudaError {rc}")
-        rule_launches.n += 1
+        rule_launches.add(1)
     return None if packed is not None else (out, counts)
 
 

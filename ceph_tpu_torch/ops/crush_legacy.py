@@ -562,6 +562,6 @@ def crush_legacy(rule: LegacyFastRule, x: torch.Tensor, weight: torch.Tensor
             R, weight.data_ptr(), weight.shape[0], stream)
         if rc != 0:
             raise RuntimeError(f"crush_legacy_launch failed: cudaError {rc}")
-        launches.n += 1
+        launches.add(1)
     return out, counts, torch.zeros(x.shape[0], dtype=torch.bool,
                                      device=x.device)

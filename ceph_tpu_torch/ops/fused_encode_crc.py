@@ -155,5 +155,5 @@ def fused_encode_crc_kernel(stripes: torch.Tensor, bm: BitMatrix,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_encode_crc_launch failed: cudaError {rc}")
-    launches.n += 1
+    launches.add(1)
     return out

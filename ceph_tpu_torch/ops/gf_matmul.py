@@ -57,6 +57,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def device_round_trip(site: str, fn, data: np.ndarray,
+                      device) -> np.ndarray:
+    """numpy ``data`` up to ``device``, ``fn`` on the tensor there, the
+    result back as numpy: the EC path's host<->device boundary.  Both
+    legs are accounted at ``site`` (counter bumps, no sync) and the call
+    runs inside that site's devprof stage."""
+    g_devprof.account_h2d(site, data.nbytes)
+    with g_devprof.stage(site):
+        t = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+        out = fn(t).cpu().numpy()
+    g_devprof.account_d2h(site, out.nbytes)
+    return out
+
+
 def gf_bit_matmul(data: torch.Tensor,
                   bitmat: Union[BitMatrix, np.ndarray]) -> torch.Tensor:
     """data (S, k, C) uint8, bitmat (8k, 8r) 0/1 -> (S, r, C) uint8.
@@ -112,12 +126,8 @@ class DeviceWordRSBackend:
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy)."""
-        g_devprof.account_h2d("gf_matmul.encode_w", data.nbytes)
-        with g_devprof.stage("gf_matmul.encode_w"):
-            t = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
-            out = self.encode_device(t).cpu().numpy()
-        g_devprof.account_d2h("gf_matmul.encode_w", out.nbytes)
-        return out
+        return device_round_trip("gf_matmul.encode_w", self.encode_device,
+                                 data, self.device)
 
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """(S, k, C) uint8 tensor on this device -> (S, m, C) tensor."""
@@ -141,21 +151,14 @@ class DeviceRSBackend:
             OrderedDict()
         self._cache_lock = threading.Lock()
 
-    def _to_device(self, data: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
-
     # -- encode -------------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:
         """(S, k, C) uint8 numpy -> (S, m, C) coding chunks (numpy): the
         whole batch crosses up, the coding chunks cross back, both legs
         accounted at ``gf_matmul.encode``."""
-        g_devprof.account_h2d("gf_matmul.encode", data.nbytes)
-        with g_devprof.stage("gf_matmul.encode"):
-            out = g_kernel_timer.timed(
-                "gf_encode", lambda: self.encode_device(
-                    self._to_device(data)).cpu().numpy())
-        g_devprof.account_d2h("gf_matmul.encode", out.nbytes)
-        return out
+        return g_kernel_timer.timed(
+            "gf_encode", device_round_trip, "gf_matmul.encode",
+            self.encode_device, data, self.device)
 
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """(S, k, C) uint8 tensor on this device -> (S, m, C) tensor."""
@@ -191,12 +194,10 @@ class DeviceRSBackend:
         data rows (S, len(want_rows), C), numpy in and out."""
         # a cache miss accounts the matrix upload first, as in JAX
         self._decode_bits_for(tuple(srcs), tuple(want_rows))
-        g_devprof.account_h2d("gf_matmul.decode", survivors.nbytes)
-        with g_devprof.stage("gf_matmul.decode"):
-            out = self.decode_data_device(self._to_device(survivors), srcs,
-                                          want_rows).cpu().numpy()
-        g_devprof.account_d2h("gf_matmul.decode", out.nbytes)
-        return out
+        return device_round_trip(
+            "gf_matmul.decode",
+            lambda t: self.decode_data_device(t, srcs, want_rows),
+            survivors, self.device)
 
     def decode_data_device(self, survivors: torch.Tensor,
                            srcs: Sequence[int],

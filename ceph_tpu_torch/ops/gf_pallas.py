@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 
 from typing import Tuple
 
@@ -68,13 +69,22 @@ _PLAIN_CHUNK_BYTES = 256 << 20
 
 
 class LaunchCounter:
-    """Kernel launches since the last ``reset()``."""
+    """Kernel launches since the last ``reset()``.  Wrappers count with
+    ``add``, under a lock: the dispatch scheduler launches from whichever
+    submitter thread flushes, and ``n += 1`` from two threads can lose a
+    launch."""
 
     def __init__(self):
         self.n = 0
+        self._lock = threading.Lock()
+
+    def add(self, k: int = 1) -> None:
+        with self._lock:
+            self.n += int(k)
 
     def reset(self) -> None:
-        self.n = 0
+        with self._lock:
+            self.n = 0
 
 
 launches = LaunchCounter()          # K1
@@ -236,7 +246,7 @@ def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
     if data.device.type == "cpu":
         return gf_bit_matmul_plain(data, bm.bits.cpu())
     out, launched = _launch("gf_bit_matmul_launch", data, bm.r, bm.tables)
-    launches.n += launched
+    launches.add(launched)
     return out
 
 
@@ -313,5 +323,5 @@ def gfw_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix,
         return gfw_bit_matmul_plain(data, bm.bits.cpu(), w)
     out, launched = _launch("gfw_bit_matmul_launch", data, bm.r // ws,
                             bm.tables, ws)
-    word_launches.n += launched
+    word_launches.add(launched)
     return out

@@ -83,7 +83,7 @@ def _fused_encode_crc(stripes: torch.Tensor, enc_bits: BitMatrix) \
     else:
         crcs = _fused_encode_crc_two_pass(stripes, enc_bits, bodies)[1]
     if stripes.device.type == "cuda":
-        launches.n += 1
+        launches.add(1)
     return bodies, crcs
 
 

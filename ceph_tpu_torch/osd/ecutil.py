@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Set
 
 import numpy as np
 
+from ..trace.devprof import g_devprof
+from ..trace.oplat import g_oplat
 from ..utils.crc32c import crc32c
 
 
@@ -78,6 +80,7 @@ def _pack_rows(want_l, rows) -> Dict[int, np.ndarray]:
     pack = np.empty((len(want_l), S * C), dtype=np.uint8)
     for j, src in enumerate(rows):
         pack[j].reshape(S, C)[:] = src
+    g_devprof.account_host_copy("ecutil.pack_shards", pack.nbytes)
     return {i: pack[j] for j, i in enumerate(want_l)}
 
 
@@ -101,10 +104,14 @@ def encode(sinfo: stripe_info_t, ec_impl, data,
         # mapped layered codes (lrc): one batched call per layer yields
         # every physical chunk directly
         allc = ec_impl.encode_batch_full(buf.reshape(S, k, C))  # (S, n, C)
+        # stage ledger: the codec call returned; the submitting op's d2h
+        # stage (stamped by the dispatcher) covers the pack below
+        g_oplat.checkpoint("device_call")
         return _pack_rows(want_l, (allc[:, i, :] for i in want_l))
     if hasattr(ec_impl, "encode_batch") and not ec_impl.get_chunk_mapping():
         stripes = buf.reshape(S, k, C)
         coding = ec_impl.encode_batch(stripes)        # (S, m, C)
+        g_oplat.checkpoint("device_call")
         return _pack_rows(want_l,
                           (stripes[:, i, :] if i < k
                            else coding[:, i - k, :] for i in want_l))
@@ -115,6 +122,8 @@ def encode(sinfo: stripe_info_t, ec_impl, data,
         encoded = ec_impl.encode(want, buf[s * w:(s + 1) * w])
         for i, chunk in encoded.items():
             out_parts[i].append(chunk)
+    # host-only codec loop: the "device_call" stage is the codec call
+    g_oplat.checkpoint("device_call")
     return _pack_rows(want_l, (np.stack(out_parts[i]) for i in want_l))
 
 
@@ -138,6 +147,7 @@ def decode_concat(sinfo: stripe_info_t, ec_impl,
     # i lives at chunk_index(i) for mapped codes
     want_phys = [ec_impl.chunk_index(i) for i in range(k)]
     got = ec_impl.decode_batch(chunks2d, want_phys)
+    g_oplat.checkpoint("device_call")
     data = np.stack([got[want_phys[i]] for i in range(k)],
                     axis=1)  # (S, k, C)
     return data.reshape(-1)
@@ -158,6 +168,7 @@ def decode(sinfo: stripe_info_t, ec_impl,
     chunks2d = {i: np.asarray(b, dtype=np.uint8).reshape(S, C)
                 for i, b in to_decode.items()}
     got = ec_impl.decode_batch(chunks2d, list(need))
+    g_oplat.checkpoint("device_call")
     return {i: np.ascontiguousarray(got[i]).reshape(-1) for i in need}
 
 

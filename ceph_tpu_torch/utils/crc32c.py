@@ -2,15 +2,19 @@
 
 Port of ``ceph_tpu/utils/crc32c.py``: raw crc32c updates with no pre or
 post inversion, seeded with -1 (reference include/crc32c.h,
-common/crc32c*.cc table paths), so ``crc32c(b"") == 0xFFFFFFFF``.  Only
-the table-driven software path is carried: the JAX package's native C++
-path (``ceph_tpu.native``) is not part of the port, so ``crc32c`` is
-``crc32c_sw``.  The card computes the same function in
-``ops/crc32c_device.py``.
+common/crc32c*.cc table paths), so ``crc32c(b"") == 0xFFFFFFFF``.
+``crc32c`` runs the port's native C++ library (``native.py``), which it
+builds on first use; a failed build raises, there is no software route.
+``crc32c_sw`` is the plain table loop, kept as the reference the native
+path is held to.  Both hash the logical bytes: an array is fed to the
+library as ``np.ascontiguousarray(a.astype(np.uint8))``.  The card
+computes the same function in ``ops/crc32c_device.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..native import crc32c as _native_crc32c
 
 _POLY = 0x82F63B78  # reflected CRC-32C polynomial
 
@@ -42,5 +46,5 @@ def crc32c_sw(data, crc: int = 0xFFFFFFFF) -> int:
 
 
 def crc32c(data, crc: int = 0xFFFFFFFF) -> int:
-    """The port's host crc32c: the software path."""
-    return crc32c_sw(data, crc)
+    """The port's host crc32c: the native library's table update."""
+    return _native_crc32c(data, crc)

@@ -208,7 +208,11 @@ configurations at 100000 x, both trees' cand and leaf tables equal.
 ``--k7a-forms`` (``k7a_form_turns``) times K7a's per-item int64 quotient
 tables against its multiply-high in turns on (n) maps of 4 to 1000
 distinct weights, both forms' tables equal: the measurement behind
-``Q64_MAX_TABLES``.
+``Q64_MAX_TABLES``.  ``--dispatch-scan`` (``dispatch_scan_turns``) looks for
+where the bench CLI's coalesced flush loses its time: the first touch of
+new host pages, 4n's ``encode_batch_scan``, the CLI's dispatch workloads in
+this process, and the CLI in turns as it is and with glibc's malloc held
+(``MALLOC_KEEP``); results in ``chiprun_out/dispatch_scan.json``.
 
 The observability and bench-core slice adds, after 5l:
 
@@ -228,9 +232,44 @@ The observability and bench-core slice adds, after 5l:
    breakdown of the phase.  After 4c the ``crush_map_update`` histogram's
    percentiles (``OSDMapMapping.update``, the OSDMap drive) are printed.
 
-Prints the ``{"kernels": [...]}`` line before the last and, as the last
-line, ``{"ok": true, "device": {...}}``.  Full results also go to
-``chiprun_out/chip_smoke.json``.
+The dispatch and native-library slice adds, after 4b:
+
+4d. the dispatch scheduler (``ceph_tpu_torch/dispatch``) on the card, with
+   the ``cuda`` plugin k=8 m=4 reed_sol_van, stripe unit 4096, on the 64
+   objects of 4 MiB: ``submit_encode`` of all 64 with
+   ``ec_dispatch_batch_max`` 64 (one coalesced flush, byte-equal to
+   per-object ``ecutil.encode``); ``submit_decode_concat`` of all 64 with
+   shards {1, 9} lost (byte-equal to the payloads); then 8 submitter
+   threads x 8 objects on a new codec (its device backend must be built
+   once), byte-equal: with a collection window and flushes of 16, every
+   thread queued before any asks for a result, so the mean batch
+   occupancy (the dispatcher's histogram) must exceed 8, a flush holding
+   requests of two threads; and at window 0, where each thread runs its
+   encodes inline, at least two threads must be in the codec's
+   ``encode_batch`` at once.  The most ``_execute`` calls, ``encode_batch``
+   calls and K1 wrapper calls running at once are logged per leg.  K1's
+   count is set to 0 just before each leg and must equal the leg's
+   flushes and inline calls just after; the dispatcher's
+   ``batch_fallbacks``, ``dispatch_fallback`` and ``request_errors`` must
+   not move in any leg.  Then the host-clock times
+   of coalesced against serial (window 0) encode and decode of the 64
+   objects, in turns, and one more run of each with its stage ledger,
+   kernel timer and host copies and transfers per object;
+4n. the native host library (``native.py``, g++ of ``csrc_host/``): its
+   build seconds and a check of its crc32c and region coder against the
+   plain versions; ``encode_batch_scan``: the ``cuda`` codec's
+   ``encode_batch`` and K1 alone at (S, 8, 8192), S = 1, 8, 16, 32, 64,
+   the shapes the CLI's dispatch workloads flush, byte for byte against
+   K1's plain version, with the pieces of its time and of one coalesced
+   flush of S objects; then ``python -m ceph_tpu_torch.bench --gate warn`` in
+   its own process, whose one JSON line must be schema-valid with every
+   metric fenced and not suspect, ``decode_parity`` and the pipeline's
+   ``identical`` true and no error (the line goes to
+   ``chiprun_out/bench_line.json``).
+
+Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
+before the last and, as the last line, ``{"ok": true, "device": {...}}``.
+Full results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -240,6 +279,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2710,6 +2750,563 @@ def bench_slice(dev, batch_shape=BENCH_BATCH, target_s=BENCH_TARGET_S,
             "stage_breakdown": stages, "seconds": wall_s}
 
 
+# 4d: the dispatch scheduler on the card
+DISPATCH_THREADS = 8
+DISPATCH_PER_THREAD = 8
+# the threaded leg's flush size: each thread has 8 requests, so a flush of
+# 16 holds requests of at least two threads
+DISPATCH_THREAD_BATCH = 2 * DISPATCH_PER_THREAD
+DISPATCH_TIMING_RUNS = 3
+BENCH_CLI_TIMEOUT_S = 600
+
+
+class InFlight:
+    """Calls of the functions it wraps that are running at once, and the
+    most seen since ``reset``."""
+
+    def __init__(self):
+        self.now = self.most = 0
+        self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.now = self.most = 0
+
+    def wrap(self, fn):
+        def inner(*args, **kwargs):
+            with self._lock:
+                self.now += 1
+                self.most = max(self.most, self.now)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.now -= 1
+        return inner
+
+
+def dispatch_slice(objs) -> dict:
+    """4d: the dispatch scheduler's coalesced encode and degraded read of
+    the 64 objects on the card, then 8 submitter threads with and without
+    a window; K1's count set to 0 just before each leg and read just
+    after.  Returns the counts, flushes, occupancy, the calls that ran at
+    once and the host-clock times; raises on any failed check."""
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import dispatch_perf_counters, g_dispatcher
+    from ceph_tpu_torch.dispatch import scheduler as ds
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.ops import gf_matmul, gf_pallas
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.common.kernel_trace import g_kernel_timer
+    from ceph_tpu_torch.trace import (devflow_delta, g_devprof, g_oplat,
+                                      g_perf_histograms, occupancy_axes)
+    t_phase = time.perf_counter()
+    profile = {"plugin": "cuda", "k": str(K), "m": str(M),
+               "technique": "reed_sol_van"}
+    codec = create_erasure_code(profile)
+    sinfo = ecutil.stripe_info_t(K, K * CHUNK)
+    all_shards = set(range(K + M))
+    want = [ecutil.encode(sinfo, codec, o, all_shards) for o in objs]
+    surv = [{i: b for i, b in sh.items() if i not in ERASED} for sh in want]
+    pc = dispatch_perf_counters()
+    hist = g_perf_histograms.get("dispatch",
+                                 "dispatch_batch_occupancy_histogram",
+                                 occupancy_axes)
+    guarded = (ds.l_dispatch_fallbacks, ds.l_dispatch_fallback_reqs,
+               ds.l_dispatch_errors)
+    legs = {}
+
+    def leg(name, drive):
+        """One counted leg: K1's count and the dispatcher's counters read
+        just before and just after ``drive``.  K1 must launch once per
+        device call the dispatcher made: each flush and each request it
+        ran inline (window 0)."""
+        g0 = [pc.get(c) for c in guarded]
+        b0 = pc.get(ds.l_dispatch_batches)
+        p0 = pc.get(ds.l_dispatch_passthrough)
+        h0 = (hist.axis0_sum, hist.total_count)
+        gf_pallas.launches.reset()
+        out = drive()
+        k1 = gf_pallas.launches.n
+        flushes = pc.get(ds.l_dispatch_batches) - b0
+        inline = pc.get(ds.l_dispatch_passthrough) - p0
+        moved = [pc.get(c) - v for c, v in zip(guarded, g0)]
+        dn = hist.total_count - h0[1]
+        occ = (hist.axis0_sum - h0[0]) / dn if dn else 0.0
+        legs[name] = {"k1_launches": k1, "flushes": flushes,
+                      "inline": inline, "mean_occupancy": occ,
+                      "fallbacks_fallback_reqs_errors": moved}
+        log(f"dispatch {name}: " + json.dumps(legs[name]))
+        if any(moved):
+            raise AssertionError(f"dispatch {name}: a batch failed and was "
+                                 f"re-run or errored: {moved}")
+        if k1 != flushes + inline or not k1:
+            raise AssertionError(f"dispatch {name}: K1 launched {k1} times "
+                                 f"for {flushes} flushes and {inline} "
+                                 "inline calls")
+        return out
+
+    def check_encode(name, got, idx):
+        for i, r in zip(idx, got):
+            if sorted(r) != sorted(want[i]) or any(
+                    not np.array_equal(r[j], want[i][j]) for j in r):
+                raise AssertionError(f"dispatch {name}: object {i} differs "
+                                     "from per-object ecutil.encode")
+
+    try:
+        g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+        g_conf.set_val("ec_dispatch_batch_max", N_OBJ)
+        got = leg("encode", lambda: [f.result() for f in [
+            g_dispatcher.submit_encode(sinfo, codec, o, all_shards)
+            for o in objs]])
+        check_encode("encode", got, range(N_OBJ))
+        del got
+        got = leg("decode_concat", lambda: [f.result() for f in [
+            g_dispatcher.submit_decode_concat(sinfo, codec, sv)
+            for sv in surv]])
+        for i, (g, o) in enumerate(zip(got, objs)):
+            if not np.array_equal(g, o):
+                raise AssertionError(f"dispatch decode_concat: object {i} "
+                                     "differs from its payload")
+        del got
+
+        # 8 submitter threads on a codec whose device backend is not built
+        # yet, so they race for it; the calls that run at once are
+        # counted in the flush (_execute), the codec's device call and
+        # K1's wrapper
+        execs, calls, k1s = InFlight(), InFlight(), InFlight()
+        built = []
+        make_backend = gf_matmul.DeviceRSBackend
+
+        def counted_backend(*args, **kwargs):
+            built.append(1)
+            return make_backend(*args, **kwargs)
+
+        def threaded(th_codec, windowed):
+            """Each thread encodes its 8 objects.  Windowed, all threads
+            start together and every one has queued its requests before
+            any demands a result, so each flush of
+            ``DISPATCH_THREAD_BATCH`` holds requests of several threads
+            and runs in the thread whose submit filled it, while the
+            others go on queueing.  Window 0, every encode runs inline in
+            its own thread, so the threads are in the device call and K1
+            at once."""
+            res = [None] * N_OBJ
+            errs = []
+            start = threading.Barrier(DISPATCH_THREADS)
+            queued = threading.Barrier(DISPATCH_THREADS)
+
+            def submitter(t):
+                idx = range(t * DISPATCH_PER_THREAD,
+                            (t + 1) * DISPATCH_PER_THREAD)
+                try:
+                    start.wait(timeout=60)
+                    if not windowed:
+                        for i in idx:
+                            res[i] = g_dispatcher.encode(
+                                sinfo, th_codec, objs[i], all_shards)
+                        return
+                    futs = [(i, g_dispatcher.submit_encode(
+                        sinfo, th_codec, objs[i], all_shards)) for i in idx]
+                    queued.wait(timeout=300)
+                    for i, f in futs:
+                        res[i] = f.result()
+                except Exception as e:      # noqa: BLE001 — reported
+                    errs.append(e)
+                    start.abort()
+                    queued.abort()
+
+            for c in (execs, calls, k1s):
+                c.reset()
+            ths = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(DISPATCH_THREADS)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            if errs or any(th.is_alive() for th in ths):
+                raise AssertionError(f"dispatch threads failed: {errs}")
+            return res
+
+        for name, windowed in (("threads", True), ("threads_window0", False)):
+            th_codec = create_erasure_code(profile)
+            th_codec.encode_batch = calls.wrap(th_codec.encode_batch)
+            g_dispatcher._execute = execs.wrap(g_dispatcher._execute)
+            gf_matmul.gf_bit_matmul_kernel = k1s.wrap(
+                gf_pallas.gf_bit_matmul_kernel)
+            gf_matmul.DeviceRSBackend = counted_backend
+            built.clear()
+            g_conf.set_val("ec_dispatch_batch_window_us",
+                           10**7 if windowed else 0)
+            g_conf.set_val("ec_dispatch_batch_max", DISPATCH_THREAD_BATCH)
+            try:
+                got = leg(name, lambda: threaded(th_codec, windowed))
+            finally:
+                del g_dispatcher._execute
+                gf_matmul.gf_bit_matmul_kernel = \
+                    gf_pallas.gf_bit_matmul_kernel
+                gf_matmul.DeviceRSBackend = make_backend
+            check_encode(name, got, range(N_OBJ))
+            del got
+            legs[name].update({"most_at_once_execute": execs.most,
+                               "most_at_once_encode_batch": calls.most,
+                               "most_at_once_k1_wrapper": k1s.most,
+                               "backends_built": len(built)})
+            log(f"dispatch {name} calls at once: " + json.dumps(legs[name]))
+            if len(built) != 1:
+                raise AssertionError(f"dispatch {name}: the codec's device "
+                                     f"backend was built {len(built)} times")
+        if legs["threads"]["mean_occupancy"] <= DISPATCH_PER_THREAD:
+            raise AssertionError(
+                "dispatch threads: mean occupancy "
+                f"{legs['threads']['mean_occupancy']} <= "
+                f"{DISPATCH_PER_THREAD}: no flush held requests of two "
+                "threads")
+        if legs["threads_window0"]["most_at_once_encode_batch"] < 2:
+            raise AssertionError("dispatch threads_window0: the threads "
+                                 "never were in the device call at once")
+        g_conf.set_val("ec_dispatch_batch_max", N_OBJ)
+
+        # host-clock times at this width, outside the counted legs
+        def coalesced_encode():
+            g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+            for f in [g_dispatcher.submit_encode(sinfo, codec, o, all_shards)
+                      for o in objs]:
+                f.result()
+
+        def serial_encode():
+            g_conf.set_val("ec_dispatch_batch_window_us", 0)
+            for o in objs:
+                g_dispatcher.encode(sinfo, codec, o, all_shards)
+
+        def coalesced_decode():
+            g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+            for f in [g_dispatcher.submit_decode_concat(sinfo, codec, sv)
+                      for sv in surv]:
+                f.result()
+
+        def serial_decode():
+            g_conf.set_val("ec_dispatch_batch_window_us", 0)
+            for sv in surv:
+                g_dispatcher.decode_concat(sinfo, codec, sv)
+
+        fns = {"encode_coalesced": coalesced_encode,
+               "encode_serial": serial_encode,
+               "decode_coalesced": coalesced_decode,
+               "decode_serial": serial_decode}
+        samples = {n: [] for n in fns}
+        for fn in fns.values():
+            fn()                                        # warm
+        for r in range(DISPATCH_TIMING_RUNS):
+            order = list(fns) if r % 2 == 0 else list(reversed(fns))
+            for n in order:
+                t0 = time.perf_counter()
+                fns[n]()
+                samples[n].append(time.perf_counter() - t0)
+        total = N_OBJ * OBJ_BYTES
+        times = {n: {"s": statistics.median(v), "samples_s": v,
+                     "GiBps": total / statistics.median(v) / 2**30}
+                 for n, v in samples.items()}
+        log("dispatch host-clock times (64 x 4 MiB) " + json.dumps(times))
+        # where each mode's time goes, from one more run of each outside
+        # the timed samples: the stage ledger the dispatcher stamps per
+        # request (a coalesced request accrues its flush's whole
+        # device_call), the kernel timer (``ec_encode_batch``: upload, K1,
+        # fetch, synchronised) and the host copies and transfers per object
+        for n, fn in fns.items():
+            stage0 = g_oplat.snapshot()
+            flow0 = g_devprof.snapshot()
+            g_kernel_timer.reset()
+            g_kernel_timer.enable()
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                g_kernel_timer.enable(False)
+            wall = time.perf_counter() - t0
+            times[n]["stage_breakdown"] = g_oplat.breakdown_since(
+                stage0, wall, N_OBJ)
+            times[n]["kernel_timer"] = g_kernel_timer.dump()
+            times[n]["devflow"] = devflow_delta(flow0, g_devprof.snapshot(),
+                                                N_OBJ)
+            log(f"dispatch {n} breakdown (one run, {wall:.3f} s): stages "
+                + json.dumps({k: v["usec_per_op"] for k, v in
+                              times[n]["stage_breakdown"]["stages"].items()})
+                + " kernel_timer " + json.dumps(times[n]["kernel_timer"])
+                + " devflow " + json.dumps(times[n]["devflow"]))
+    finally:
+        for name in ("ec_dispatch_batch_window_us", "ec_dispatch_batch_max"):
+            g_conf.rm_val(name)
+        g_dispatcher.flush()
+    dump = g_dispatcher.dump()
+    log("dispatch counters " + json.dumps(dump["counters"]))
+    wall = time.perf_counter() - t_phase
+    log(f"dispatch phase took {wall:.1f} s")
+    return {"legs": legs, "times": times, "counters": dump["counters"],
+            "occupancy_histogram": dump["occupancy_histogram"],
+            "k1_launches": sum(v["k1_launches"] for v in legs.values()),
+            "seconds": wall}
+
+
+# 4n, before the CLI: the stripe counts at which the CLI's dispatch and
+# pipeline workloads give K1 their 64 KiB objects (k=8, one stripe of
+# C=8192 each): serial and depth-1 calls 1, depth-8 flushes 8, the
+# coalesced flush 32; 16 and 64 fill in the scan
+SCAN_STRIPES = (1, 8, 16, 32, 64)
+SCAN_OBJECT_BYTES = 65536
+SCAN_RUNS = 21
+
+
+def host_ms(fn, runs: int = SCAN_RUNS, warmup: int = 2) -> float:
+    """Median host-clock time of ``fn`` followed by a device sync."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(t)
+
+
+def encode_batch_scan() -> dict:
+    """4n, before the CLI: the ``cuda`` codec's ``encode_batch`` at the
+    shapes the CLI's dispatch workloads flush, each held byte for byte
+    against K1's plain version on the same inputs (and K1 alone on the
+    device tensor), then the pieces of its time at each shape: the
+    upload, K1 (host clock and its own device time), the fetch into a new
+    host tensor and into one kept from the last call, the first touch of
+    a new host buffer of the flush's stack size against the rewrite of a
+    kept one, and one coalesced dispatcher flush of that many objects with
+    its stage ledger (``device_call``: stack, pad, encode_batch;
+    ``d2h``: the per-request packs).  Raises on a disagreement."""
+    from ceph_tpu_torch.bench import workloads as bw
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.ops.gf_pallas import (gf_bit_matmul_kernel,
+                                              gf_bit_matmul_plain)
+    from ceph_tpu_torch.trace import g_oplat
+    codec, dev, sinfo, want = bw._dispatch_codec("cuda", SCAN_OBJECT_BYTES)
+    bm = codec.device().enc_bits
+    c = SCAN_OBJECT_BYTES // K
+    rng = np.random.default_rng(SEED + 13)
+    rows = {}
+    saved = {n: g_conf.values.get(n) for n in
+             ("ec_dispatch_batch_max", "ec_dispatch_batch_window_us")}
+    try:
+        for s in SCAN_STRIPES:
+            data = rng.integers(0, 256, (s, K, c), dtype=np.uint8)
+            t = torch.from_numpy(data).to(dev)
+            ref = gf_bit_matmul_plain(t, bm.bits).cpu().numpy()
+            got = codec.encode_batch(data)
+            alone = gf_bit_matmul_kernel(t, bm).cpu().numpy()
+            err = max(int(np.abs(g.astype(np.int16)
+                                 - ref.astype(np.int16)).max())
+                      if g.shape == ref.shape else 256
+                      for g in (got, alone))
+            if err:
+                raise AssertionError(f"encode_batch at ({s}, {K}, {c}) "
+                                     f"disagrees with plain: {err}")
+            o = gf_bit_matmul_kernel(t, bm)
+            kept = torch.empty(o.shape, dtype=o.dtype)
+            buf = np.empty(data.nbytes, dtype=np.uint8)
+            row = {"shape": [s, K, c], "max_abs_err": err,
+                   "encode_batch_ms": host_ms(
+                       lambda: codec.encode_batch(data)),
+                   "upload_ms": host_ms(lambda: torch.from_numpy(data)
+                                        .to(dev)),
+                   "k1_ms": host_ms(lambda: gf_bit_matmul_kernel(t, bm)),
+                   "k1_device_ms": turns_ms(
+                       [lambda: gf_bit_matmul_kernel(t, bm)], SCAN_RUNS,
+                       reps=10)[0],
+                   "fetch_new_ms": host_ms(lambda: o.cpu().numpy()),
+                   "fetch_kept_ms": host_ms(lambda: kept.copy_(o)),
+                   "touch_new_ms": host_ms(
+                       lambda: np.empty(data.nbytes, np.uint8).fill(1)),
+                   "touch_kept_ms": host_ms(lambda: buf.fill(1))}
+            objs = data.reshape(s, SCAN_OBJECT_BYTES)
+            g_conf.set_val("ec_dispatch_batch_max", s)
+            g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+
+            def flush():
+                for f in [g_dispatcher.submit_encode(sinfo, codec, objs[i],
+                                                     want)
+                          for i in range(s)]:
+                    f.result()
+
+            flush()
+            stage0 = g_oplat.snapshot()
+            row["flush_ms"] = host_ms(flush, runs=SCAN_RUNS, warmup=0)
+            st = g_oplat.breakdown_since(stage0, 1.0, s * SCAN_RUNS)[
+                "stages"]
+            for name in ("device_call", "d2h"):
+                row[f"flush_{name}_ms"] = (st[name]["usec_per_op"] / 1e3
+                                           if name in st else None)
+            rows[s] = row
+            log(f"encode_batch scan S={s}: " + json.dumps(row))
+            del t, o, kept, buf
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                g_conf.rm_val(n)
+            else:
+                g_conf.set_val(n, v)
+        g_dispatcher.flush()
+    return rows
+
+
+def bench_cli(env=None):
+    """``python -m ceph_tpu_torch.bench --gate warn`` in its own process
+    (``env`` added to this one's): its one JSON line and its seconds.
+    Raises unless it exits 0 with one line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.bench", "--gate", "warn"],
+        cwd=here, capture_output=True, text=True,
+        timeout=BENCH_CLI_TIMEOUT_S, env={**os.environ, **(env or {})})
+    cli_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-40:]:
+        log(f"  bench-cli: {line}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench CLI rc {proc.returncode}, "
+                             f"{len(lines)} stdout lines")
+    return json.loads(lines[0]), cli_s
+
+
+# ``--dispatch-scan``: glibc's malloc, set so that the host buffers of a
+# flush (up to 32 MiB) come from its heap and the heap's top is not given
+# back after each flush; its defaults map each buffer over 128 KiB anew
+# until a free raises the threshold, and trim the heap at 128 KiB
+MALLOC_KEEP = {"GLIBC_TUNABLES": "glibc.malloc.mmap_threshold=33554432:"
+               "glibc.malloc.trim_threshold=134217728"}
+DISPATCH_METRICS = ("ec_dispatch_coalesce_fenced",
+                    "ec_dispatch_serial_fenced", "ec_pipeline_fenced",
+                    "ec_pipeline_depth1_fenced")
+
+
+def dispatch_scan_turns(dev) -> dict:
+    """``--dispatch-scan``: where the bench CLI's coalesced flush of 32 x
+    64 KiB loses its time.  The first touch of a new 64 MiB host buffer
+    against the rewrite of a kept one (us per 4 KiB page); 4n's
+    ``encode_batch_scan``; the CLI's dispatch and pipeline workloads run
+    in this process; then the CLI in its own process in turns, as it is
+    and with ``MALLOC_KEEP``, each reading's ledger per flush logged."""
+    from ceph_tpu_torch.bench import workloads as bw
+    out = {}
+    n = 64 << 20
+    kept = np.empty(n, dtype=np.uint8)
+    kept.fill(0)
+    new_ms = host_ms(lambda: np.empty(n, np.uint8).fill(1), runs=5)
+    kept_ms = host_ms(lambda: kept.fill(1), runs=5)
+    out["touch_64MiB"] = {"new_ms": new_ms, "kept_ms": kept_ms,
+                          "us_per_new_page": (new_ms - kept_ms) * 1e3
+                          / (n >> 12)}
+    log("first touch " + json.dumps(out["touch_64MiB"]))
+    del kept
+    out["scan"] = encode_batch_scan()
+
+    def per_flush(m):
+        """The metric's value and, per flush, its ledger's stages (each
+        request of a flush accrues the flush's whole stage)."""
+        st = m["stage_breakdown"]["stages"]
+        return {"value": m["value"], **{
+            f"{k}_ms": round(v["usec_per_op"] / 1e3, 4)
+            for k, v in st.items()}}
+
+    mc, ms = bw.measure_dispatch_coalesce(n_requests=32, target_seconds=2.0,
+                                          repeats=3, device=dev)
+    mp, mp1 = bw.measure_ec_pipeline(n_requests=64, target_seconds=2.0,
+                                     repeats=3, device=dev)
+    out["in_process"] = {m["name"]: per_flush(m) for m in (mc, ms, mp, mp1)}
+    log("dispatch workloads in this process "
+        + json.dumps(out["in_process"]))
+    out["cli"] = []
+    for env_name in ("default", "malloc_keep", "malloc_keep", "default"):
+        line, cli_s = bench_cli(MALLOC_KEEP if env_name != "default"
+                                else None)
+        got = {m["name"]: per_flush(m) for m in line["metrics"]
+               if m["name"] in DISPATCH_METRICS}
+        out["cli"].append({"env": env_name, "seconds": cli_s, **got})
+        log(f"bench CLI ({env_name}) " + json.dumps(got))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "dispatch_scan.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def native_bench_slice() -> dict:
+    """4n: the native host library's build and checks, then the bench CLI
+    in its own process on the card.  Raises on any failed gate."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.bench.schema import validate_metric
+    from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
+    from ceph_tpu_torch.ops import _build_host
+    from ceph_tpu_torch.utils.crc32c import crc32c, crc32c_sw
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    load_s = time.perf_counter() - t0
+    log(f"native library {lib._name}: g++ build seconds "
+        + json.dumps(_build_host.build_seconds)
+        + f" (this process; 0 entries: built before it), get_lib "
+        f"{load_s:.3f} s")
+    rng = np.random.default_rng(SEED)
+    buf = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+    if crc32c(buf) != crc32c_sw(buf) or crc32c(buf[::3]) != crc32c_sw(
+            buf[::3]):
+        raise AssertionError("native crc32c disagrees with crc32c_sw")
+    matrix = gf_gen_rs_matrix(K + M, K)
+    data = rng.integers(0, 256, (K, CHUNK), dtype=np.uint8)
+    from ceph_tpu_torch.ec.rs_codec import MatrixRSCodec
+    if not np.array_equal(native.native_rs_encode(matrix[K:], data),
+                          MatrixRSCodec(matrix).encode(data)):
+        raise AssertionError("native region coder disagrees with the host "
+                             "codec")
+    log("native crc32c == crc32c_sw, native_rs_encode == MatrixRSCodec")
+    scan = encode_batch_scan()
+    line, cli_s = bench_cli()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "bench_line.json"), "w") as f:
+        json.dump(line, f, indent=1)
+    for m in line["metrics"]:
+        validate_metric(m)
+        rl = m.get("roofline", {})
+        extra = {k: m[k] for k in ("speedup", "batch_occupancy",
+                                   "mean_batch_occupancy", "identical",
+                                   "serial_gibs", "depth1_gibs")
+                 if k in m}
+        log(f"bench-cli {m['name']} {m['value']} {m['unit']} fenced="
+            f"{m['fenced']} suspect={m.get('suspect', False)} roofline="
+            f"{rl.get('verdict', 'n/a')} " + json.dumps(extra)
+            + " stats=" + json.dumps(m["stats"]))
+    bad = [m["name"] for m in line["metrics"]
+           if not m["fenced"] or m.get("suspect", False)]
+    pipe = [m for m in line["metrics"] if m["name"] == "ec_pipeline_fenced"]
+    if (bad or "error" in line or line.get("decode_parity") is not True
+            or len(pipe) != 1 or pipe[0].get("identical") is not True
+            or line.get("platform") != "gpu"):
+        raise AssertionError(f"bench CLI line failed its gates: bad={bad} "
+                             f"error={line.get('error')} parity="
+                             f"{line.get('decode_parity')}")
+    log("bench-cli crush_remap " + json.dumps(line.get("crush_remap")))
+    log(f"bench-cli gate: {len(line['gate']['regressions'])} regressions, "
+        f"compared {line['gate']['compared']}, not_ported "
+        + json.dumps(line["not_ported"]))
+    wall = time.perf_counter() - t_phase
+    log(f"bench CLI process took {cli_s:.1f} s; native phase took "
+        f"{wall:.1f} s")
+    return {"build_seconds": dict(_build_host.build_seconds),
+            "get_lib_s": load_s, "cli_s": cli_s, "seconds": wall,
+            "encode_batch_scan": scan,
+            "metrics": {m["name"]: m["value"] for m in line["metrics"]},
+            "crush_remap": line.get("crush_remap"),
+            "elapsed_s": line.get("elapsed_s")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2727,7 +3324,14 @@ def main() -> int:
     from ceph_tpu_torch.trace import g_devprof
 
     dev = torch.device("cuda")
-    results: dict = {}
+    results: dict = {"phase_seconds": {}}
+    t_mark = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        results["phase_seconds"][name] = now - t_mark[0]
+        log(f"phase {name} took {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -2739,6 +3343,8 @@ def main() -> int:
     probe = arch.probe()
     log("arch " + json.dumps(probe))
     results.update(nvidia_smi=smi, arch=probe)
+
+    phase_done("1 device")
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2768,10 +3374,11 @@ def main() -> int:
     for flag, turns in (("--k6-parent", k6_parent_turns),
                         ("--k7a-parent", k7a_parent_turns),
                         ("--k7a-forms", k7a_form_turns),
+                        ("--dispatch-scan", dispatch_scan_turns),
                         ("--k8-parent", k8_parent_turns)):
         if flag not in sys.argv:
             continue
-        if flag == "--k7a-forms":
+        if flag in ("--k7a-forms", "--dispatch-scan"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -2780,6 +3387,8 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    phase_done("2 build")
 
     # -- 3. kernel against its plain version ----------------------------------
     gen = torch.Generator(device=dev)
@@ -2841,6 +3450,8 @@ def main() -> int:
     log("check first design (popc) at encode, decode_r1, decode_r2: equal")
     results["max_abs_err"] = max_err
     results["checked_shapes"] = len(cases)
+
+    phase_done("3 K1 checks")
 
     # -- 4. main path ---------------------------------------------------------
     sinfo = ecutil.stripe_info_t(K, K * CHUNK)
@@ -2915,12 +3526,16 @@ def main() -> int:
     del shards, surv_all
     results["main_path_launches"] = launches
 
+    phase_done("4/5 main path")
+
     # -- 3b. crc32c kernel against its plain version (after slice 1's phases,
     # which run as they did before this slice) -------------------------------
     crc_err = crc_checks(gen, rng, dev)
     results["crc32c_checks_max_abs_err"] = crc_err
     fused_err = fused_checks(gen, dev)
     results["fused_checks_max_abs_err"] = fused_err
+
+    phase_done("3b/3f crc and fused checks")
 
     # -- 4r. the device-resident write path -----------------------------------
     g_conf.set_val("os_memstore_device_bytes_max", RESIDENT_BUDGET)
@@ -2944,6 +3559,8 @@ def main() -> int:
     results["e2e"] = e2e
     results["resident_path_launches"] = res_launches
 
+    phase_done("4r resident write")
+
     # -- 5. kernel times ------------------------------------------------------
     times = {}
     for name in ("encode", "decode_r1", "decode_r2"):
@@ -2966,14 +3583,20 @@ def main() -> int:
         log(f"time {name} " + json.dumps(times[name]))
     results["kernel_times"] = times
 
+    phase_done("5 K1 times")
+
     # -- 5r. crc32c and fused-encode times -----------------------------------
     times.update(resident_times(*res_batch, objs_dev, dev))
     del res_batch
+
+    phase_done("5r crc and fused times")
 
     # -- 3w. K3 against its plain version (after the earlier slices' phases,
     # which run as they did before this slice) -------------------------------
     word_err, word_inputs = word_checks(gen, rng, dev)
     results["gfw_checks_max_abs_err"] = word_err
+
+    phase_done("3w K3 checks")
 
     # -- 4j. the codec families at full width ---------------------------------
     del objs_dev
@@ -2983,6 +3606,8 @@ def main() -> int:
     word_launches = sum(f["launches"]["gfw_bit_matmul"]
                         for f in families.values())
     family_k1 = sum(f["launches"]["gf_bit_matmul"] for f in families.values())
+
+    phase_done("4j families")
 
     # -- 5w. K3 times ---------------------------------------------------------
     wt = word_times(word_inputs, dev)
@@ -2994,6 +3619,8 @@ def main() -> int:
         capture_output=True, text=True).stdout.strip()
     log(f"after timing: clocks.sm, clocks.max.sm, power.draw, temp: {clocks}")
     results["clocks_after_timing"] = clocks
+
+    phase_done("5w K3 times")
 
     # -- 3c / 4c / 5c: the CRUSH slice, after the earlier slices' phases, which
     # run as they did before it ----------------------------------------------------
@@ -3018,6 +3645,8 @@ def main() -> int:
     log(f"after crush timing: clocks.sm, clocks.max.sm, power.draw, temp: "
         f"{clocks}")
 
+    phase_done("3c/4c/5c CRUSH")
+
     # -- 3l / 4l / 5l: the legacy slice, after the earlier slices' phases,
     # which run as they did before it ---------------------------------------------
     legacy = legacy_slice(dev)
@@ -3030,6 +3659,8 @@ def main() -> int:
         f"{clocks}")
     k8 = legacy["times"]["L1 0"]
 
+    phase_done("3l/4l/5l legacy")
+
     # -- 4b. the port's fenced bench, after the earlier slices' phases, which
     # run as they did before it ------------------------------------------------
     bench = bench_slice(dev)
@@ -3037,6 +3668,17 @@ def main() -> int:
     bench_n = {n: sum(step[n] for step in bench["launches"].values())
                for n in ("gf_bit_matmul", "crush_descend", "crush_resolve",
                          "crush_rule")}
+    phase_done("4b bench")
+
+    # -- 4d. the dispatch scheduler on the card, after the earlier slices'
+    # phases, which run as they did before it --------------------------------
+    dispatch = dispatch_slice(objs)
+    results["dispatch"] = dispatch
+    phase_done("4d dispatch")
+
+    # -- 4n. the native host library and the bench CLI in its own process ----
+    results["native_bench"] = native_bench_slice()
+    phase_done("4n native + bench CLI")
 
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
@@ -3058,7 +3700,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
         "launches": (launches + res_launches["gf_bit_matmul"] + family_k1
-                     + bench_n["gf_bit_matmul"]),
+                     + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],

@@ -483,3 +483,65 @@ def test_legacy_non_cpu_tensor_never_takes_plain(monkeypatch):
     with pytest.raises(RuntimeError, match="meta"):
         crush_legacy.crush_legacy(rule, x, w)
     assert crush_legacy.launches.n == before
+
+
+def test_walk_sees_the_dispatch_slice():
+    """The package walk reaches the dispatch scheduler, the fault
+    registry, the native library's bindings, the bench's gate and CLI
+    and ec_benchmark; the native C++ copies are the port's own."""
+    mods = _modules()
+    for m in ("dispatch", "dispatch.signature", "dispatch.future",
+              "dispatch.batch", "dispatch.scheduler", "fault",
+              "fault.registry", "native", "ops._build_host",
+              "bench.regress", "bench.__main__", "tools.ec_benchmark"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.ops import _build_host
+    assert _build_host.CSRC_HOST == PKG / "csrc_host"
+    for src in native.SOURCES:
+        assert (PKG / "csrc_host" / src).is_file()
+    for path in (PKG / "csrc_host").iterdir():
+        for line in path.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert line.split()[1].startswith("<"), (path, line)
+
+
+def _code_strings(tree):
+    """Every string constant of a module that is not a docstring."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*.py")))
+def test_source_names_no_path_under_native(path):
+    """No port file builds, loads or names a path under the repo's
+    ``native/`` (the JAX package's library lives there)."""
+    for s in _code_strings(ast.parse((REPO / path).read_text())):
+        parts = s.replace("\\", "/").split("/")
+        assert "native" not in parts, (path, s)
+        assert "libceph_tpu_native" not in s, (path, s)
+
+
+def test_bench_cli_and_dispatch_workloads_need_the_card():
+    """Without a card the bench's default (card) mode and the dispatch
+    workloads raise; only ``--smoke`` / ``device="cpu"`` run here."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.bench import __main__ as cli
+    from ceph_tpu_torch.bench import workloads
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--gate", "off"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workloads.measure_dispatch_coalesce(n_requests=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workloads.measure_ec_pipeline(n_requests=2)
