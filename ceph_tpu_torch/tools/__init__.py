@@ -1,1 +1,2 @@
-"""Command-line tools of the port (``crushtool``)."""
+"""Command-line tools of the port (``crushtool``, ``osdmaptool``,
+``dencoder``, ``ec_benchmark``)."""

@@ -267,6 +267,34 @@ The dispatch and native-library slice adds, after 4b:
    ``identical`` true and no error (the line goes to
    ``chiprun_out/bench_line.json``).
 
+The placement and store slice (``osdmap/upmap.py``, ``osdmap/balancer.py``,
+``tools/osdmaptool.py``, ``os_store/memstore.py`` and the modules under
+them) adds, after 4n:
+
+4o. ``osdmaptool`` on the card (``tools/osdmaptool.main``, in this
+   process): ``--create-from-conf`` of a ceph.conf.withracks-style conf the
+   script writes (1000 OSDs, 5 racks x 10 hosts x 20, jewel tunables) with
+   ``--with-default-pool --pg_bits 7 --pgp_bits 7`` (128000 PGs, size 3,
+   chooseleaf host); ``--mark-up-in --test-map-pgs`` with the K7a, K7b and
+   K6 counts set to 0 just before and read just after (each must move;
+   ``last_backend`` "device", ``host_replayed`` 0), 2048 sampled PGs
+   against the scalar ``pg_to_up_acting_osds`` (``crush_do_rule``, the
+   ``--host-mapper`` route); then ``--mark-up-in --mark-out 7 --upmap FILE
+   --upmap-max 100 --upmap-deviation .01 --upmap-save`` (the native
+   library's mapper under the optimizer) and ``--test-map-pgs`` of the
+   saved map, counted the same way, every upmapped PG and the sample
+   against the scalar pipeline.  The walls of each step, with
+   ``--test-map-pgs`` split into the device update (``_raw_batch``, rows
+   fetched) and the host post-pass (``_postprocess``);
+4m. ``MemStore`` with resident bodies: the resident write (K5, one launch
+   per object) of the 64 objects of 4 MiB, k=8 m=4 reed_sol_van, into 12
+   stores through ``write_shard`` transactions, counted alone;
+   ``read_shard`` of every body returns its resident handle with no
+   device-to-host bytes in the device-flow profiler; the device verify
+   (K4) of every body passes; ``store.shard_corrupt`` armed on one shard
+   and the verify flags that shard and no other; ``read`` of every body
+   equals the host encode (the corrupted one differs in its first byte).
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
 Full results also go to ``chiprun_out/chip_smoke.json``.
@@ -3307,6 +3335,313 @@ def native_bench_slice() -> dict:
             "elapsed_s": line.get("elapsed_s")}
 
 
+# ---- 4o: osdmaptool on the card; 4m: MemStore with resident bodies -------
+
+# 4o's map: the reference's ceph.conf.withracks layout at BASELINE's 1000-OSD
+# straw2 map, 5 racks of 10 hosts of 20 OSDs; --create-from-conf gives jewel
+# tunables and a replicated pool (size 3, chooseleaf host) of
+# max_osd << pg_bits PGs
+TOOL_RACKS, TOOL_HOSTS_PER_RACK, TOOL_PER_HOST = 5, 10, 20
+TOOL_PG_BITS = 7                  # 1000 << 7 = 128000 PGs
+TOOL_SAMPLE = 2048                # PGs held against the scalar pipeline
+TOOL_MARK_OUT = 7
+TOOL_UPMAP_MAX = 100
+TOOL_DIR = os.path.join("build", "osdmaptool")
+
+
+def withracks_conf() -> str:
+    """``[osd.N]`` sections with ``host`` and ``rack``, as
+    ceph.conf.withracks writes them."""
+    lines, osd = [], 0
+    for r in range(TOOL_RACKS):
+        for h in range(TOOL_HOSTS_PER_RACK):
+            for _ in range(TOOL_PER_HOST):
+                lines += [f"[osd.{osd}]",
+                          f"\thost = host{r * TOOL_HOSTS_PER_RACK + h}",
+                          f"\track = rack{r}", ""]
+                osd += 1
+    return "\n".join(lines)
+
+
+def osdmaptool_slice(dev) -> dict:
+    """4o: ``osdmaptool`` (``tools/osdmaptool.main``, ``device`` the card)
+    on the 1000-OSD conf map at 128000 PGs: ``--test-map-pgs`` through
+    ``OSDMapMapping`` on K7a/K7b/K6 (the counts set to 0 just before each
+    run and read just after; every pool on the card, no PG mapped on the
+    host), a sample of its rows against the scalar pipeline; then
+    ``--mark-out 7 --upmap --upmap-save`` and ``--test-map-pgs`` again,
+    the upmapped PGs and a sample against the scalar pipeline on the
+    saved map."""
+    import contextlib
+    import io
+    from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
+    from ceph_tpu_torch.osdmap import OSDMapMapping, pg_t
+    from ceph_tpu_torch.osdmap.simple_build import mark_up_in
+    from ceph_tpu_torch.tools import osdmaptool
+
+    os.makedirs(TOOL_DIR, exist_ok=True)
+    conf = os.path.join(TOOL_DIR, "withracks.conf")
+    om = os.path.join(TOOL_DIR, "om")
+    upf = os.path.join(TOOL_DIR, "upmap.txt")
+    with open(conf, "w") as f:
+        f.write(withracks_conf())
+    counters = {"crush_descend": cf.descend_launches,
+                "crush_resolve": cf.resolve_launches,
+                "crush_rule": ck.rule_launches}
+    # the update's two halves: the raw batch (the card's mapper, rows
+    # fetched) and the host post-pass (up/acting, primaries)
+    split = {"_raw_batch": 0.0, "_postprocess": 0.0}
+    orig = {n: getattr(OSDMapMapping, n) for n in split}
+
+    def timed(name):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*a, **kw)
+            finally:
+                split[name] += time.perf_counter() - t0
+        return run
+
+    mappings = []
+    tool_map_pgs = osdmaptool.test_map_pgs
+
+    def keep_mapping(*a, **kw):
+        mappings.append(tool_map_pgs(*a, **kw))
+        return mappings[-1]
+
+    def tool(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = osdmaptool.main(argv, device=dev.type)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"osdmaptool {argv}: exit {rc}")
+        return buf.getvalue(), wall
+
+    def map_pgs(argv, what):
+        for c in counters.values():
+            c.reset()
+        for n in split:
+            split[n] = 0.0
+        out, wall = tool(argv)
+        counts = {n: c.n for n, c in counters.items()}
+        mm = mappings[-1]
+        want = "device" if dev.type == "cuda" else "cpu"
+        if mm.last_backend != {1: want} or mm.host_replayed != {1: 0}:
+            raise AssertionError(f"{what}: last_backend {mm.last_backend}, "
+                                 f"host_replayed {mm.host_replayed}")
+        if not all(counts.values()):
+            raise AssertionError(f"{what}: a CRUSH kernel did not launch: "
+                                 f"{counts}")
+        lines = out.splitlines()
+        pg_num = TOOL_RACKS * TOOL_HOSTS_PER_RACK * TOOL_PER_HOST \
+            << TOOL_PG_BITS
+        if f"pool 1 pg_num {pg_num}" not in lines or \
+                f"size 3\t{pg_num}" not in lines:
+            raise AssertionError(f"{what}: not every PG mapped to 3 OSDs")
+        with open(os.path.join("chiprun_out", f"osdmaptool_{what}.txt"),
+                  "w") as f:
+            f.write(out)
+        r = {"wall_s": wall, "device_update_s": split["_raw_batch"],
+             "host_postpass_s": split["_postprocess"],
+             "launches": counts, "last_backend": mm.last_backend,
+             "host_replayed": mm.host_replayed,
+             "stats": [ln for ln in lines if ln.startswith((" ", "mapped"))]}
+        log(f"4o {what}: " + json.dumps(r))
+        return r, mm
+
+    def scalar_check(mm, m, pss, what):
+        for ps in pss:
+            pg = pg_t(1, int(ps))
+            if mm.get(pg) != tuple(m.pg_to_up_acting_osds(pg)):
+                raise AssertionError(f"{what}: pg {pg} {mm.get(pg)} != "
+                                     f"scalar {m.pg_to_up_acting_osds(pg)}")
+        return len(pss)
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    res = {}
+    for n in split:
+        setattr(OSDMapMapping, n, timed(n))
+    osdmaptool.test_map_pgs = keep_mapping
+    try:
+        _, res["create_s"] = tool(
+            ["--create-from-conf", om, "-c", conf, "--with-default-pool",
+             "--pg_bits", str(TOOL_PG_BITS), "--pgp_bits", str(TOOL_PG_BITS),
+             "--clobber"])
+        res["test_map_pgs"], mm = map_pgs([om, "--mark-up-in",
+                                           "--test-map-pgs"], "map_pgs")
+        with open(om, "rb") as f:
+            m = osdmaptool.load_map(f.read())
+        mark_up_in(m)                 # the tool's --mark-up-in, unsaved
+        pg_num = m.pools[1].pg_num
+        rng = np.random.default_rng(SEED + 4)
+        sample = np.sort(rng.choice(pg_num, TOOL_SAMPLE, replace=False))
+        t0 = time.perf_counter()
+        res["sample_checked"] = scalar_check(mm, m, sample, "map_pgs")
+        res["sample_check_s"] = time.perf_counter() - t0
+        out, res["upmap_s"] = tool(
+            [om, "--mark-up-in", "--mark-out", str(TOOL_MARK_OUT), "--upmap",
+             upf, "--upmap-max", str(TOOL_UPMAP_MAX), "--upmap-deviation",
+             ".01", "--upmap-save"])
+        with open(upf) as f:
+            cmds = f.read().splitlines()
+        res["upmap_changes"] = len(cmds)
+        res["upmap_pgs"] = pg_num
+        log(f"4o upmap: {len(cmds)} changes over {pg_num} PGs in "
+            f"{res['upmap_s']:.2f} s (tool wall, the map's load and save "
+            f"included)")
+        if not cmds:
+            raise AssertionError("4o: the upmap step proposed nothing")
+        res["test_map_pgs_upmap"], mm = map_pgs([om, "--test-map-pgs"],
+                                                "map_pgs_upmap")
+        with open(om, "rb") as f:
+            m = osdmaptool.load_map(f.read())
+        if len(m.pg_upmap_items) != len(
+                [c for c in cmds if "pg-upmap-items" in c]) or \
+                m.osd_weight[TOOL_MARK_OUT] != 0:
+            raise AssertionError("4o: the saved map lacks the upmap items "
+                                 "or the mark-out")
+        upmapped = sorted(pg.ps for pg in m.pg_upmap_items)
+        t0 = time.perf_counter()
+        res["upmap_sample_checked"] = scalar_check(
+            mm, m, sorted(set(upmapped) | set(sample.tolist())),
+            "map_pgs_upmap")
+        res["upmap_sample_check_s"] = time.perf_counter() - t0
+    finally:
+        for n, fn in orig.items():
+            setattr(OSDMapMapping, n, fn)
+        osdmaptool.test_map_pgs = tool_map_pgs
+    res["launches"] = {n: res["test_map_pgs"]["launches"][n]
+                       + res["test_map_pgs_upmap"]["launches"][n]
+                       for n in counters}
+    log(f"4o: rows of {res['sample_checked']} sampled PGs and of "
+        f"{res['upmap_sample_checked']} PGs (every upmapped one) after "
+        "--upmap-save equal the scalar pg_to_up_acting_osds")
+    return res
+
+
+def memstore_slice(objs, dev) -> dict:
+    """4m: the resident write (K5) of the 64 objects of 4 MiB, k=8 m=4
+    reed_sol_van, into 12 ``MemStore``s (one per shard) through
+    ``write_shard`` transactions; ``read_shard`` returns every handle with
+    no device-to-host bytes; the device verify (K4) of every stored body
+    passes; ``store.shard_corrupt`` on one shard, and the verify flags that
+    shard and no other; ``read`` of every shard equals the host encode
+    (the corrupted one differs in its first byte alone)."""
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.fault import g_faults
+    from ceph_tpu_torch.ops import (crc32c_device, fused_encode_crc,
+                                    gf_pallas, resident)
+    from ceph_tpu_torch.os_store import (DeviceShard, MemStore, Transaction,
+                                         hobject_t)
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.trace import g_devprof
+    import gc
+    gc.collect()                  # earlier phases' bodies leave the budget
+    n = K + M
+    sinfo = ecutil.stripe_info_t(K, K * CHUNK)
+    spo = OBJ_BYTES // sinfo.get_stripe_width()
+    g_conf.set_val("os_memstore_device_bytes_max", RESIDENT_BUDGET)
+    prof = {"plugin": "cuda", "k": str(K), "m": str(M),
+            "technique": "reed_sol_van"}
+    codec = create_erasure_code(prof)
+    stores = [MemStore() for _ in range(n)]
+    cids = [f"1.0s{i}" for i in range(n)]
+    for st, cid in zip(stores, cids):
+        t = Transaction()
+        t.create_collection(cid)
+        st.queue_transaction(t)
+
+    def ho(o, i):
+        return hobject_t(f"obj{o}", i)
+
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "crc32c": crc32c_device.launches,
+                "fused_encode_crc": fused_encode_crc.launches}
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    for o, obj in enumerate(objs):
+        shards = resident.encode_resident_shards(
+            codec, obj.reshape(spo, K, CHUNK))
+        for i in range(n):
+            t = Transaction()
+            t.write_shard(cids[i], ho(o, i), shards[i])
+            stores[i].queue_transaction(t)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    counts = {name: c.n for name, c in counters.items()}
+    if counts != {"gf_bit_matmul": 0, "crc32c": 0,
+                  "fused_encode_crc": len(objs)}:
+        raise AssertionError(f"4m: the resident write is not one K5 launch "
+                             f"per object: {counts}")
+    del shards
+
+    # read_shard: the handles themselves, nothing copied to the host
+    d2h0 = g_devprof.totals()["d2h_bytes"]
+    t0 = time.perf_counter()
+    handles = [[stores[i].read_shard(cids[i], ho(o, i)) for i in range(n)]
+               for o in range(len(objs))]
+    read_shard_s = time.perf_counter() - t0
+    d2h = g_devprof.totals()["d2h_bytes"] - d2h0
+    if d2h or not all(isinstance(h, DeviceShard) and h.is_resident
+                      for row in handles for h in row):
+        raise AssertionError(f"4m: read_shard moved {d2h} B to the host "
+                             "or returned a body that is not resident")
+
+    def verify():
+        crc32c_device.launches.reset()
+        bad = [(o, i) for o, row in enumerate(handles)
+               for i, h in enumerate(row)
+               if crc32c_device.crc32c_of_device_array(h.device_array())
+               != h.crc]
+        return bad, crc32c_device.launches.n
+
+    t0 = time.perf_counter()
+    bad, k4 = verify()
+    verify_s = time.perf_counter() - t0
+    if bad or not k4:
+        raise AssertionError(f"4m: verify flagged {bad}, K4 launches {k4}")
+    victim = (5, 3)
+    g_faults.inject("store.shard_corrupt", mode="once",
+                    match=f"{cids[victim[1]]}/{ho(*victim)}")
+    try:
+        stores[victim[1]].read_shard(cids[victim[1]], ho(*victim))
+    finally:
+        g_faults.clear()
+    bad, k4_after = verify()
+    if bad != [victim] or not k4_after:
+        raise AssertionError(f"4m: after store.shard_corrupt on {victim} "
+                             f"the verify flagged {bad}")
+
+    # read: every body on the host, against the host encode
+    host = create_erasure_code(dict(prof, backend="host"))
+    t0 = time.perf_counter()
+    got = [[stores[i].read(cids[i], ho(o, i)) for i in range(n)]
+           for o in range(len(objs))]
+    read_s = time.perf_counter() - t0
+    for o, obj in enumerate(objs):
+        want = ecutil.encode(sinfo, host, obj, set(range(n)))
+        for i in range(n):
+            w = want[i].tobytes()
+            if (o, i) == victim:
+                w = bytes([w[0] ^ 1]) + w[1:]
+            if got[o][i] != w:
+                raise AssertionError(f"4m: read of object {o} shard {i} "
+                                     "differs from the host encode")
+    res = {"write_s": write_s, "read_shard_s": read_shard_s,
+           "verify_s": verify_s, "read_s": read_s,
+           "write_GiBps": len(objs) * OBJ_BYTES / write_s / 2**30,
+           "read_shard_d2h_bytes": d2h,
+           "launches": {"fused_encode_crc": counts["fused_encode_crc"],
+                        "crc32c": k4 + k4_after},
+           "flagged": [list(victim)], "bodies": len(objs) * n}
+    log("4m: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3680,6 +4015,15 @@ def main() -> int:
     results["native_bench"] = native_bench_slice()
     phase_done("4n native + bench CLI")
 
+    # -- 4o. osdmaptool on the card, 4m. MemStore with resident bodies, after
+    # the earlier slices' phases, which run as they did before them ---------
+    tool = osdmaptool_slice(dev)
+    results["osdmaptool"] = tool
+    phase_done("4o osdmaptool")
+    store = memstore_slice(objs, dev)
+    results["memstore"] = store
+    phase_done("4m memstore")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -3709,7 +4053,7 @@ def main() -> int:
         "name": "crc32c", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crc32c.cu",
         "replaces": "ceph_tpu/ops/crc32c_device.py:73",
-        "launches": res_launches["crc32c"],
+        "launches": res_launches["crc32c"] + store["launches"]["crc32c"],
         "max_abs_err": max(crc_err, res_err),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -3718,7 +4062,8 @@ def main() -> int:
         "name": "fused_encode_crc", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/fused_encode_crc.cu",
         "replaces": "ceph_tpu/ops/resident.py:31",
-        "launches": res_launches["fused_encode_crc"],
+        "launches": res_launches["fused_encode_crc"]
+        + store["launches"]["fused_encode_crc"],
         "max_abs_err": max(res_err, fused_err),
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -3741,7 +4086,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:592",
         "launches": crush_launches["crush_descend"]
-        + bench_n["crush_descend"],
+        + bench_n["crush_descend"] + tool["launches"]["crush_descend"],
         "max_abs_err": crush_err["crush_descend"],
         "ms": k7["k7a_ms"], "plain_ms": k7["k7a_plain_ms"],
         "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
@@ -3764,7 +4109,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
         "launches": crush_launches["crush_resolve"]
-        + bench_n["crush_resolve"],
+        + bench_n["crush_resolve"] + tool["launches"]["crush_resolve"],
         "max_abs_err": crush_err["crush_resolve"],
         "ms": k7["k7b_ms"], "plain_ms": k7["k7b_plain_ms"],
         "bound_ms": k7["k7b_bound_ms"], "bound_by": "bytes",
@@ -3778,7 +4123,8 @@ def main() -> int:
         "name": "crush_rule", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_kernels.py:436",
-        "launches": crush_launches["crush_rule"] + bench_n["crush_rule"],
+        "launches": crush_launches["crush_rule"] + bench_n["crush_rule"]
+        + tool["launches"]["crush_rule"],
         "max_abs_err": crush_err["crush_rule"],
         "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
         "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",

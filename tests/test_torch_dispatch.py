@@ -27,6 +27,8 @@ from ceph_tpu.dispatch import g_dispatcher as jax_dispatcher
 from ceph_tpu.ec.isa import ErasureCodeIsa as JaxIsa
 from ceph_tpu.ec.jerasure import ErasureCodeJerasure as JaxJerasure
 from ceph_tpu.ec.tpu_plugin import ErasureCodeTpu as JaxTpu
+from ceph_tpu.mesh import g_chipstat as jax_chipstat
+from ceph_tpu.mesh import g_mesh as jax_mesh
 from ceph_tpu.osd import ecutil as jax_ecutil
 from ceph_tpu.trace import g_devprof as jax_devprof
 
@@ -39,7 +41,8 @@ from ceph_tpu_torch.dispatch.scheduler import (MESH_OFF_DUMP,
                                                l_dispatch_coalesced,
                                                l_dispatch_errors,
                                                l_dispatch_fallback_reqs,
-                                               l_dispatch_fallbacks)
+                                               l_dispatch_fallbacks,
+                                               occupancy_axes)
 from ceph_tpu_torch.ec.cuda_plugin import ErasureCodeCuda
 from ceph_tpu_torch.ec.isa import ErasureCodeIsa
 from ceph_tpu_torch.ec.jerasure import ErasureCodeJerasure
@@ -50,6 +53,10 @@ from ceph_tpu_torch.trace import g_devprof, g_perf_histograms, g_tracer
 
 OPTIONS = ("ec_dispatch_batch_max", "ec_dispatch_batch_window_us",
            "ec_dispatch_queue_max", "ec_mesh_chips")
+# the JAX mesh's own options: its state rides the JAX dispatcher's dump
+JAX_MESH_OPTIONS = ("ec_mesh_pool_buffers", "ec_mesh_donate",
+                    "ec_mesh_skew_sample_every", "ec_mesh_skew_threshold",
+                    "ec_mesh_rateless", "ec_mesh_rateless_tasks")
 
 
 def set_both(name, value):
@@ -57,19 +64,32 @@ def set_both(name, value):
     jax_conf.set_val(name, value)
 
 
-@pytest.fixture
-def dispatch_conf():
-    """Every test leaves both dispatchers drained and both packages'
-    options at their defaults."""
-    yield
+def _defaults():
+    """Both dispatchers drained, both packages' options at their
+    defaults, and the JAX mesh down with its chip statistics empty."""
     g_dispatcher.flush()
     jax_dispatcher.flush()
     g_faults.clear()
     for name in OPTIONS:
         g_conf.rm_val(name)
         jax_conf.rm_val(name)
+    for name in JAX_MESH_OPTIONS:
+        jax_conf.rm_val(name)
+    jax_mesh.topology()          # rebuilt without a mesh at ec_mesh_chips 0
+    jax_chipstat.reset()
     g_tracer.enable(False)
     g_tracer.collector.clear()
+
+
+@pytest.fixture
+def dispatch_conf():
+    """Every test starts and ends with both packages at their defaults:
+    a test file that ran earlier in the same process may have left
+    options set, a mesh up or the JAX chip statistics filled (they ride
+    the JAX dispatcher's ``dump``)."""
+    _defaults()
+    yield
+    _defaults()
 
 
 # a signature mix: (port plugin, JAX twin, k, m, technique)
@@ -423,7 +443,8 @@ def _keys(d):
 def test_occupancy_histogram_and_dump(dispatch_conf):
     set_both("ec_dispatch_batch_window_us", 10_000_000)
     hist = g_perf_histograms.get("dispatch",
-                                 "dispatch_batch_occupancy_histogram")
+                                 "dispatch_batch_occupancy_histogram",
+                                 occupancy_axes)
     before = hist.total_count
     impl = mk(ErasureCodeCuda, 4, 2, "reed_sol_van")
     sinfo = ecutil.stripe_info_t(4, 4 * 512)

@@ -347,6 +347,30 @@ def test_walk_sees_the_crush_slice():
     assert "crush_fast" in _build.sources()
 
 
+def test_walk_sees_the_placement_and_store_slice():
+    """The package walk reaches the upmap, balancer, osdmaptool, message,
+    monmap, dencoder, store and PG-log modules of the port."""
+    mods = _modules()
+    for m in ("crush.remap", "osdmap.encoding", "osdmap.upmap",
+              "osdmap.balancer", "tools.osdmaptool", "msg.messages",
+              "msg.kv", "msg.wire", "msg.messenger", "mon.monmap",
+              "tools.dencoder", "os_store.memstore", "os_store.walstore",
+              "osd.pg_log"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert "ceph_tpu_torch.msg.tcp" not in mods
+
+
+def test_upmap_raw_all_catches_nothing():
+    """``upmap._raw_all`` picks the native mapper or the host
+    ``crush_do_rule`` before it maps and has no exception handler."""
+    from ceph_tpu_torch.osdmap import upmap
+    tree = ast.parse((PKG / "osdmap" / "upmap.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "_raw_all")
+    assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+    assert upmap.NativeCrushMapper.__module__ == "ceph_tpu_torch.native"
+
+
 def _small_rule():
     from ceph_tpu_torch.crush import CRUSH_BUCKET_STRAW2, CrushWrapper
     cw = CrushWrapper()
