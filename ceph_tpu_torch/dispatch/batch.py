@@ -175,11 +175,20 @@ def _run_group_encode(reqs, bucket_c, leader, use_device):
     # each is zero-padded to the bucket width and sliced back to its own
     # width (columnwise independence makes the pad invisible)
     k = leader.get_data_chunk_count()
+    # full-output codecs (product-matrix regenerating): the payload
+    # assembles into message matrices via the codec's own hook, and
+    # encode_batch yields every shard row — the post-matmul slice takes
+    # all rows from the coalesced result, none from the input
+    prepare = getattr(leader, "regen_prepare_batch", None)
+    full_out = bool(getattr(leader, "dispatch_full_output", False))
     offsets, stacks, s0 = [], [], 0
     for r in reqs:
-        stripes = np.frombuffer(bytes(r.payload), dtype=np.uint8) \
-            if not isinstance(r.payload, np.ndarray) else r.payload
-        stripes = stripes.reshape(r.n_stripes, k, r.chunk_size)
+        if prepare is not None:
+            stripes = prepare(r.payload, r.n_stripes)
+        else:
+            stripes = np.frombuffer(bytes(r.payload), dtype=np.uint8) \
+                if not isinstance(r.payload, np.ndarray) else r.payload
+            stripes = stripes.reshape(r.n_stripes, k, r.chunk_size)
         offsets.append((s0, stripes))
         stacks.append(_pad_cols(stripes, bucket_c))
         s0 += r.n_stripes
@@ -198,7 +207,9 @@ def _run_group_encode(reqs, bucket_c, leader, use_device):
                         dtype=np.uint8)
         for j, i in enumerate(want_l):
             dst = pack[j].reshape(r.n_stripes, r.chunk_size)
-            if i < k:
+            if full_out:
+                dst[:] = coding[off:off + r.n_stripes, i, :r.chunk_size]
+            elif i < k:
                 dst[:] = stripes[:, i, :]
             else:
                 dst[:] = coding[off:off + r.n_stripes, i - k,

@@ -4,8 +4,8 @@ Port of ``ceph_tpu/ec/registry.py`` (reference
 src/erasure-code/ErasureCodePlugin.cc:126-184): plugins are registered by
 name into a lock-guarded singleton, version-checked, and instantiated per
 profile.  Built in: ``jerasure`` (the default, as in the JAX package and
-in Ceph), ``isa``, ``cuda``, ``shec``, ``lrc`` and ``example_xor``; the
-JAX package's own ``regenerating`` code is not ported yet.
+in Ceph), ``isa``, ``cuda``, ``shec``, ``lrc``, ``regenerating`` and
+``example_xor``.
 """
 from __future__ import annotations
 
@@ -66,11 +66,10 @@ class ErasureCodePluginRegistry:
 
     def names(self):
         """Every built-in plugin, sorted: the JAX package's list with
-        ``cuda`` for ``tpu``.  ``regenerating`` is not in it: the port
-        takes that code with ``ECBackend`` and the OSD."""
+        ``cuda`` for ``tpu``."""
         with self._lock:
             for n in ("jerasure", "isa", "cuda", "lrc", "shec",
-                      "example_xor"):
+                      "regenerating", "example_xor"):
                 self._load_builtin(n)
             return sorted(self._plugins)
 
@@ -94,6 +93,9 @@ class ErasureCodePluginRegistry:
         elif name == "shec":
             from .shec import ErasureCodeShec
             factory = ErasureCodeShec
+        elif name == "regenerating":
+            from .regenerating import ErasureCodeRegenerating
+            factory = ErasureCodeRegenerating
         elif name == "example_xor":
             from .example_xor import ErasureCodeExampleXor
             factory = ErasureCodeExampleXor

@@ -1,2 +1,7 @@
-"""Monitor side of the port: so far the ``MonMap`` (``mon/monmap.py``).
-The JAX package's ``Monitor`` is not ported yet."""
+"""Monitor side of the port: the ``Monitor`` (Paxos, elections, the
+OSDMap service) and the ``MonMap``.
+
+Port of ``ceph_tpu/mon/``, exporting the same names."""
+from .monitor import Monitor
+
+__all__ = ["Monitor"]

@@ -100,6 +100,15 @@ def encode(sinfo: stripe_info_t, ec_impl, data,
     C = sinfo.get_chunk_size()
     want_l = sorted(want)
 
+    prepare = getattr(ec_impl, "regen_prepare_batch", None)
+    if prepare is not None:
+        # product-matrix regenerating codes (ec/regenerating.py): the
+        # payload assembles into batched message matrices first, and one
+        # Ψ projection yields every shard row (a full-output codec: no
+        # shard holds raw payload bytes)
+        allc = ec_impl.encode_batch(prepare(buf, S))     # (S, n, C)
+        g_oplat.checkpoint("device_call")
+        return _pack_rows(want_l, (allc[:, i, :] for i in want_l))
     if hasattr(ec_impl, "encode_batch_full"):
         # mapped layered codes (lrc): one batched call per layer yields
         # every physical chunk directly
@@ -143,6 +152,12 @@ def decode_concat(sinfo: stripe_info_t, ec_impl,
     k = ec_impl.get_data_chunk_count()
     chunks2d = {i: np.asarray(b, dtype=np.uint8).reshape(S, C)
                 for i, b in to_decode.items()}
+    if hasattr(ec_impl, "decode_payload_batch"):
+        # non-systematic regenerating codes: the codec rebuilds the
+        # logical payload from any k shard chunks (structured decode)
+        data = ec_impl.decode_payload_batch(chunks2d)    # (S, width)
+        g_oplat.checkpoint("device_call")
+        return np.ascontiguousarray(data).reshape(-1)
     # decode_batch is keyed by *physical* chunk ids; logical data row
     # i lives at chunk_index(i) for mapped codes
     want_phys = [ec_impl.chunk_index(i) for i in range(k)]

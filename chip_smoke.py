@@ -295,6 +295,30 @@ them) adds, after 4n:
    and the verify flags that shard and no other; ``read`` of every body
    equals the host encode (the corrupted one differs in its first byte).
 
+The OSD data path slice (``common/work_queue.py``, ``osd/ec_backend.py``,
+``osd/pg.py``, ``osd/osd.py``, ``recovery/``, ``mon/monitor.py``,
+``client/``, ``ec/regenerating.py``) adds, after 4m:
+
+4p. a client's writes and reads through the port's daemons: one monitor
+   and 12 OSDs (one per host) over the in-process messenger, assembled by
+   ``Daemons`` as the JAX ``MiniCluster`` assembles them without its
+   manager, and a ``RadosClient``; k=8 m=4 ``plugin=cuda`` pools of 32
+   PGs (``crush-failure-domain=host``), the 64 objects of 4 MiB made from
+   the seed.  Legs (a) write, reads, ranged read, rmw; (b) two OSDs down,
+   degraded reads; (c) one downed OSD's disk replaced, recovery; (d)
+   residency on: K5 writes, K4-verified reads, a rotted body, deep scrub;
+   (e) four op threads, pipeline depth 8 and a collection window: 64
+   writes of 64 KiB in one burst, K1 once per flush; (f) a regenerating
+   pool (k=8 m=4 d=10), a replaced disk rebuilt by sub-chunk repair
+   rounds.  Every op answers within ``OSD_PATH_DEADLINE_S``, every write
+   answers 0, every read and stored body is byte-exact against the native
+   host coder (the regenerating pool's against the port's ``backend=host``
+   codec), and each leg's K1, K4 and K5 counts, set to 0 just before it,
+   must move as ``osd_path_slice`` states.  Wall and GiB/s per leg, and
+   from a separate traced run (``LegTrace``: the kernel timer and
+   ``torch.profiler``) the share of the wall in kernels.
+   ``python3 chip_smoke.py --osd-path`` runs 4p alone after phases 1-2.
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
 Full results also go to ``chiprun_out/chip_smoke.json``.
@@ -3521,6 +3545,233 @@ def osdmaptool_slice(dev) -> dict:
     return res
 
 
+class Daemons:
+    """The daemons of one in-process cluster, assembled from ``pkg`` (a
+    package name: ``ceph_tpu_torch``, or the JAX package for the CPU
+    twin tests) as the JAX package's ``MiniCluster`` assembles them
+    without its ``Manager``: one ``Network``; the monitors (one, or a
+    quorum whose rank 0 wins the first election), with
+    ``bootstrap(n_osds, 1)`` (one OSD per host); the OSDs, each subscribed; the
+    idle hook that flushes the dispatch scheduler, drains threaded op
+    queues and sweeps unacked sub-writes; ``tick`` without the mgr's
+    tick, then recovery; ``scrub``; ``run_recovery``; and the thrasher
+    controls.  A client is ``client()``, the user's ``RadosClient``;
+    ``burst_write_full`` keeps many of its writes in flight at once, as
+    the JAX traffic harness's clients do.  ``stores`` mounts a given
+    object store (osd id -> store) in place of a fresh ``MemStore``."""
+
+    def __init__(self, pkg: str, n_osds: int, n_mons: int = 1,
+                 stores=None):
+        import importlib
+        self.pkg = pkg
+        msg = importlib.import_module(pkg + ".msg")
+        mon_mod = importlib.import_module(pkg + ".mon.monitor")
+        osd_mod = importlib.import_module(pkg + ".osd.osd")
+        self._rados = importlib.import_module(pkg + ".client.rados")
+        self._msgs = importlib.import_module(pkg + ".msg.messages")
+        self._oplat = importlib.import_module(pkg + ".trace.oplat")
+        self._dispatch = importlib.import_module(pkg + ".dispatch")
+        self.network = msg.Network()
+        if n_mons == 1:
+            self.mons = [mon_mod.Monitor(self.network)]
+        else:
+            names = [f"mon.{r}" for r in range(n_mons)]
+            self.mons = [mon_mod.Monitor(
+                self.network, name=names[r], rank=r,
+                peers=[n for n in names if n != names[r]])
+                for r in range(n_mons)]
+        self.mons[0].bootstrap(n_osds, 1)
+        if n_mons > 1:
+            self.mons[0].start_election()
+            self.network.pump()
+            self.mons[0].publish()
+            self.network.pump()
+        mon_names = [m.name for m in self.mons]
+        self._osd_mod = osd_mod
+        self.osds = {}
+        for i in range(n_osds):
+            osd = osd_mod.OSD(self.network, i,
+                              store=(stores or {}).get(i),
+                              mon_name=mon_names[0], mon_names=mon_names)
+            self.osds[i] = osd
+            for m in self.mons:
+                m.subscribe(osd.name)
+        if n_mons > 1:
+            for osd in self.osds.values():
+                self.mons[0].send_full_map(osd.name)
+            self.network.pump()
+        self.clock = 0.0
+        self.network.add_idle_hook(self._idle_kick)
+
+    def _live_osds(self):
+        return [o for o in self.osds.values()
+                if o.name not in self.network.down]
+
+    def _idle_kick(self) -> bool:
+        g = self._dispatch.g_dispatcher
+        did = bool(g.pending_count() and g.flush())
+        for osd in self._live_osds():
+            if len(osd.op_wq):
+                if osd.op_tp is not None:
+                    osd.drain_ops()
+                    did = True
+                else:
+                    did = bool(osd.drain_ops()) or did
+        if did:
+            return True
+        for osd in self._live_osds():
+            for pg in osd.pgs.values():
+                be = pg.backend
+                if be is not None and be.inflight_writes:
+                    did = bool(be.sweep_inflight(idle=True)) or did
+        return did
+
+    @property
+    def mon(self):
+        """The live leader (the only monitor of a one-mon cluster)."""
+        live = [m for m in self.mons if m.name not in self.network.down]
+        for m in live:
+            if m.is_leader():
+                return m
+        return live[0] if live else self.mons[0]
+
+    def shutdown(self) -> None:
+        for osd in self.osds.values():
+            osd.shutdown()
+
+    def client(self, name: str = "client.0"):
+        return self._rados.RadosClient(self.network, self.mon, name)
+
+    def burst_write_full(self, cl, pool: str, items: dict,
+                         deadline_s: float = 120.0) -> dict:
+        """Send a ``writefull`` of every (oid, body) of ``items`` from
+        client ``cl`` before pumping any, then pump until each has its
+        reply or ``deadline_s`` passes; returns oid -> result (None for
+        an op that got no reply)."""
+        pool_id = cl.lookup_pool(pool)
+        tids = {}
+        for oid, body in items.items():
+            pgid, primary = cl._calc_target(pool_id, oid)
+            cl._tid += 1
+            msg = self._msgs.MOSDOp(
+                tid=cl._tid, pool=pgid[0], oid=oid, pgid=pgid,
+                op=self._msgs.CEPH_OSD_OP_WRITEFULL, data=body,
+                epoch=cl.osdmap.epoch)
+            self._oplat.stamp_client(msg, cl.name)
+            cl.messenger.send_message(msg, f"osd.{primary}")
+            tids[cl._tid] = oid
+        t_end = time.monotonic() + deadline_s
+        while True:
+            moved = self.network.pump()
+            if all(t in cl._replies for t in tids) or \
+                    time.monotonic() > t_end:
+                break
+            if not moved:
+                time.sleep(0.001)
+        return {oid: (cl._replies.pop(t).result if t in cl._replies
+                      else None) for t, oid in tids.items()}
+
+    def publish(self) -> None:
+        self.mon.publish()
+        self.network.pump()
+        self.run_recovery()
+
+    def create_ec_pool(self, name: str, profile: dict, pg_num: int,
+                       ec_overwrites: bool = True) -> int:
+        pname = f"{name}_profile"
+        self.mon.create_ec_profile(pname, profile)
+        pid = self.mon.create_ec_pool(name, pname, pg_num,
+                                      ec_overwrites=ec_overwrites)
+        self.publish()
+        return pid
+
+    def create_replicated_pool(self, name: str, size: int,
+                               pg_num: int) -> int:
+        pid = self.mon.create_replicated_pool(name, size, pg_num)
+        self.publish()
+        return pid
+
+    def tick(self, dt: float = 1.0, rounds: int = 1) -> None:
+        for _ in range(rounds):
+            self.clock += dt
+            for m in self.mons:
+                if m.name not in self.network.down:
+                    m.tick(self.clock)
+            for osd in self._live_osds():
+                osd.tick(self.clock)
+            self.network.pump()
+        self.run_recovery()
+
+    def scrub(self, deep: bool = True) -> None:
+        for osd in self._live_osds():
+            for pg in osd.pgs.values():
+                if pg.is_primary():
+                    pg.start_scrub(deep=deep)
+        self.network.pump()
+        self.run_recovery()
+
+    def run_recovery(self, max_rounds: int = 4) -> int:
+        total = 0
+        for _ in range(max_rounds):
+            pushed = sum(osd.run_recovery() for osd in self._live_osds())
+            self.network.pump()
+            total += pushed
+            if not pushed:
+                break
+        return total
+
+    def kill_osd(self, osd_id: int) -> None:
+        self.network.set_down(f"osd.{osd_id}", True)
+
+    def revive_osd(self, osd_id: int) -> None:
+        self.network.set_down(f"osd.{osd_id}", False)
+        self.mon.mark_osd_up(osd_id)
+        self.mon.send_full_map(f"osd.{osd_id}")
+        self.network.pump()
+        self.run_recovery()
+
+    def replace_osd(self, osd_id: int) -> None:
+        """A replaced disk: a fresh daemon with an empty ``MemStore``
+        under the same id, marked up and in; recovery backfills it.  The
+        daemon starts at the cluster's clock, as a process reads the
+        wall clock its peers read: at 0 it would take every peer for
+        silent since then and report each one failed on its first
+        tick."""
+        old = self.osds[osd_id]
+        old.shutdown()
+        self.network.set_down(old.name, False)
+        osd = self._osd_mod.OSD(self.network, osd_id,
+                                mon_name=old.mon_name,
+                                mon_names=old.mon_names)
+        osd.now = self.clock
+        self.osds[osd_id] = osd
+        for m in self.mons:
+            m.subscribe(osd.name)
+        self.mon.mark_osd_up(osd_id)
+        self.mon.mark_osd_in(osd_id)
+        self.mon.send_full_map(osd.name)
+        self.network.pump()
+        self.run_recovery()
+
+    def kill_mon(self, rank: int) -> None:
+        self.network.set_down(self.mons[rank].name, True)
+
+    def mark_osd_down(self, osd_id: int) -> None:
+        self.mon.mark_osd_down(osd_id)
+        self.network.pump()
+        self.run_recovery()
+
+    def mark_osd_out(self, osd_id: int) -> None:
+        self.mon.mark_osd_out(osd_id)
+        self.network.pump()
+        self.run_recovery()
+
+    def mark_osd_in(self, osd_id: int) -> None:
+        self.mon.mark_osd_in(osd_id)
+        self.network.pump()
+        self.run_recovery()
+
+
 def memstore_slice(objs, dev) -> dict:
     """4m: the resident write (K5) of the 64 objects of 4 MiB, k=8 m=4
     reed_sol_van, into 12 ``MemStore``s (one per shard) through
@@ -3642,6 +3893,690 @@ def memstore_slice(objs, dev) -> dict:
     return res
 
 
+# -- 4p. the OSD data path ---------------------------------------------------
+OSD_PATH_OSDS = 12                # one per host, crush-failure-domain=host
+OSD_PATH_PG_NUM = 128             # Ceph's ~100 PGs per OSD
+OSD_PATH_SMALL = 64 << 10         # (e)'s writes
+OSD_PATH_DEADLINE_S = 60.0        # the most any one op may take
+REGEN_PROFILE = {"plugin": "regenerating", "k": "8", "m": "4", "d": "10"}
+REGEN_OBJ_BYTES = 1 << 20
+
+
+class OpGate:
+    """Every client op of 4p goes through ``call``: it must return
+    within ``OSD_PATH_DEADLINE_S`` and, for a write, with result 0."""
+
+    def __init__(self):
+        self.ops = 0
+        self.slowest_s = 0.0
+
+    def call(self, what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        self.ops += 1
+        self.slowest_s = max(self.slowest_s, dt)
+        if dt > OSD_PATH_DEADLINE_S:
+            raise AssertionError(f"4p: {what} took {dt:.1f} s")
+        if isinstance(out, int) and out != 0:
+            raise AssertionError(f"4p: {what} answered {out}")
+        return out
+
+
+def stored_bodies(d, pool_id: int, keys_only: bool = False) -> dict:
+    """(oid, shard) -> stored body bytes of every object of ``pool_id``,
+    read straight from the live OSDs' stores (resident bodies are fetched;
+    with ``keys_only`` nothing is read and the values are None)."""
+    out = {}
+    for osd in d.osds.values():
+        if osd.name in d.network.down:
+            continue
+        st = osd.store
+        for cid in st.list_collections():
+            if not cid.startswith(f"{pool_id}.") or cid.endswith("_meta"):
+                continue
+            for ho in st.list_objects(cid):
+                if ho.shard >= 0:
+                    out[(ho.oid, ho.shard)] = None if keys_only \
+                        else st.read(cid, ho)
+    return out
+
+
+def native_shards(matrix: np.ndarray, k: int, chunk: int,
+                  body: bytes) -> list:
+    """Every shard body of ``body`` (zero-padded to whole stripes) by the
+    native host coder: the data rows, then ``matrix``'s coding rows."""
+    from ceph_tpu_torch.native import native_rs_encode
+    w = k * chunk
+    buf = np.frombuffer(body + b"\0" * (-len(body) % w), dtype=np.uint8)
+    rows = np.ascontiguousarray(
+        buf.reshape(-1, k, chunk).transpose(1, 0, 2)).reshape(k, -1)
+    coding = native_rs_encode(matrix[k:], rows)
+    return [rows[i].tobytes() for i in range(k)] + \
+        [coding[j].tobytes() for j in range(coding.shape[0])]
+
+
+def check_bodies(d, pool_id, expect: dict, what: str,
+                 skip_shards=None) -> int:
+    """Every stored body of ``expect``'s objects equals its expected
+    shard; each object has every shard but those in ``skip_shards``
+    (oid -> shards held by OSDs still down).  Returns the bodies held."""
+    got = stored_bodies(d, pool_id)
+    n = 0
+    for oid, shards in expect.items():
+        held = {s for (o, s) in got if o == oid}
+        missing = set(range(len(shards))) - held - \
+            set((skip_shards or {}).get(oid, ()))
+        if missing:
+            raise AssertionError(f"4p {what}: {oid} lacks shards "
+                                 f"{sorted(missing)}")
+        for s in held:
+            if got[(oid, s)] != shards[s]:
+                raise AssertionError(f"4p {what}: {oid} shard {s} differs "
+                                     "from the reference coder")
+            n += 1
+    return n
+
+
+def acting_of(d, cl, pool: str, oid: str) -> list:
+    import importlib
+    pg_t = importlib.import_module(d.pkg + ".osdmap").pg_t
+    pgid, _ = cl._calc_target(cl.lookup_pool(pool), oid)
+    return [int(o) for o in d.mon.osdmap.pg_to_up_acting_osds(
+        pg_t(*pgid))[2]]
+
+
+class LegTrace:
+    """The separate traced run of a leg: ``g_kernel_timer`` on (each
+    timed device call ends in a synchronise) and, on the card, a
+    ``torch.profiler`` trace of every thread (the op queue's workers
+    launch too), whose CUDA kernel time by name is summed.  Gives the
+    share of the leg's wall spent in the port's kernels and in all
+    device work (kernels and copies).  ``counters`` are the kernels'
+    launch counters: where they moved but the trace holds none of the
+    kernels, the kernel time is null (unseen), not zero."""
+
+    # the port's kernels on this path by their CUDA names: K1 (and its
+    # first design), K4 (both paths) and K5
+    KERNELS = ("gf_nibble_kernel", "gf_popc_kernel", "crc32c",
+               "fused_encode_crc")
+
+    def __init__(self, dev, counters):
+        self.dev = dev
+        self.counters = counters
+
+    def __enter__(self):
+        from ceph_tpu_torch.common.kernel_trace import g_kernel_timer
+        self.timer = g_kernel_timer
+        self.timer.reset()
+        self.timer.enable(True)
+        self.prof = None
+        self.n0 = sum(c.n for c in self.counters)
+        if self.dev.type == "cuda":
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            try:
+                from torch._C._profiler import _ExperimentalConfig
+                cfg = {"experimental_config":
+                       _ExperimentalConfig(profile_all_threads=True)}
+            except (ImportError, TypeError):
+                cfg = {}
+            self.all_threads = bool(cfg)
+            self.prof = torch.profiler.profile(activities=acts, **cfg)
+            self.prof.start()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.launched = sum(c.n for c in self.counters) - self.n0
+        self.timer.enable(False)
+        calls = self.timer.dump()
+        self.device_call_s = sum(c["total_s"] for c in calls.values())
+        self.kernel_ms = self.device_ms = None
+        if self.prof is not None:
+            self.prof.stop()
+            kern = dev_all = 0.0
+            for e in self.prof.key_averages():
+                t = getattr(e, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(e, "self_cuda_time_total", 0.0)
+                if not t:
+                    continue
+                dev_all += t
+                if any(k in e.key for k in self.KERNELS):
+                    kern += t
+            if kern or not self.launched:
+                self.kernel_ms = kern / 1e3
+            if dev_all:
+                self.device_ms = dev_all / 1e3
+        return False
+
+    def reading(self) -> dict:
+        w = self.wall
+        return {
+            "traced_wall_s": w, "traced_launches": self.launched,
+            "profiled_all_threads": getattr(self, "all_threads", None),
+            "kernel_ms": self.kernel_ms, "device_busy_ms": self.device_ms,
+            "kernel_share": (self.kernel_ms / 1e3 / w
+                             if self.kernel_ms is not None else None),
+            "device_busy_share": (self.device_ms / 1e3 / w
+                                  if self.device_ms is not None else None),
+            "timed_device_calls_s": self.device_call_s,
+            "timed_device_call_share": self.device_call_s / w}
+
+
+def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
+                   pg_num: int = OSD_PATH_PG_NUM,
+                   small_bytes: int = OSD_PATH_SMALL,
+                   regen_bytes: int = REGEN_OBJ_BYTES) -> dict:
+    """4p: a client's writes and reads through the port's daemons (the
+    monitor, 12 OSDs with their PGs and ``ECBackend``s, the RADOS client),
+    built by ``Daemons``, on a k=8 m=4 ``plugin=cuda`` pool:
+
+    (a) ``write_full`` of the 64 objects of 4 MiB: K1 once per write;
+        every stored body equals the native host coder's; reads, a
+        ranged read, a partial overwrite and an append (rmw), after which
+        the bodies equal a fresh encode of the final content;
+    (b) the OSDs holding shards 1 and 9 of obj0's PG go down: every
+        object reads back byte-exact, K1 decoding the lost data shards;
+    (c) one of them has its disk replaced (an empty store under the
+        same id, marked up; 12 shards fill the 12 hosts, so an out OSD's
+        shards would have no other home): recovery rebuilds its shards
+        there, equal to the native coder's;
+    (d) residency on (4 GiB), on a fresh cluster: the writes launch K5
+        once each and K1 never; reading them back launches K4 once per
+        resident data body; one body rotted at ``store.shard_corrupt``
+        fails its sub-read alone and the primary decodes (K1); deep
+        scrub hashes on the host, launching no K4;
+    (e) 4 op threads, pipeline depth 8 and a collection window: a burst
+        of 64 writes of 64 KiB from many PGs, K1 once per dispatcher
+        flush, at least one flush of more than one request, no re-run;
+    (f) a regenerating pool (pm_mbr k=8 m=4 d=10): writes, one OSD
+        down and its disk replaced, recovery by sub-chunk repair rounds
+        with no fallback; the bytes equal the port's ``backend=host``
+        codec.
+
+    Each leg's counts are reset just before it and read just after;
+    writes and reads get a reply within ``OSD_PATH_DEADLINE_S`` and
+    answer 0.  Walls are host clocks around work whose replies carry
+    host bytes (each op's device work is complete); each leg is run
+    once more under ``LegTrace`` for its kernel share (a recovery leg
+    on a second OSD whose disk is replaced).  On the CPU (a
+    rehearsal at small sizes) the codecs take ``backend=host`` and the
+    launch counts are not checked."""
+    import gc
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import dispatch_perf_counters, g_dispatcher
+    from ceph_tpu_torch.dispatch import scheduler as dsched
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.fault import g_faults
+    from ceph_tpu_torch.ops import (crc32c_device, fused_encode_crc,
+                                    gf_pallas, resident)
+    from ceph_tpu_torch.os_store.device_shard import (
+        l_msd_crc_device, l_msd_crc_host, memstore_device_perf_counters)
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.ec_backend import (l_pipeline_errors,
+                                               pipeline_perf_counters)
+    from ceph_tpu_torch.recovery import (l_recovery_fallbacks,
+                                         l_recovery_repair_rounds,
+                                         recovery_perf_counters)
+    on_card = dev.type == "cuda"
+    backend = {} if on_card else {"backend": "host"}
+    prof = {"plugin": "cuda", "k": str(K), "m": str(M),
+            "crush-failure-domain": "host", **backend}
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "crc32c": crc32c_device.launches,
+                "fused_encode_crc": fused_encode_crc.launches,
+                "resident_calls": resident.launches}
+    total = {n: 0 for n in counters}
+    kernel_counters = [counters[n] for n in ("gf_bit_matmul", "crc32c",
+                                             "fused_encode_crc")]
+    gate = OpGate()
+    out = {"legs": {}, "config": {
+        "osds": OSD_PATH_OSDS, "pg_num": pg_num, "profile": prof,
+        "objects": n_obj, "object_bytes": obj_bytes,
+        "small_bytes": small_bytes, "regen_profile": REGEN_PROFILE,
+        "regen_object_bytes": regen_bytes,
+        "deadline_s": OSD_PATH_DEADLINE_S}}
+    t_slice = time.perf_counter()
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        got = {n: c.n for n, c in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return got
+
+    def leg(name, wall, nbytes, launches, **extra):
+        rec = {"wall_s": wall, "bytes": nbytes,
+               "GiBps": nbytes / wall / 2**30 if wall else None,
+               "launches": launches, **extra}
+        out["legs"][name] = rec
+        log(f"4p {name}: " + json.dumps(rec))
+        return rec
+
+    def traced(rec, tr):
+        rec["trace"] = tr.reading()
+        log("4p traced run: " + json.dumps(rec["trace"]))
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4p: {what}")
+
+    def rebuild(d, pid, osd_id, want):
+        """Replace ``osd_id``'s disk (an empty store under the same id,
+        marked up) and tick until every (oid, shard) of ``want`` is
+        stored again; ``check_bodies`` then finds any that is not."""
+        t1 = time.perf_counter()
+        d.replace_osd(osd_id)
+        log(f"4p: osd.{osd_id}'s disk replaced in "
+            f"{time.perf_counter() - t1:.1f} s")
+        for i in range(10):
+            t1 = time.perf_counter()
+            d.tick(1.0)
+            log(f"4p: recovery tick {i} {time.perf_counter() - t1:.1f} s")
+            if want <= set(stored_bodies(d, pid, keys_only=True)):
+                return
+
+    # earlier phases leave residency and the dispatch options set: every
+    # leg starts from the defaults, and sets what it states itself
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "osd_op_num_threads", "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    # a device error caught on the way (the dispatcher's per-request
+    # re-run of a failed flush, an encode future resolved with an error)
+    # fails 4p even where the op still got its reply
+    dpc, ppc = dispatch_perf_counters(), pipeline_perf_counters()
+    caught0 = (dpc.get(dsched.l_dispatch_fallbacks),
+               dpc.get(dsched.l_dispatch_errors),
+               ppc.get(l_pipeline_errors))
+    rng = np.random.default_rng(SEED + 4)
+    objs = {f"obj{i}": rng.integers(0, 256, obj_bytes,
+                                    dtype=np.uint8).tobytes()
+            for i in range(n_obj)}
+    matrix = create_erasure_code({**prof, "backend": "host"}).codec.matrix
+
+    # -- (a) write -------------------------------------------------------------
+    t0 = time.perf_counter()
+    d = Daemons("ceph_tpu_torch", OSD_PATH_OSDS)
+    pid = d.create_ec_pool("ec", prof, pg_num)
+    cl = d.client()
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4p: 12 OSDs and a pool of {pg_num} PGs up in "
+        f"{out['boot_s']:.1f} s")
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in objs.items():
+        gate.call(f"write_full {oid}", cl.write_full, "ec", oid, body)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    need(n["gf_bit_matmul"] == n_obj, f"(a) K1 launches {n} for {n_obj} "
+         "encodes")
+    expect = {oid: native_shards(matrix, K, CHUNK, b)
+              for oid, b in objs.items()}
+    held = check_bodies(d, pid, expect, "(a)")
+    if held != n_obj * (K + M):
+        raise AssertionError(f"4p (a): {held} bodies stored")
+    rec = leg("a_write", wall, n_obj * obj_bytes, n, bodies_checked=held)
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in objs.items():
+        if gate.call(f"read {oid}", cl.read, "ec", oid) != body:
+            raise AssertionError(f"4p (a): read of {oid} differs")
+    rec["read_wall_s"] = time.perf_counter() - t0
+    rec["read_GiBps"] = n_obj * obj_bytes / rec["read_wall_s"] / 2**30
+    off, ln = obj_bytes // 4 + 123, obj_bytes // 3
+    if gate.call("ranged read", cl.read, "ec", "obj5", off, ln) != \
+            objs["obj5"][off:off + ln]:
+        raise AssertionError("4p (a): ranged read differs")
+    final = dict(objs)
+    patch = rng.integers(0, 256, obj_bytes // 40, dtype=np.uint8).tobytes()
+    at = obj_bytes * 3 // 8 + 77
+    gate.call("overwrite", cl.write, "ec", "obj1", patch, at)
+    final["obj1"] = objs["obj1"][:at] + patch + objs["obj1"][at + len(patch):]
+    tail = rng.integers(0, 256, obj_bytes // 13, dtype=np.uint8).tobytes()
+    gate.call("append", cl.append, "ec", "obj2", tail)
+    final["obj2"] = objs["obj2"] + tail
+    for oid in ("obj1", "obj2"):
+        expect[oid] = native_shards(matrix, K, CHUNK, final[oid])
+        if gate.call(f"read {oid}", cl.read, "ec", oid) != final[oid]:
+            raise AssertionError(f"4p (a): {oid} after rmw differs")
+    check_bodies(d, pid, {o: expect[o] for o in ("obj1", "obj2")},
+                 "(a) rmw")
+    rec["rmw_launches"] = read_counts()
+    with LegTrace(dev, kernel_counters) as tr:
+        for i, body in enumerate(objs.values()):
+            gate.call("traced write", cl.write_full, "ec", f"t{i}", body)
+    traced(rec, tr)
+    reset()
+
+    # -- (b) degraded read -----------------------------------------------------
+    acting = acting_of(d, cl, "ec", "obj0")
+    victims = [acting[1], acting[9]]
+    placed = {oid: acting_of(d, cl, "ec", oid) for oid in final}
+    lost = {oid: [s for s, o in enumerate(a) if o in victims]
+            for oid, a in placed.items()}
+    for o in victims:
+        d.kill_osd(o)
+    t0 = time.perf_counter()
+    for i in range(10):
+        t1 = time.perf_counter()
+        d.tick(6.0)
+        log(f"4p (b): tick {i} {time.perf_counter() - t1:.1f} s")
+        if all(not d.mon.osdmap.is_up(o) for o in victims):
+            break
+    if any(d.mon.osdmap.is_up(o) for o in victims):
+        raise AssertionError(f"4p (b): osds {victims} never marked down")
+    mark_s = time.perf_counter() - t0
+    decodes = sum(1 for s in lost.values() if any(x < K for x in s))
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in final.items():
+        if gate.call(f"degraded read {oid}", cl.read, "ec", oid) != body:
+            raise AssertionError(f"4p (b): degraded read of {oid} differs")
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    need(n["gf_bit_matmul"] >= decodes > 0,
+         f"(b) K1 launches {n} for {decodes} objects with a lost data shard")
+    rec = leg("b_degraded_read", wall,
+              sum(len(b) for b in final.values()), n,
+              mark_down_s=mark_s, victims=victims,
+              objects_missing_a_data_shard=decodes)
+    with LegTrace(dev, kernel_counters) as tr:
+        for oid in final:
+            gate.call("traced read", cl.read, "ec", oid)
+    traced(rec, tr)
+    reset()
+
+    # -- (c) recovery ----------------------------------------------------------
+    # 12 shards fill the 12 hosts, so an out OSD's shards have no other
+    # home (and every epoch that leaves one out sends each PG's mapping
+    # through CRUSH's full retry budget on the host): the downed OSD's
+    # disk is replaced instead, an empty store under the same id marked
+    # up, and recovery rebuilds its shards there by decode
+    still = {oid: [s for s, o in enumerate(a) if o == victims[1]]
+             for oid, a in placed.items()}
+    want = {(oid, s) for oid in final for s in range(K + M)
+            if s not in still[oid]}
+    t0 = time.perf_counter()
+    rebuild(d, pid, victims[0], want)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    held = check_bodies(d, pid, expect, "(c)", skip_shards=still)
+    rebuilt = sum(1 for oid in final
+                  for s in lost[oid] if s not in still[oid])
+    need(n["gf_bit_matmul"] > 0, f"(c) K1 launches {n}")
+    rec = leg("c_recovery", wall, rebuilt * obj_bytes // K, n,
+              shards_rebuilt=rebuilt, bodies_checked=held)
+    # the traced run: the other downed OSD's disk, replaced and rebuilt
+    with LegTrace(dev, kernel_counters) as tr:
+        rebuild(d, pid, victims[1],
+                {(oid, s) for oid in final for s in range(K + M)})
+    traced(rec, tr)
+    rec["traced_bodies_checked"] = check_bodies(d, pid, expect,
+                                                "(c) traced")
+    reset()
+    d.shutdown()
+    del d, cl, expect
+    gc.collect()
+
+    # -- (d) resident write ----------------------------------------------------
+    g_conf.set_val("os_memstore_device_bytes_max", RESIDENT_BUDGET)
+    pc = memstore_device_perf_counters()
+    try:
+        d = Daemons("ceph_tpu_torch", OSD_PATH_OSDS)
+        pid = d.create_ec_pool("resident", prof, pg_num)
+        cl = d.client()
+        reset()
+        t0 = time.perf_counter()
+        for oid, body in objs.items():
+            gate.call(f"resident write {oid}", cl.write_full, "resident",
+                      oid, body)
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        need(n["resident_calls"] == n["fused_encode_crc"] == n_obj
+             and n["gf_bit_matmul"] == 0,
+             f"(d) write launches {n}: K5 {n_obj} times, K1 never")
+        rec = leg("d_resident_write", wall, n_obj * obj_bytes, n)
+        dev0, host0 = pc.get(l_msd_crc_device), pc.get(l_msd_crc_host)
+        reset()
+        t0 = time.perf_counter()
+        for oid, body in objs.items():
+            if gate.call(f"resident read {oid}", cl.read, "resident",
+                         oid) != body:
+                raise AssertionError(f"4p (d): read of {oid} differs")
+        rwall = time.perf_counter() - t0
+        n = read_counts()
+        crc_dev = pc.get(l_msd_crc_device) - dev0
+        crc_host = pc.get(l_msd_crc_host) - host0
+        if crc_dev != n_obj * K or crc_host:
+            raise AssertionError(f"4p (d): device crcs {crc_dev}, host "
+                                 f"crcs {crc_host} for {n_obj * K} bodies")
+        need(n["crc32c"] == n_obj * K and n["gf_bit_matmul"] == 0,
+             f"(d) read launches {n}: K4 once per resident body")
+        rec.update(read_wall_s=rwall,
+                   read_GiBps=n_obj * obj_bytes / rwall / 2**30,
+                   read_launches=n, crc_device=crc_dev, crc_host=crc_host)
+        # rot one data body of obj0: its sub-read fails, the primary
+        # decodes
+        acting = acting_of(d, cl, "resident", "obj0")
+        st = d.osds[acting[0]].store
+        cid = next(c for c in st.list_collections()
+                   if any(h.oid == "obj0" and h.shard == 0
+                          for h in st.list_objects(c)))
+        ho = next(h for h in st.list_objects(cid)
+                  if h.oid == "obj0" and h.shard == 0)
+        reset()
+        g_faults.inject("store.shard_corrupt", mode="once",
+                        match=f"{cid}/{ho}")
+        try:
+            if gate.call("rotted read", cl.read, "resident", "obj0") != \
+                    objs["obj0"]:
+                raise AssertionError("4p (d): read past the rot differs")
+        finally:
+            g_faults.clear()
+        n = read_counts()
+        need(n["gf_bit_matmul"] >= 1, f"(d) rot: K1 launches {n}")
+        rec["rot_launches"] = n
+        reset()
+        t0 = time.perf_counter()
+        d.scrub(deep=True)
+        n = read_counts()
+        need(n["crc32c"] == 0, f"(d) deep scrub launched K4: {n}")
+        rec.update(deep_scrub_s=time.perf_counter() - t0,
+                   deep_scrub_launches=n)
+        for oid, body in objs.items():
+            if gate.call(f"read {oid}", cl.read, "resident", oid) != body:
+                raise AssertionError(f"4p (d): {oid} after scrub differs")
+        reset()
+        with LegTrace(dev, kernel_counters) as tr:
+            for i, body in enumerate(objs.values()):
+                gate.call("traced resident write", cl.write_full,
+                          "resident", f"t{i}", body)
+            for i in range(n_obj):
+                gate.call("traced resident read", cl.read, "resident",
+                          f"t{i}")
+        traced(rec, tr)
+        reset()
+        d.shutdown()
+        del d, cl
+    finally:
+        g_conf.rm_val("os_memstore_device_bytes_max")
+    gc.collect()
+
+    # -- (e) coalesced and threaded --------------------------------------------
+    opts = {"osd_op_num_threads": 4, "ec_pipeline_depth": 8,
+            "ec_dispatch_batch_window_us": 20000}
+    for k, v in opts.items():
+        g_conf.set_val(k, v)
+    small = {f"s{i}": rng.integers(0, 256, small_bytes,
+                                   dtype=np.uint8).tobytes()
+             for i in range(n_obj)}
+    try:
+        d = Daemons("ceph_tpu_torch", OSD_PATH_OSDS)
+        pid = d.create_ec_pool("small", prof, pg_num)
+        cl = d.client()
+        g_dispatcher.flush()
+
+        def dsnap():
+            return {name: dpc.get(getattr(dsched, f"l_dispatch_{name}"))
+                    for name in ("batches", "batched_reqs", "coalesced",
+                                 "fallbacks", "errors")} | {
+                "encode_errors": ppc.get(l_pipeline_errors)}
+        before = dsnap()
+        reset()
+        t0 = time.perf_counter()
+        res = d.burst_write_full(cl, "small", small,
+                                 deadline_s=OSD_PATH_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        delta = {k: v - before[k] for k, v in dsnap().items()}
+        if res != {oid: 0 for oid in small}:
+            bad = {o: r for o, r in res.items() if r != 0}
+            raise AssertionError(f"4p (e): replies {bad}")
+        if delta["fallbacks"] or delta["errors"] or delta["encode_errors"]:
+            raise AssertionError(f"4p (e): re-runs or errors {delta}")
+        if delta["coalesced"] < 2:
+            raise AssertionError(f"4p (e): no flush held two requests "
+                                 f"{delta}")
+        need(n["gf_bit_matmul"] == delta["batches"],
+             f"(e) K1 launches {n} for {delta['batches']} flushes")
+        sexp = {oid: native_shards(matrix, K, CHUNK, b)
+                for oid, b in small.items()}
+        held = check_bodies(d, pid, sexp, "(e)")
+        for oid, body in small.items():
+            if gate.call(f"read {oid}", cl.read, "small", oid) != body:
+                raise AssertionError(f"4p (e): read of {oid} differs")
+        rec = leg("e_coalesced_threaded", wall, n_obj * small_bytes, n,
+                  dispatch=delta, bodies_checked=held,
+                  mean_requests_per_flush=delta["batched_reqs"]
+                  / max(delta["batches"], 1))
+        with LegTrace(dev, kernel_counters) as tr:
+            res = d.burst_write_full(
+                cl, "small", {f"t{o}": b for o, b in small.items()},
+                deadline_s=OSD_PATH_DEADLINE_S)
+        if set(res.values()) != {0}:
+            raise AssertionError(f"4p (e): traced burst replies {res}")
+        traced(rec, tr)
+        reset()
+        d.shutdown()
+        del d, cl
+    finally:
+        for k in opts:
+            g_conf.rm_val(k)
+    gc.collect()
+
+    # -- (f) regenerating ------------------------------------------------------
+    rprof = {**REGEN_PROFILE, "crush-failure-domain": "host", **backend}
+    regen = {f"r{i}": rng.integers(0, 256, regen_bytes,
+                                   dtype=np.uint8).tobytes()
+             for i in range(n_obj)}
+    d = Daemons("ceph_tpu_torch", OSD_PATH_OSDS)
+    pid = d.create_ec_pool("regen", rprof, pg_num)
+    cl = d.client()
+    host = create_erasure_code({**REGEN_PROFILE, "backend": "host"})
+    sinfo = host.make_stripe_info(d.mon.osdmap.pools[pid].stripe_width)
+    w = sinfo.get_stripe_width()
+    n_all = host.get_chunk_count()
+    rexp = {}
+    for oid, body in regen.items():
+        sh = ecutil.encode(sinfo, host, body + b"\0" * (-len(body) % w),
+                           set(range(n_all)))
+        rexp[oid] = [sh[i].tobytes() for i in range(n_all)]
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in regen.items():
+        gate.call(f"regen write {oid}", cl.write_full, "regen", oid, body)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    need(n["gf_bit_matmul"] == n_obj, f"(f) write K1 launches {n}")
+    held = check_bodies(d, pid, rexp, "(f) write")
+    rec = leg("f_regen_write", wall, n_obj * regen_bytes, n,
+              bodies_checked=held)
+    with LegTrace(dev, kernel_counters) as tr:
+        for i, body in enumerate(regen.values()):
+            gate.call("traced regen write", cl.write_full, "regen",
+                      f"t{i}", body)
+    traced(rec, tr)
+    for i, body in enumerate(regen.values()):
+        rexp[f"t{i}"] = rexp[f"r{i}"]
+    rpc = recovery_perf_counters()
+    r0, f0 = rpc.get(l_recovery_repair_rounds), rpc.get(l_recovery_fallbacks)
+    acting = acting_of(d, cl, "regen", "r0")
+    victim = acting[-1]
+    d.kill_osd(victim)
+    d.mark_osd_down(victim)
+    want = {(oid, s) for oid in rexp for s in range(n_all)}
+    reset()
+    t0 = time.perf_counter()
+    rebuild(d, pid, victim, want)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    rounds = rpc.get(l_recovery_repair_rounds) - r0
+    fallbacks = rpc.get(l_recovery_fallbacks) - f0
+    if rounds <= 0 or fallbacks:
+        raise AssertionError(f"4p (f): repair rounds {rounds}, fallbacks "
+                             f"{fallbacks}")
+    need(n["gf_bit_matmul"] >= rounds, f"(f) repair K1 launches {n}")
+    held = check_bodies(d, pid, rexp, "(f) recovery")
+    for oid, body in regen.items():
+        if gate.call(f"regen read {oid}", cl.read, "regen", oid) != body:
+            raise AssertionError(f"4p (f): read of {oid} differs")
+    rec = leg("f_regen_recovery", wall, rounds * len(rexp["r0"][0]), n,
+              repair_rounds=rounds, repair_fallbacks=fallbacks,
+              bodies_checked=held)
+    # the traced run: a second OSD down, its disk replaced and rebuilt
+    d.kill_osd(acting[0])
+    d.mark_osd_down(acting[0])
+    r0, f0 = rpc.get(l_recovery_repair_rounds), rpc.get(l_recovery_fallbacks)
+    with LegTrace(dev, kernel_counters) as tr:
+        rebuild(d, pid, acting[0], want)
+    traced(rec, tr)
+    rec["traced_repair_rounds"] = rpc.get(l_recovery_repair_rounds) - r0
+    if rec["traced_repair_rounds"] <= 0 or \
+            rpc.get(l_recovery_fallbacks) != f0:
+        raise AssertionError(f"4p (f): traced recovery {rec}")
+    rec["traced_bodies_checked"] = check_bodies(d, pid, rexp,
+                                                "(f) traced")
+    reset()
+    d.shutdown()
+    del d, cl
+    gc.collect()
+
+    caught = (dpc.get(dsched.l_dispatch_fallbacks),
+              dpc.get(dsched.l_dispatch_errors), ppc.get(l_pipeline_errors))
+    if caught != caught0:
+        raise AssertionError(f"4p: device errors caught on the path: "
+                             f"(re-runs, errors, encode errors) {caught0} "
+                             f"-> {caught}")
+    for name, rec in out["legs"].items():
+        log(f"4p {name} record: " + json.dumps(rec))
+    out["launches"] = total
+    out["ops"] = gate.ops
+    out["slowest_op_s"] = gate.slowest_s
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4p: {gate.ops} ops, slowest {gate.slowest_s:.2f} s, launches "
+        f"{total}, {out['seconds']:.1f} s")
+    return out
+
+
+def osd_path_alone(dev) -> None:
+    """``--osd-path``: 4p alone after phases 1-2, its record written to
+    ``chiprun_out/osd_path.json``."""
+    out = osd_path_slice(dev)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "osd_path.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3710,10 +4645,11 @@ def main() -> int:
                         ("--k7a-parent", k7a_parent_turns),
                         ("--k7a-forms", k7a_form_turns),
                         ("--dispatch-scan", dispatch_scan_turns),
-                        ("--k8-parent", k8_parent_turns)):
+                        ("--k8-parent", k8_parent_turns),
+                        ("--osd-path", osd_path_alone)):
         if flag not in sys.argv:
             continue
-        if flag in ("--k7a-forms", "--dispatch-scan"):
+        if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -4024,6 +4960,15 @@ def main() -> int:
     results["memstore"] = store
     phase_done("4m memstore")
 
+    # -- 4p. the OSD data path: a client's writes and reads through the
+    # monitor, the OSDs, their PGs and ECBackend, after the earlier
+    # slices' phases, which run as they did before it --------------------
+    del objs
+    osd_path = osd_path_slice(dev)
+    results["osd_path"] = osd_path
+    path_n = osd_path["launches"]
+    phase_done("4p OSD data path")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -4044,7 +4989,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/gf_bit_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
         "launches": (launches + res_launches["gf_bit_matmul"] + family_k1
-                     + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]),
+                     + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]
+                     + path_n["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -4053,7 +4999,8 @@ def main() -> int:
         "name": "crc32c", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crc32c.cu",
         "replaces": "ceph_tpu/ops/crc32c_device.py:73",
-        "launches": res_launches["crc32c"] + store["launches"]["crc32c"],
+        "launches": res_launches["crc32c"] + store["launches"]["crc32c"]
+        + path_n["crc32c"],
         "max_abs_err": max(crc_err, res_err),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -4063,7 +5010,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/fused_encode_crc.cu",
         "replaces": "ceph_tpu/ops/resident.py:31",
         "launches": res_launches["fused_encode_crc"]
-        + store["launches"]["fused_encode_crc"],
+        + store["launches"]["fused_encode_crc"]
+        + path_n["fused_encode_crc"],
         "max_abs_err": max(res_err, fused_err),
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

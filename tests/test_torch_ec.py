@@ -249,7 +249,11 @@ def test_profile_and_clamps_match_jax():
     with pytest.raises(ValueError):
         port_create({"plugin": "isa", "backend": "host", "k": "1"})
     with pytest.raises(KeyError):
-        port_create({"plugin": "regenerating", "backend": "host"})
+        port_create({"plugin": "no_such_plugin", "backend": "host"})
+    # regenerating is in the port's registry, with the JAX defaults
+    port = port_create({"plugin": "regenerating", "backend": "host"})
+    ref = jax_create({"plugin": "regenerating", "backend": "host"})
+    assert port.get_profile() == ref.get_profile()
 
 
 @pytest.mark.parametrize("k", [2, 5])

@@ -569,3 +569,77 @@ def test_bench_cli_and_dispatch_workloads_need_the_card():
         workloads.measure_dispatch_coalesce(n_requests=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         workloads.measure_ec_pipeline(n_requests=2)
+
+
+def test_walk_sees_the_osd_data_path():
+    """The package walk reaches the op queue, ``ECBackend``, the PG, the
+    OSD and its helpers, recovery, the monitor, the client and the
+    regenerating codec; the registry knows ``regenerating``."""
+    mods = _modules()
+    for m in ("common.work_queue", "osd.hit_set", "osd.snap_mapper",
+              "osd.cls", "osd.cls_lock", "osd.tier", "osd.ec_backend",
+              "osd.pg", "osd.osd", "recovery", "recovery.scheduler",
+              "mon.monitor", "client", "client.mon_client",
+              "client.rados", "client.striper", "ec.regenerating"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    from ceph_tpu_torch.ec.registry import instance
+    assert "regenerating" in instance.names()
+    assert "ceph_tpu_torch.cluster" not in mods
+
+
+def _function(path, name, cls=None):
+    tree = ast.parse((PKG / path).read_text())
+    scope = tree
+    if cls is not None:
+        scope = next(n for n in ast.walk(tree)
+                     if isinstance(n, ast.ClassDef) and n.name == cls)
+    return next(n for n in ast.walk(scope)
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def _catch_alls(fn):
+    """The handlers of ``fn`` that catch ``Exception`` or everything."""
+    out = []
+    for node in ast.walk(fn):
+        if isinstance(node, ast.ExceptHandler):
+            names = ([node.type] if not isinstance(node.type, ast.Tuple)
+                     else node.type.elts) if node.type else [None]
+            if any(n is None or (isinstance(n, ast.Name) and n.id in (
+                    "Exception", "BaseException")) for n in names):
+                out.append(node.lineno)
+    return out
+
+
+def test_device_seams_hold_no_catch_all():
+    """``ECBackend._encode_resident`` (K5) and the recovery scheduler's
+    sub-chunk repair round catch nothing: a failed build or launch
+    reaches the caller.  The repair round checks the codec's refusals
+    before the call instead."""
+    enc = _function("osd/ec_backend.py", "_encode_resident")
+    assert not [n for n in ast.walk(enc) if isinstance(n, ast.Try)]
+    rnd = _function("recovery/scheduler.py", "_start_round")
+    assert not _catch_alls(rnd)
+    assert not [n for n in ast.walk(rnd) if isinstance(n, ast.Try)]
+
+
+def test_regenerating_carries_no_guard_or_mesh():
+    """The regenerating codec has no fault guard, breaker, host fallback
+    or JAX mesh hook: only the port's mesh switch."""
+    tree = ast.parse((PKG / "ec" / "regenerating.py").read_text())
+    used = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            used.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            used.add(node.attr)
+        elif isinstance(node, ast.alias):
+            used.add(node.name)
+        elif isinstance(node, ast.ImportFrom):
+            used.add(node.module or "")
+    for name in ("run_device_call", "_note_cpu_fallback",
+                 "DeviceUnavailable", "g_mesh", "decode_stacked", "mesh"):
+        assert name not in used, name
+    assert "_mesh_active" in used
+    for fn in ("encode_batch", "decode_batch", "repair"):
+        assert not _catch_alls(_function("ec/regenerating.py", fn,
+                                         "ErasureCodeRegenerating"))
