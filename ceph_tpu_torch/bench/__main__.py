@@ -15,6 +15,12 @@ Port of ``ceph_tpu/bench/__main__.py``.  Modes:
                 100000 PGs, 10 epochs, the native host mapper beside
                 it).  No card raises.
 
+Both modes then run the three cluster workloads on a ``MiniCluster``: the
+traffic harness (8 clients over a replicated pool), the zero-copy write
+A/B (resident against the bytes twin, gated by regress.py's ZERO-COPY
+gate) and the recovery storm (RS against regenerating, the recovery
+gate), at the JAX CLI's shapes.
+
   --gate off|warn|fail   compare fenced metrics against the archived
                 BENCH_r*.json trajectory (regress.py), readings of the
                 same platform only; "fail" exits 2 on a regression beyond
@@ -22,8 +28,8 @@ Port of ``ceph_tpu/bench/__main__.py``.  Modes:
 
 Output: ONE JSON line on stdout carrying schema-valid metrics; human
 progress goes to stderr.  The line's ``not_ported`` names the JAX
-bench's mesh and cluster workloads, which this CLI does not run until
-the port has a mesh and a cluster.
+bench's workloads that need a mesh, which this CLI does not run until
+the port has one.
 """
 from __future__ import annotations
 
@@ -34,12 +40,10 @@ import sys
 import time
 import traceback
 
-# the JAX bench's workloads that need a mesh or a cluster
+# the JAX bench's workloads that need a mesh
 NOT_PORTED = ("measure_ec_mesh", "measure_mesh_skew",
-              "measure_mesh_straggler", "measure_traffic",
-              "measure_ec_write_zero_copy", "measure_recovery_storm",
-              "measure_degraded_read", "measure_composed_chaos",
-              "measure_slo_autotune")
+              "measure_mesh_straggler", "measure_degraded_read",
+              "measure_composed_chaos", "measure_slo_autotune")
 
 
 def main(argv=None) -> int:
@@ -63,8 +67,9 @@ def main(argv=None) -> int:
     from .workloads import (_device_info, bench_perf_counters,
                             measure_crush_remap, measure_decode,
                             measure_dispatch_coalesce, measure_ec_pipeline,
-                            measure_encode, measure_host_native,
-                            parity_check)
+                            measure_ec_write_zero_copy, measure_encode,
+                            measure_host_native, measure_recovery_storm,
+                            measure_traffic, parity_check)
     from ..gf.matrices import gf_gen_rs_matrix
 
     K, M = 8, 4
@@ -143,6 +148,49 @@ def main(argv=None) -> int:
             progress(f"crush_remap wall {wall_ms:.3f} ms, device "
                      f"{dev_ms:.4f} ms, native host {host_ms:.1f} ms per "
                      f"epoch of 100000 PGs")
+        # the traffic harness (load/): 8 concurrent synthetic clients
+        # over the real client stack; the smoke shape is seconds on the
+        # CPU, the full mode drives a deeper closed loop
+        mt = measure_traffic(
+            n_clients=8,
+            ops_per_client=32 if args.smoke else 256,
+            name="traffic_harness_smoke" if args.smoke
+            else "traffic_harness")
+        result["metrics"].append(mt)
+        progress(f"traffic {mt['value']} ops/s over "
+                 f"{mt['n_clients']} clients ({mt['total_ops']} ops, "
+                 f"byte_exact {mt['byte_exact']}, agg p99 "
+                 f"{mt['aggregate'].get('p99')}us)")
+        roll = mt["cluster_rollup"]
+        progress(f"cluster rollup: reply p99 "
+                 f"{roll['oplat_p99_usec'].get('reply')}us, "
+                 f"{roll['rates'].get('ops')} ops/s, slo {roll['slo']}")
+        # the zero-copy write path: the device-resident shard store and
+        # the fused encode+crc against the host-bytes twin, the devflow
+        # A/B judged by regress.py's ZERO-COPY gate
+        mz = measure_ec_write_zero_copy(
+            n_objects=6 if args.smoke else 24, device=device)
+        result["metrics"].append(mz)
+        zc = mz["zero_copy"]
+        progress(f"ec_write_zero_copy {mz['value']} ops/s resident vs "
+                 f"{mz['twin_ops_per_sec']} bytes-twin "
+                 f"(copies/op {zc['resident_copies_per_op']} vs "
+                 f"{zc['twin_copies_per_op']}, resident d2h "
+                 f"{zc['resident_d2h_bytes_per_op']} B/op, "
+                 f"{zc['resident_shards']} shards resident, "
+                 f"byte_exact {zc['byte_exact']})")
+        # the recovery storm (recovery/): kill an OSD under open-loop
+        # traffic, gate bytes-moved-per-repaired-shard for the
+        # regenerating family against RS full-stripe
+        mr = measure_recovery_storm(
+            n_objects=6 if args.smoke else 24,
+            ops_per_client=8 if args.smoke else 48, device=device)
+        result["metrics"].append(mr)
+        rec = mr["recovery"]
+        progress(f"recovery_storm {rec['bytes_per_repaired_shard_regen']}"
+                 f" B/shard regen vs {rec['bytes_per_repaired_shard_rs']}"
+                 f" RS (ratio {rec['regen_vs_rs_ratio']}, identical "
+                 f"{mr['identical']}, slo {mr['slo']})")
         result["decode_parity"] = parity_check(matrix, device=device)
         if not result["decode_parity"]:
             rc = 1

@@ -16,9 +16,11 @@ Every entry point runs on the card unless the caller passes
 ``device="cpu"``.  The salted input (no layer can serve a repeat launch
 from cache) and the fetch-drain fence are both load-bearing.
 
-Not here yet: the mesh branch of ``_measure_fenced_gf`` (it raises until
-the port has its mesh modules) and the workloads that need a mesh or a
-cluster.
+The cluster workloads (``measure_traffic``, ``measure_ec_write_zero_copy``,
+``measure_recovery_storm``) drive a ``MiniCluster`` through the traffic
+harness and the recovery scheduler.  Not here yet: the mesh branch of
+``_measure_fenced_gf`` (it raises until the port has its mesh modules)
+and the workloads that need a mesh.
 """
 from __future__ import annotations
 
@@ -806,3 +808,425 @@ def measure_crush_remap(n_osds=1000, n_pgs=100_000, epochs=10,
         extra={"pgs": n_pgs, "n_osds": n_osds,
                "devflow": devflow_wall}))
     return wall_ms, dev_ms, host_ms, fr.residual_fraction, rtt_ms, metrics
+
+
+# ---- the cluster workloads (MiniCluster, load/, recovery) -----------------
+def _cluster_profile(device) -> Dict[str, str]:
+    """The extra EC profile of a cluster workload's pools: none on the
+    card (the codecs' default backend is ``cuda``), ``backend=host``
+    when the caller asks for the CPU."""
+    return {} if resolve_device(device).type == "cuda" \
+        else {"backend": "host"}
+
+
+def measure_traffic(*, n_clients: int = 8, ops_per_client: int = 32,
+                    read_fraction: float = 0.5, n_osds: int = 4,
+                    pg_num: int = 8, mode: str = "closed",
+                    rate_multipliers: Tuple[float, ...] = (),
+                    admission_max: int = 0, seed: int = 20260803,
+                    keep_completions: bool = False,
+                    name: str = "traffic_harness_smoke",
+                    progress=None) -> Dict[str, Any]:
+    """The traffic-harness workload (load/, docs/QOS.md): N
+    synthetic clients over the real messenger/client stack against a
+    fresh replicated mini-cluster, per-client p50/p99/p999 out of the
+    PerfHistogram machinery, byte-exact verification of every op.
+
+    Fencing: the value is client-observed completions per wall second —
+    the clock stops only when every reply's bytes have crossed back to
+    the issuing client, which is the drain contract by construction
+    (host-side fabric; no device dispatch is in the op path to
+    acknowledge early).  No roofline model applies to scheduler
+    throughput, so the verdict is ``unknown``, never silently ``ok``.
+    The pool is replicated, as in the JAX workload: no kernel runs in
+    its op path, so it takes no ``device``.
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..load import TrafficSpec, run_traffic
+
+    cluster = MiniCluster(n_osds=n_osds)
+    cluster.create_replicated_pool("load", size=3, pg_num=pg_num)
+    saved = g_conf.values.get("osd_op_queue_admission_max")
+    saved_ret = g_conf.values.get("mgr_telemetry_retention")
+    if admission_max:
+        g_conf.set_val("osd_op_queue_admission_max", admission_max)
+    # the whole-run rollup below needs the mgr's boot baseline sample
+    # to SURVIVE the run's tick count — ring eviction would silently
+    # truncate the "whole-run" window to its tail and under-report the
+    # wall rates.  10k samples covers any max_rounds/tick_every shape
+    # the harness can produce (one sample per cluster tick).
+    g_conf.set_val("mgr_telemetry_retention", 10_000)
+    flow0 = g_devprof.snapshot()
+    stage0 = g_oplat.snapshot()
+    try:
+        res = run_traffic(cluster, TrafficSpec(
+            pool="load", n_clients=n_clients,
+            ops_per_client=ops_per_client, read_fraction=read_fraction,
+            mode=mode, rate_multipliers=tuple(rate_multipliers),
+            seed=seed, keep_completions=keep_completions),
+            progress=progress)
+        # end-of-run cluster rollup (mgr/telemetry.py): the window
+        # spans the whole run — the boot-time baseline isolates this
+        # cluster's deltas from earlier workloads' process-global
+        # counts — so harness A/B comparisons (mesh dispatch,
+        # zero-copy) read ONE cluster tail number per stage instead
+        # of N per-daemon dumps
+        wall_run_s = max(res.elapsed_s, 1e-3)
+        cluster.clock += wall_run_s
+        cluster.mgr.telemetry.tick(cluster.mgr, cluster.clock)
+        roll = cluster.mgr.telemetry.rollup(
+            window_s=cluster.clock + 1.0)
+    finally:
+        if admission_max:
+            if saved is None:
+                g_conf.rm_val("osd_op_queue_admission_max")
+            else:
+                g_conf.set_val("osd_op_queue_admission_max", saved)
+        if saved_ret is None:
+            g_conf.rm_val("mgr_telemetry_retention")
+        else:
+            g_conf.set_val("mgr_telemetry_retention", saved_ret)
+    pc = bench_perf_counters()
+    pc.inc(l_bench_bytes, res.bytes_moved)
+    # the rollup window's dt mixes run_traffic's simulated tick
+    # seconds with the final wall bump; rescale to WALL rates so the
+    # A/B number is a real throughput figure (rate * span = the
+    # window's counter delta, so this is exact, not a guess)
+    wall_rates = {k: round(v * roll["span_s"] / wall_run_s, 4)
+                  for k, v in roll["rates"].items()}
+    cluster_rollup = {
+        "oplat_p99_usec": roll["oplat_p99_usec"],
+        "rates": wall_rates,
+        "copies_per_op": roll["copies_per_op"],
+        "slo": {check: st["state"]
+                for check, st in roll["slo"].items()},
+        "samples": roll["samples"],
+        "span_s": roll["span_s"],
+    }
+    v = max(res.ops_per_sec, 1e-6)
+    return make_metric(
+        name, v, "ops/s", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={"n_clients": n_clients, "total_ops": res.total_ops,
+               "devflow": _devflow_since(flow0, max(res.completed, 1)),
+               # the op-path stage decomposition (admission -> queue
+               # tiers -> service -> fan-out -> reply) over the run;
+               # queued ops wait concurrently, so coverage can exceed 1
+               "stage_breakdown": _stage_breakdown_since(
+                   stage0, max(res.elapsed_s, 1e-9),
+                   max(res.completed, 1)),
+               "cluster_rollup": cluster_rollup,
+               "completed": res.completed,
+               "byte_exact": bool(res.byte_exact),
+               "rounds": res.rounds,
+               "elapsed_s": round(res.elapsed_s, 3),
+               "throttled_total": res.throttled_total,
+               "admission_rejections": res.admission_rejections,
+               "max_intake_depth": res.max_intake_depth,
+               # per-client percentiles in usec (PerfHistogram bucket
+               # upper edges — the same series Prometheus exports)
+               "per_client": res.per_client,
+               "aggregate": res.aggregate,
+               "errors": res.errors[:8]})
+
+
+def measure_ec_write_zero_copy(*, n_osds: int = 6, k: int = 3,
+                               m: int = 2, n_objects: int = 6,
+                               stripes_per_object: int = 2,
+                               pg_num: int = 8,
+                               name: str = "ec_write_zero_copy",
+                               device="cuda") -> Dict[str, Any]:
+    """The zero-copy write path A/B (docs/DISPATCH.md "Zero-copy write
+    path"): the same EC client writes through two fresh mini-clusters —
+    device-RESIDENT (``os_memstore_device_bytes_max`` large: fused
+    encode+crc, shard bodies stay in HBM as DeviceShard handles, zero
+    body d2h) vs the BYTES twin (budget 0: today's host-bytes funnel) —
+    with each leg's devflow captured over the write region only.
+
+    The receipt is the ``zero_copy`` block, judged by regress.py's
+    ZERO-COPY gate as absolute invariants: the resident leg's write-path
+    d2h must stay under the devflow floor (512 B/op — the only fetch is
+    the crc scalar), its copies_per_op must be STRICTLY below the bytes
+    twin's (the deleted copies are the whole point), residency must have
+    actually engaged (shard handles live in the store when the region
+    closes), and read-backs — which materialize lazily, AFTER the delta
+    capture — must be byte-exact on both legs and equal across them.
+
+    Fencing: the write region's clock stops when every client ack has
+    returned on the in-process fabric; the resident leg's encode path
+    ends in the crc d2h fetch, which is itself a completion fence for
+    the fused kernel (the scalar cannot come back before the shard
+    bodies exist).  The pool's codec is the ``cuda`` plugin on the card;
+    ``device="cpu"`` gives it ``backend=host`` (the plain versions)."""
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..ops import crc32c_device, fused_encode_crc, gf_pallas
+    from ..os_store.device_shard import g_device_budget
+
+    # the kernels' launch counters, read around each leg's write region:
+    # the resident leg takes K5, or K1 then K4 where the one-pass form
+    # does not fit the shape; the bytes twin takes K1
+    kernels = {"gf_bit_matmul": gf_pallas.launches,
+               "crc32c": crc32c_device.launches,
+               "fused_encode_crc": fused_encode_crc.launches}
+    width = k * int(g_conf.get_val("osd_pool_erasure_code_stripe_unit"))
+    object_bytes = stripes_per_object * width
+    rng = np.random.default_rng(20260807)
+    payloads = [rng.integers(0, 256, size=object_bytes,
+                             dtype=np.uint8).tobytes()
+                for _ in range(n_objects)]
+    saved = g_conf.values.get("os_memstore_device_bytes_max")
+    pc = bench_perf_counters()
+    legs: Dict[str, Dict[str, Any]] = {}
+    read_backs: Dict[str, list] = {}
+    try:
+        for leg, budget in (("resident", 1 << 30), ("bytes_twin", 0)):
+            g_conf.set_val("os_memstore_device_bytes_max", budget)
+            cluster = MiniCluster(n_osds=n_osds)
+            cluster.create_ec_pool("zc", k=k, m=m, pg_num=pg_num,
+                                   extra_profile=_cluster_profile(device))
+            cl = cluster.client(f"client.zc_{leg}")
+            flow0 = g_devprof.snapshot()
+            stage0 = g_oplat.snapshot()
+            n0 = {n: c.n for n, c in kernels.items()}
+            t0 = time.perf_counter()
+            for i, data in enumerate(payloads):
+                rc = cl.write_full("zc", f"obj-{i}", data)
+                assert rc == 0, f"write_full rc={rc}"
+            wall_s = max(time.perf_counter() - t0, 1e-9)
+            launched = {n: c.n - n0[n] for n, c in kernels.items()}
+            # the gated receipt: flow over the WRITE region only —
+            # read-backs (below) materialize resident shards, and that
+            # d2h is the read path's to pay, not the write path's
+            flow = _devflow_since(flow0, n_objects)
+            breakdown = _stage_breakdown_since(stage0, wall_s,
+                                               n_objects)
+            resident_shards = g_device_budget.resident_shards()
+            read_backs[leg] = [cl.read("zc", f"obj-{i}")
+                               for i in range(n_objects)]
+            legs[leg] = {"devflow": flow, "stage_breakdown": breakdown,
+                         "wall_s": wall_s,
+                         "resident_shards": resident_shards,
+                         "launches": launched,
+                         "ops_per_sec": round(n_objects / wall_s, 2)}
+            pc.inc(l_bench_bytes, n_objects * object_bytes)
+    finally:
+        if saved is None:
+            g_conf.rm_val("os_memstore_device_bytes_max")
+        else:
+            g_conf.set_val("os_memstore_device_bytes_max", saved)
+    byte_exact = all(
+        bytes(read_backs["resident"][i]) == payloads[i]
+        and bytes(read_backs["bytes_twin"][i]) == payloads[i]
+        for i in range(n_objects))
+    res_flow = legs["resident"]["devflow"]
+    twin_flow = legs["bytes_twin"]["devflow"]
+    zero_copy = {
+        "resident": res_flow,
+        "bytes_twin": twin_flow,
+        "resident_d2h_bytes_per_op": round(
+            res_flow["d2h_bytes"] / max(n_objects, 1), 2),
+        "resident_copies_per_op": res_flow["copies_per_op"],
+        "twin_copies_per_op": twin_flow["copies_per_op"],
+        "resident_shards": legs["resident"]["resident_shards"],
+        "byte_exact": bool(byte_exact),
+        # the port's own receipt (the JAX block has no launch counts):
+        # each leg's kernel launches over its write region
+        "launches": {leg: legs[leg]["launches"] for leg in legs},
+    }
+    v = legs["resident"]["ops_per_sec"]
+    return make_metric(
+        name, v, "ops/s", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={"n_objects": n_objects, "object_bytes": object_bytes,
+               "k": k, "m": m,
+               "devflow": res_flow,
+               "stage_breakdown": legs["resident"]["stage_breakdown"],
+               "twin_ops_per_sec": legs["bytes_twin"]["ops_per_sec"],
+               "twin_devflow": twin_flow,
+               "twin_stage_breakdown":
+                   legs["bytes_twin"]["stage_breakdown"],
+               "zero_copy": zero_copy})
+
+
+def measure_recovery_storm(*, k: int = 8, m: int = 4, d: int = 10,
+                           n_osds: int = 0, pg_num: int = 4,
+                           n_objects: int = 8,
+                           object_bytes: int = 4096,
+                           n_clients: int = 4,
+                           ops_per_client: int = 12,
+                           seed: int = 20260804,
+                           name: str = "ec_recovery_storm",
+                           device="cuda") -> Dict[str, Any]:
+    """The recovery-storm workload (docs/RECOVERY.md): kill an OSD
+    under open-loop harness traffic and measure
+    bytes-moved-per-repaired-shard for the regenerating codec family
+    vs the RS full-stripe baseline — the repair-bandwidth claim as a
+    gated number, with the well-behaved clients' cluster_rollup
+    per-stage p99 + SLO state captured DURING the backfill.
+
+    Shape: one cluster, two EC pools over the same object set —
+    ``storm_rs`` (cuda plugin, classic RS matrix) and ``storm_regen``
+    (product-matrix regenerating, repair via d sub-chunk helper
+    contributions).  The traffic harness drives open-loop clients
+    against the RS pool while the event schedule kills + outs one
+    acting OSD mid-run; backfill to the spare rebuilds its shards on
+    BOTH pools through the recovery scheduler, which tallies bytes
+    moved per codec family.  Fencing: all figures are client-observed
+    or counter deltas on the host-side fabric — no device dispatch can
+    acknowledge early — and the byte-exact read-back of every
+    pre-populated object after backfill is the correctness receipt.
+    Both codecs run on the card; ``device="cpu"`` gives them
+    ``backend=host`` (the plain versions).
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..load import TrafficSpec, run_traffic
+    from ..recovery import aggregate_families
+
+    if not n_osds:
+        n_osds = k + m + 2              # one spare + one margin
+    cluster = MiniCluster(n_osds=n_osds)
+    cluster.create_ec_pool("storm_rs", k=k, m=m, pg_num=pg_num,
+                           plugin="cuda",
+                           extra_profile=_cluster_profile(device))
+    cluster.create_ec_pool("storm_regen", k=k, m=m, pg_num=pg_num,
+                           plugin="regenerating",
+                           extra_profile={"d": str(d),
+                                          **_cluster_profile(device)})
+    cl = cluster.client("client.storm")
+    rng = np.random.default_rng(seed)
+    bodies: Dict[str, bytes] = {}
+    for i in range(n_objects):
+        body = rng.integers(0, 256, object_bytes,
+                            dtype=np.uint8).tobytes()
+        bodies[f"storm-{i}"] = body
+        for pool in ("storm_rs", "storm_regen"):
+            assert cl.write_full(pool, f"storm-{i}", body) == 0
+    # victim: an OSD acting for EC PGs in both pools, so ONE failure
+    # drives both families' repair paths
+    votes: Dict[int, int] = {}
+    for _pgid, pg in cluster.primary_pgs():
+        if pg.backend is not None:
+            for o in pg.acting:
+                if o >= 0:
+                    votes[o] = votes.get(o, 0) + 1
+    victim = max(sorted(votes), key=lambda o: votes[o])
+    fam_before = aggregate_families(cluster.osds.values())
+    saved_slo = g_conf.values.get("mgr_slo_oplat_p99_usec")
+    saved_ret = g_conf.values.get("mgr_telemetry_retention")
+    # a generous latency objective makes "no TPU_SLO_OPLAT during the
+    # storm" a real (armed) assertion instead of a vacuous one
+    g_conf.set_val("mgr_slo_oplat_p99_usec", "reply:2000000")
+    g_conf.set_val("mgr_telemetry_retention", 10_000)
+    flow0 = g_devprof.snapshot()
+    stage0 = g_oplat.snapshot()
+    slo_seen: Dict[str, str] = {}
+    try:
+        spec = TrafficSpec(
+            pool="storm_rs", n_clients=n_clients,
+            ops_per_client=ops_per_client, read_fraction=0.5,
+            mode="open", rate=4.0, seed=seed,
+            keep_completions=False,
+            events=((2, "osd_kill", victim), (3, "osd_out", victim)))
+        res = run_traffic(cluster, spec)
+        # drive backfill to completion under the post-storm map
+        for _ in range(16):
+            cluster.tick(dt=1.0)
+            states = set(cluster.pg_states().values())
+            if states <= {"active"}:
+                break
+        wall_run_s = max(res.elapsed_s, 1e-3)
+        cluster.clock += wall_run_s
+        cluster.mgr.telemetry.tick(cluster.mgr, cluster.clock)
+        roll = cluster.mgr.telemetry.rollup(
+            window_s=cluster.clock + 1.0)
+        slo_seen = {check: st["state"]
+                    for check, st in roll["slo"].items()}
+    finally:
+        if saved_slo is None:
+            g_conf.rm_val("mgr_slo_oplat_p99_usec")
+        else:
+            g_conf.set_val("mgr_slo_oplat_p99_usec", saved_slo)
+        if saved_ret is None:
+            g_conf.rm_val("mgr_telemetry_retention")
+        else:
+            g_conf.set_val("mgr_telemetry_retention", saved_ret)
+    # byte-exact read-back of every pre-populated object AFTER backfill
+    # (both pools) — the storm's correctness receipt
+    identical = True
+    for oid, body in bodies.items():
+        for pool in ("storm_rs", "storm_regen"):
+            if cl.read(pool, oid) != body:
+                identical = False
+    fam_after = aggregate_families(cluster.osds.values())
+    # incident forensics receipt: a plain OSD kill raises no mgr
+    # health check (health() counts down osds inline), so the storm
+    # stamps an operator capture — the bundle still carries the
+    # osd_down/osd_out journal events and the post-backfill state
+    inc_mgr = cluster.mgr.incident
+    if inc_mgr.captures_total == 0:
+        inc_mgr.capture("operator", "post-storm forensic snapshot",
+                        reason="operator")
+    incidents = inc_mgr.receipt()
+
+    from ..recovery.scheduler import FAMILY_KEYS
+
+    def _delta(fam: str) -> Dict[str, float]:
+        a = fam_after.get(fam, {})
+        b = fam_before.get(fam, {})
+        out = {key: a.get(key, 0) - b.get(key, 0)
+               for key in FAMILY_KEYS}
+        out["bytes_per_repaired_shard"] = round(
+            out["bytes_moved"] / max(out["repaired_shards"], 1), 2)
+        return out
+
+    regen = _delta("pm-regen")
+    rs = _delta("isa-matrix")
+    ratio = regen["bytes_per_repaired_shard"] / \
+        max(rs["bytes_per_repaired_shard"], 1e-9)
+    pc = bench_perf_counters()
+    pc.inc(l_bench_bytes, res.bytes_moved)
+    wall_rates = {key: round(v * roll["span_s"] / wall_run_s, 4)
+                  for key, v in roll["rates"].items()}
+    cluster_rollup = {
+        "oplat_p99_usec": roll["oplat_p99_usec"],
+        "rates": wall_rates,
+        "copies_per_op": roll["copies_per_op"],
+        "slo": slo_seen,
+        "samples": roll["samples"],
+        "span_s": roll["span_s"],
+    }
+    v = max(regen["bytes_per_repaired_shard"], 1e-6)
+    return make_metric(
+        name, v, "B/shard", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "recovery": {
+                "bytes_per_repaired_shard_regen":
+                    regen["bytes_per_repaired_shard"],
+                "bytes_per_repaired_shard_rs":
+                    rs["bytes_per_repaired_shard"],
+                "regen_vs_rs_ratio": round(ratio, 4),
+                "families": {"pm-regen": regen, "isa-matrix": rs},
+            },
+            "k": k, "m": m, "d": d, "victim_osd": victim,
+            "identical": identical,
+            "byte_exact_traffic": bool(res.byte_exact),
+            "traffic_completed": res.completed,
+            "slo": slo_seen,
+            "incidents": incidents,
+            "cluster_rollup": cluster_rollup,
+            "devflow": _devflow_since(
+                flow0, max(regen["repaired_shards"]
+                           + rs["repaired_shards"], 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_run_s,
+                max(regen["repaired_shards"]
+                    + rs["repaired_shards"], 1)),
+            "errors": res.errors[:8],
+        })

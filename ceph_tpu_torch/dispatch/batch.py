@@ -97,12 +97,12 @@ def _use_device(ec_impl) -> bool:
 def _mesh_active() -> bool:
     """The port's mesh switch: ``ec_mesh_chips`` 0 or 1 is the single
     device (False); a mesh of 2 or more raises, since the port's mesh
-    modules (ROADMAP Queue 1 item 7) do not exist yet."""
+    modules (the mesh item of ROADMAP Queue 1) do not exist yet."""
     chips = int(g_conf.get_val("ec_mesh_chips"))
     if chips < 0:
         chips = torch.cuda.device_count()
     if chips >= 2:
-        raise NotImplementedError("mesh: Queue 1 item 7")
+        raise NotImplementedError("mesh: not ported (ROADMAP Queue 1, the mesh)")
     return False
 
 

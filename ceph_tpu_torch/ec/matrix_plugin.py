@@ -152,13 +152,11 @@ class ErasureCodeMatrixRS(ErasureCode):
 
     # -- batched stripe API (ECUtil striping, osd/ECUtil.cc:120-159) --------
     def _device_encode_batch(self, data: np.ndarray) -> np.ndarray:
-        """(S, k, C) numpy -> (S, m, C) numpy on the backend's device.  On
-        the card the upload and the fetch are accounted where the JAX
-        package's device route accounts them (``gf_matmul.encode``, or
-        ``gf_matmul.encode_w`` for the word codes)."""
-        if self.torch_device != "cuda":
-            return self.encode_batch_device(
-                torch.from_numpy(np.ascontiguousarray(data))).numpy()
+        """(S, k, C) numpy -> (S, m, C) numpy on the backend's device.  The
+        upload and the fetch are accounted where the JAX package's device
+        route accounts them (``gf_matmul.encode``, or
+        ``gf_matmul.encode_w`` for the word codes), on the CPU too, as
+        the JAX route on its CPU device does."""
         from ..ops.gf_matmul import device_round_trip
         site = "gf_matmul.encode_w" if getattr(self, "is_word_code", False) \
             else "gf_matmul.encode"

@@ -43,7 +43,7 @@ breaker and host fallback (``run_device_call``, ``_note_cpu_fallback``):
 a device error propagates to the caller.  The JAX mesh hooks
 (``g_mesh.decode_stacked``) become the port's mesh switch
 (``dispatch/batch.py``): 0 or 1 chips is the single device, 2 or more
-raises until the port has a mesh (ROADMAP Queue 1 item 7).
+raises until the port has a mesh (ROADMAP Queue 1, the mesh).
 """
 from __future__ import annotations
 

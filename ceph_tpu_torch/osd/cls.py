@@ -181,5 +181,5 @@ def load_builtin_classes() -> None:
     both registered on import.  The JAX package also loads ``rbd``
     (``rbd/cls_rbd``), ``fs`` (``cephfs/cls_fs``), ``rgw``
     (``rgw/cls_rgw``) and ``journal`` (``journal/cls_journal``); they
-    come with those packages (ROADMAP Queue 1 item 8), and until then a
-    call to one of their methods answers EOPNOTSUPP."""
+    come with those packages (ROADMAP Queue 1, the rest of the runtime),
+    and until then a call to one of their methods answers EOPNOTSUPP."""

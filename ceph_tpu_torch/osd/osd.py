@@ -922,8 +922,13 @@ class OSD(Dispatcher):
         # (async submitters without a result() demand rely on this)
         from ..dispatch import g_dispatcher
         g_dispatcher.poll()
-        # the JAX package kicks its mesh's chip-health probe here; the
-        # port has no mesh until ROADMAP Queue 1 item 7
+        # probe-cadence floor for the chip-health scoreboard: traffic
+        # that flushed since the last skew probe guarantees the NEXT
+        # mesh flush probes, so a quiet cluster's Nth-flush counter
+        # cannot starve the skew signal (mesh/chipstat.py; pure int
+        # reads, zero cost with sampling off)
+        from ..mesh import g_chipstat
+        g_chipstat.tick_kick()
         peers = [o for o in range(self.osdmap.max_osd)
                  if o != self.osd_id and self.osdmap.is_up(o)]
         for peer in peers:

@@ -19,7 +19,7 @@ first-class workload:
   regenerating repair solve and the full-stripe reconstruct execute
   as survivor-sharded meshed GF matmuls inside the codec's
   ``repair`` / ``decode_batch`` in the JAX package; the port has no
-  mesh yet (ROADMAP Queue 1 item 7), so both run on the one card.
+  mesh yet (ROADMAP Queue 1, the mesh), so both run on the one card.
   A helper set the codec would refuse (``_repairable``) sends a round
   to the full-stripe path before the call; nothing is caught around the
   call, so a device error propagates.

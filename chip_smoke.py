@@ -3344,6 +3344,7 @@ def native_bench_slice() -> dict:
         raise AssertionError(f"bench CLI line failed its gates: bad={bad} "
                              f"error={line.get('error')} parity="
                              f"{line.get('decode_parity')}")
+    zc_launches = cluster_cli_gates(line)
     log("bench-cli crush_remap " + json.dumps(line.get("crush_remap")))
     log(f"bench-cli gate: {len(line['gate']['regressions'])} regressions, "
         f"compared {line['gate']['compared']}, not_ported "
@@ -3356,7 +3357,56 @@ def native_bench_slice() -> dict:
             "encode_batch_scan": scan,
             "metrics": {m["name"]: m["value"] for m in line["metrics"]},
             "crush_remap": line.get("crush_remap"),
+            "zero_copy_launches": zc_launches,
             "elapsed_s": line.get("elapsed_s")}
+
+
+CLUSTER_METRICS = ("traffic_harness", "ec_write_zero_copy",
+                   "ec_recovery_storm")
+
+
+def cluster_cli_gates(line: dict) -> dict:
+    """4q (d): the bench CLI's three cluster workloads in ``line`` (the
+    CLI's own process).  Raises unless each ran: the traffic run and the
+    storm's traffic byte-exact, the storm's objects identical after the
+    backfill, the ``zero_copy`` block clear of regress.py's ZERO-COPY
+    gate, and the resident leg's writes launching K5, or K1 and K4 where
+    the one-pass form does not fit the shape.  Returns the zero-copy
+    legs' launches, summed."""
+    from ceph_tpu_torch.bench.regress import _zero_copy_gate
+    got = {m["name"]: m for m in line["metrics"]}
+    missing = [n for n in CLUSTER_METRICS if n not in got]
+    if missing or any(n in line["not_ported"] for n in (
+            "measure_traffic", "measure_ec_write_zero_copy",
+            "measure_recovery_storm")):
+        raise AssertionError(f"bench CLI: cluster workloads missing "
+                             f"{missing}")
+    mt, mz, mr = (got[n] for n in CLUSTER_METRICS)
+    zc = mz["zero_copy"]
+    res_n = zc["launches"]["resident"]
+    fails = _zero_copy_gate(mz["name"], zc)
+    if not mt["byte_exact"] or not mr["identical"] or \
+            not mr["byte_exact_traffic"] or fails or \
+            not (res_n["fused_encode_crc"] > 0 or
+                 (res_n["gf_bit_matmul"] > 0 and res_n["crc32c"] > 0)):
+        raise AssertionError(
+            f"bench CLI cluster gates: traffic byte_exact "
+            f"{mt['byte_exact']}, storm identical {mr['identical']} / "
+            f"{mr['byte_exact_traffic']}, zero-copy {fails}, resident "
+            f"launches {res_n}")
+    roll = mt["cluster_rollup"]
+    log(f"bench-cli traffic_harness {mt['value']} ops/s, {mt['total_ops']} "
+        f"ops, agg p99 {mt['aggregate'].get('p99')} us, cluster rollup "
+        + json.dumps({"reply_p99_usec": roll["oplat_p99_usec"].get("reply"),
+                      "rates": roll["rates"]}))
+    log("bench-cli ec_write_zero_copy " + json.dumps(
+        {k: zc[k] for k in ("resident_d2h_bytes_per_op",
+                            "resident_copies_per_op", "twin_copies_per_op",
+                            "resident_shards", "byte_exact", "launches")})
+        + f" resident {mz['value']} ops/s, twin {mz['twin_ops_per_sec']}")
+    log("bench-cli ec_recovery_storm " + json.dumps(mr["recovery"]))
+    return {n: sum(leg[n] for leg in zc["launches"].values())
+            for n in res_n}
 
 
 # ---- 4o: osdmaptool on the card; 4m: MemStore with resident bodies -------
@@ -3979,8 +4029,11 @@ def check_bodies(d, pool_id, expect: dict, what: str,
 
 
 def acting_of(d, cl, pool: str, oid: str) -> list:
+    """The acting set of ``oid``'s PG on ``d`` (``Daemons`` or a
+    ``MiniCluster``), by the monitor's map."""
     import importlib
-    pg_t = importlib.import_module(d.pkg + ".osdmap").pg_t
+    pkg = getattr(d, "pkg", None) or type(d).__module__.split(".")[0]
+    pg_t = importlib.import_module(pkg + ".osdmap").pg_t
     pgid, _ = cl._calc_target(cl.lookup_pool(pool), oid)
     return [int(o) for o in d.mon.osdmap.pg_to_up_acting_osds(
         pg_t(*pgid))[2]]
@@ -4577,6 +4630,296 @@ def osd_path_alone(dev) -> None:
         json.dump(out, f, indent=1)
 
 
+# ---- 4q: MiniCluster, the traffic harness and psim ------------------------
+
+CLUSTER_CLIENTS = 16              # rados bench's default -t 16
+CLUSTER_OPS_PER_CLIENT = 8
+CLUSTER_PSIM_SAMPLE = 2048        # PGs of psim's mapping held against the host
+
+
+def cluster_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
+                  pg_num: int = OSD_PATH_PG_NUM,
+                  n_clients: int = CLUSTER_CLIENTS,
+                  ops_per_client: int = CLUSTER_OPS_PER_CLIENT,
+                  psim_map: str = os.path.join(TOOL_DIR, "om"),
+                  psim_sample: int = CLUSTER_PSIM_SAMPLE) -> dict:
+    """4q: the port's ``MiniCluster`` (the monitor, 12 OSDs and the mgr
+    with its telemetry, controller and incident manager) with an EC pool
+    of k=8, m=4 and ``pg_num`` PGs on the ``cuda`` plugin, 4p's
+    deployment, as a user drives it:
+
+    (a) a client's ``write_full`` of the 64 objects of 4 MiB: K1 once per
+        write, every stored body equal to the native host coder's; the
+        objects read back;
+    (b) ``load.run_traffic``, closed loop, ``n_clients`` clients of
+        ``ops_per_client`` ops of 4 MiB, half reads: byte-exact, every op
+        answered, K1 launched at least once and at most once per write
+        the OSDs served; its ops/s, p99 and the mgr's cluster rollup;
+    (c) one acting OSD killed and marked down, ticks, then degraded reads
+        of the 64 objects: K1 launches, the bytes equal, ``health()``
+        reports ``1 osds down``, ``tpu status`` answers and one Prometheus
+        scrape over ``mgr/http.py``'s HTTP server holds the cluster's
+        gauges;
+    (e) ``tools/psim`` on ``psim_map`` (4o's saved map): every PG mapped by
+        ``OSDMapMapping`` through K7a, K7b and K6 (the counts set to 0
+        just before, read just after), ``psim_sample`` of its rows equal
+        to the host ``pg_to_up_acting_osds``.
+
+    (d), the bench CLI's three cluster workloads, runs in 4n.  Counts are
+    reset just before each leg and read just after.  On the CPU (a
+    rehearsal at small sizes) the codecs take ``backend=host`` and the
+    launch counts are not checked."""
+    import contextlib
+    import io
+    import urllib.request
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.load import TrafficSpec, run_traffic
+    from ceph_tpu_torch.mgr.http import MgrHttp, serve
+    from ceph_tpu_torch.ops import (crc32c_device, crush_fast as cf,
+                                    crush_kernels as ck, fused_encode_crc,
+                                    gf_pallas)
+    from ceph_tpu_torch.osd.osd import L_OSD_OP_W
+    from ceph_tpu_torch.osdmap import OSDMapMapping, pg_t
+    from ceph_tpu_torch.tools import osdmaptool, psim
+    on_card = dev.type == "cuda"
+    extra = {} if on_card else {"backend": "host"}
+    counters = {"gf_bit_matmul": gf_pallas.launches,
+                "crc32c": crc32c_device.launches,
+                "fused_encode_crc": fused_encode_crc.launches,
+                "crush_descend": cf.descend_launches,
+                "crush_resolve": cf.resolve_launches,
+                "crush_rule": ck.rule_launches}
+    total = {n: 0 for n in counters}
+    gate = OpGate()
+    out = {"legs": {}, "config": {
+        "osds": OSD_PATH_OSDS, "pg_num": pg_num, "k": K, "m": M,
+        "plugin": "cuda", "extra_profile": extra, "objects": n_obj,
+        "object_bytes": obj_bytes, "clients": n_clients,
+        "ops_per_client": ops_per_client, "psim_map": psim_map}}
+    t_slice = time.perf_counter()
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        got = {n: c.n for n, c in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return got
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4q: {what}")
+
+    def leg(name, **rec):
+        out["legs"][name] = rec
+        log(f"4q {name}: " + json.dumps(rec, default=str))
+        return rec
+
+    # earlier phases leave residency and the dispatch options set: the
+    # cluster starts from the defaults
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "osd_op_num_threads", "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    rng = np.random.default_rng(SEED + 5)
+    objs = {f"obj{i}": rng.integers(0, 256, obj_bytes,
+                                    dtype=np.uint8).tobytes()
+            for i in range(n_obj)}
+    matrix = create_erasure_code({"plugin": "cuda", "k": str(K),
+                                  "m": str(M), "backend": "host"}
+                                 ).codec.matrix
+
+    # -- (a) writes and reads --------------------------------------------------
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=OSD_PATH_OSDS)
+    pid = c.create_ec_pool("ec", k=K, m=M, pg_num=pg_num, plugin="cuda",
+                           extra_profile=extra)
+    cl = c.client()
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4q: MiniCluster of {OSD_PATH_OSDS} OSDs and a pool of {pg_num} "
+        f"PGs up in {out['boot_s']:.1f} s")
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in objs.items():
+        gate.call(f"write_full {oid}", cl.write_full, "ec", oid, body)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    need(n["gf_bit_matmul"] == n_obj,
+         f"(a) K1 launches {n} for {n_obj} writes")
+    expect = {oid: native_shards(matrix, K, CHUNK, b)
+              for oid, b in objs.items()}
+    held = check_bodies(c, pid, expect, "4q (a)")
+    if held != n_obj * (K + M):
+        raise AssertionError(f"4q (a): {held} bodies stored")
+    reset()
+    t1 = time.perf_counter()
+    for oid, body in objs.items():
+        if gate.call(f"read {oid}", cl.read, "ec", oid) != body:
+            raise AssertionError(f"4q (a): read of {oid} differs")
+    read_wall = time.perf_counter() - t1
+    leg("a_write_read", wall_s=wall, GiBps=n_obj * obj_bytes / wall / 2**30,
+        launches=n, bodies_checked=held, read_wall_s=read_wall,
+        read_GiBps=n_obj * obj_bytes / read_wall / 2**30,
+        read_launches=read_counts())
+
+    # -- (b) the traffic harness ------------------------------------------------
+    def served_writes():
+        return sum(o.perf_counters.get(L_OSD_OP_W) for o in c.osds.values())
+
+    w0 = served_writes()
+    reset()
+    res = run_traffic(c, TrafficSpec(
+        pool="ec", n_clients=n_clients, ops_per_client=ops_per_client,
+        read_fraction=0.5, object_sizes=((obj_bytes, 1.0),),
+        mode="closed", seed=SEED, keep_completions=False))
+    n = read_counts()
+    writes = served_writes() - w0
+    if not res.byte_exact or res.completed != res.total_ops or \
+            res.total_ops != n_clients * ops_per_client:
+        raise AssertionError(
+            f"4q (b): byte_exact {res.byte_exact}, {res.completed} of "
+            f"{res.total_ops} ops answered, errors {res.errors[:4]}")
+    need(0 < n["gf_bit_matmul"] <= writes,
+         f"(b) K1 launches {n} for {writes} writes served")
+    wall_run_s = max(res.elapsed_s, 1e-3)
+    c.clock += wall_run_s
+    c.mgr.telemetry.tick(c.mgr, c.clock)
+    roll = c.mgr.telemetry.rollup(window_s=c.clock + 1.0)
+    leg("b_traffic", ops_per_s=res.ops_per_sec, elapsed_s=res.elapsed_s,
+        total_ops=res.total_ops, completed=res.completed,
+        writes_served=writes, bytes_moved=res.bytes_moved,
+        rounds=res.rounds, byte_exact=res.byte_exact,
+        p99_usec=res.aggregate.get("p99"), aggregate=res.aggregate,
+        launches=n, cluster_rollup={
+            "oplat_p99_usec": roll["oplat_p99_usec"],
+            "rates": roll["rates"], "span_s": roll["span_s"],
+            "copies_per_op": roll["copies_per_op"],
+            "slo": {k: st["state"] for k, st in roll["slo"].items()}})
+
+    # -- (c) an OSD down: degraded reads, health, status, a scrape -----------
+    victim = acting_of(c, cl, "ec", "obj0")[1]
+    placed = {oid: acting_of(c, cl, "ec", oid) for oid in objs}
+    decodes = sum(1 for a in placed.values() if victim in a[:K])
+    t0 = time.perf_counter()
+    c.kill_osd(victim)
+    c.mark_osd_down(victim)
+    c.tick(dt=1.0, rounds=2)
+    mark_s = time.perf_counter() - t0
+    health = c.health()
+    if "1 osds down" not in health:
+        raise AssertionError(f"4q (c): health {health!r}")
+    reset()
+    t0 = time.perf_counter()
+    for oid, body in objs.items():
+        if gate.call(f"degraded read {oid}", cl.read, "ec", oid) != body:
+            raise AssertionError(f"4q (c): degraded read of {oid} differs")
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    need(n["gf_bit_matmul"] >= decodes > 0,
+         f"(c) K1 launches {n} for {decodes} objects with a lost data "
+         "shard")
+    status = c.admin_socket.execute("tpu status")
+    if status["health"] != c.health() or "cluster_p99_usec" not in status:
+        raise AssertionError(f"4q (c): tpu status {status}")
+    srv, port = serve(MgrHttp(c.mgr, c, c.perf_collection))
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as r:
+            scrape = r.read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    want_lines = (f"ceph_osd_up {OSD_PATH_OSDS - 1}",
+                  f"ceph_osd_in {OSD_PATH_OSDS}")
+    if not all(ln in scrape.splitlines() for ln in want_lines) or \
+            "ceph_daemon_" not in scrape or "ceph_tpu_codec" in scrape:
+        raise AssertionError("4q (c): the scrape lacks the cluster gauges")
+    leg("c_degraded", victim=victim, mark_down_s=mark_s, health=health,
+        wall_s=wall, GiBps=n_obj * obj_bytes / wall / 2**30, launches=n,
+        objects_missing_a_data_shard=decodes,
+        tpu_status_keys=sorted(status),
+        scrape_lines=len(scrape.splitlines()))
+    for osd in c.osds.values():
+        osd.shutdown()
+    del c, cl, objs, expect
+
+    # -- (e) psim on 4o's map ---------------------------------------------------
+    kept = []
+
+    class KeptMapping(OSDMapMapping):
+        def update(self, m, *a, **kw):
+            r = super().update(m, *a, **kw)
+            kept.append(self)
+            return r
+
+    with open(psim_map, "rb") as f:
+        m = osdmaptool.load_map(f.read())
+    pg_count = sum(p.pg_num for p in m.pools.values())
+    buf = io.StringIO()
+    reset()
+    psim.OSDMapMapping, orig = KeptMapping, psim.OSDMapMapping
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = psim.main([psim_map, "--objects", str(pg_count)],
+                           device=dev.type)
+    finally:
+        psim.OSDMapMapping = orig
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    if rc != 0 or len(kept) != 1:
+        raise AssertionError(f"4q (e): psim exit {rc}")
+    need(n["crush_descend"] and n["crush_resolve"] and n["crush_rule"],
+         f"(e) a CRUSH kernel did not launch: {n}")
+    mm = kept[0]
+    want = "device" if on_card else "cpu"
+    if set(mm.last_backend.values()) != {want} or \
+            any(mm.host_replayed.values()):
+        raise AssertionError(f"4q (e): last_backend {mm.last_backend}, "
+                             f"host_replayed {mm.host_replayed}")
+    lines = buf.getvalue().splitlines()
+    if len([ln for ln in lines if ln.startswith("osd.")]) != m.max_osd:
+        raise AssertionError("4q (e): psim printed no row per OSD")
+    t0 = time.perf_counter()
+    checked = 0
+    for pid_, pool in sorted(m.pools.items()):
+        pss = rng.choice(pool.pg_num, min(psim_sample, pool.pg_num),
+                         replace=False)
+        for ps in sorted(int(p) for p in pss):
+            pg = pg_t(pid_, ps)
+            if mm.get(pg) != tuple(m.pg_to_up_acting_osds(pg)):
+                raise AssertionError(f"4q (e): pg {pg} {mm.get(pg)} != "
+                                     f"host {m.pg_to_up_acting_osds(pg)}")
+            checked += 1
+    leg("e_psim", wall_s=wall, pgs=pg_count, launches=n,
+        sample_checked=checked,
+        sample_check_s=time.perf_counter() - t0,
+        summary=[ln for ln in lines if ln.startswith("avg")])
+    out["launches"] = total
+    out["slowest_op_s"] = gate.slowest_s
+    out["ops"] = gate.ops
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4q: {gate.ops} ops, slowest {gate.slowest_s:.2f} s; launches "
+        + json.dumps(total) + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def cluster_alone(dev) -> None:
+    """``--cluster``: 4o (whose saved map psim reads) and 4q alone after
+    phases 1-2, 4q's record written to ``chiprun_out/cluster.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    osdmaptool_slice(dev)
+    out = cluster_slice(dev)
+    with open(os.path.join("chiprun_out", "cluster.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4646,10 +4989,12 @@ def main() -> int:
                         ("--k7a-forms", k7a_form_turns),
                         ("--dispatch-scan", dispatch_scan_turns),
                         ("--k8-parent", k8_parent_turns),
-                        ("--osd-path", osd_path_alone)):
+                        ("--osd-path", osd_path_alone),
+                        ("--cluster", cluster_alone)):
         if flag not in sys.argv:
             continue
-        if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path"):
+        if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
+                    "--cluster"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -4969,6 +5314,15 @@ def main() -> int:
     path_n = osd_path["launches"]
     phase_done("4p OSD data path")
 
+    # -- 4q. MiniCluster: a user's writes, a traffic run and degraded reads
+    # through the monitor, the OSDs and the mgr, then psim on 4o's map,
+    # after the earlier slices' phases, which run as they did before it --
+    cluster = cluster_slice(dev)
+    results["cluster"] = cluster
+    cl_n = cluster["launches"]
+    cli_zc = results["native_bench"]["zero_copy_launches"]
+    phase_done("4q MiniCluster")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -4990,7 +5344,8 @@ def main() -> int:
         "replaces": "ceph_tpu/ops/gf_pallas.py:37",
         "launches": (launches + res_launches["gf_bit_matmul"] + family_k1
                      + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]
-                     + path_n["gf_bit_matmul"]),
+                     + path_n["gf_bit_matmul"] + cl_n["gf_bit_matmul"]
+                     + cli_zc["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -5000,7 +5355,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crc32c.cu",
         "replaces": "ceph_tpu/ops/crc32c_device.py:73",
         "launches": res_launches["crc32c"] + store["launches"]["crc32c"]
-        + path_n["crc32c"],
+        + path_n["crc32c"] + cl_n["crc32c"] + cli_zc["crc32c"],
         "max_abs_err": max(crc_err, res_err),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -5011,7 +5366,8 @@ def main() -> int:
         "replaces": "ceph_tpu/ops/resident.py:31",
         "launches": res_launches["fused_encode_crc"]
         + store["launches"]["fused_encode_crc"]
-        + path_n["fused_encode_crc"],
+        + path_n["fused_encode_crc"] + cl_n["fused_encode_crc"]
+        + cli_zc["fused_encode_crc"],
         "max_abs_err": max(res_err, fused_err),
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -5034,7 +5390,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:592",
         "launches": crush_launches["crush_descend"]
-        + bench_n["crush_descend"] + tool["launches"]["crush_descend"],
+        + bench_n["crush_descend"] + tool["launches"]["crush_descend"]
+        + cl_n["crush_descend"],
         "max_abs_err": crush_err["crush_descend"],
         "ms": k7["k7a_ms"], "plain_ms": k7["k7a_plain_ms"],
         "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
@@ -5057,7 +5414,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
         "launches": crush_launches["crush_resolve"]
-        + bench_n["crush_resolve"] + tool["launches"]["crush_resolve"],
+        + bench_n["crush_resolve"] + tool["launches"]["crush_resolve"]
+        + cl_n["crush_resolve"],
         "max_abs_err": crush_err["crush_resolve"],
         "ms": k7["k7b_ms"], "plain_ms": k7["k7b_plain_ms"],
         "bound_ms": k7["k7b_bound_ms"], "bound_by": "bytes",
@@ -5072,7 +5430,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_kernels.py:436",
         "launches": crush_launches["crush_rule"] + bench_n["crush_rule"]
-        + tool["launches"]["crush_rule"],
+        + tool["launches"]["crush_rule"] + cl_n["crush_rule"],
         "max_abs_err": crush_err["crush_rule"],
         "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
         "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",

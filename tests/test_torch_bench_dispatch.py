@@ -187,8 +187,9 @@ def test_load_trajectory_equals_jax(tmp_path):
 
 def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     """``python -m ceph_tpu_torch.bench --smoke`` in this process: one
-    JSON line on stdout, every metric schema-valid and fenced, the JAX
-    bench's mesh and cluster workloads named under ``not_ported``."""
+    JSON line on stdout, every metric schema-valid and fenced, the three
+    cluster workloads run, the JAX bench's mesh workloads named under
+    ``not_ported``."""
     rc = bench_cli.main(["--smoke", "--gate", "warn"])
     out = capsys.readouterr().out
     lines = [ln for ln in out.splitlines() if ln.strip()]
@@ -201,7 +202,9 @@ def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     assert names == ["ec_encode_k8m4_fenced", "ec_decode_k8m4_e2_fenced",
                      "ec_dispatch_coalesce_fenced",
                      "ec_dispatch_serial_fenced", "ec_pipeline_fenced",
-                     "ec_pipeline_depth1_fenced", "ec_encode_host_native"]
+                     "ec_pipeline_depth1_fenced", "ec_encode_host_native",
+                     "traffic_harness_smoke", "ec_write_zero_copy",
+                     "ec_recovery_storm"]
     for m in line["metrics"]:
         validate_metric(m)
         assert m["fenced"] and not m["suspect"]
@@ -209,7 +212,9 @@ def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     assert line["metrics"][4]["identical"] is True
     assert line["not_ported"] == list(bench_cli.NOT_PORTED)
     assert "measure_ec_mesh" in line["not_ported"]
-    assert "measure_traffic" in line["not_ported"]
+    for name in ("measure_traffic", "measure_ec_write_zero_copy",
+                 "measure_recovery_storm"):
+        assert name not in line["not_ported"]
     # no TPU-era or CPU round carries a comparable fenced reading
     assert line["gate"]["regressions"] == []
     assert line["gate"]["platform"] == "cpu"

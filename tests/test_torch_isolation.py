@@ -584,7 +584,7 @@ def test_walk_sees_the_osd_data_path():
         assert f"ceph_tpu_torch.{m}" in mods
     from ceph_tpu_torch.ec.registry import instance
     assert "regenerating" in instance.names()
-    assert "ceph_tpu_torch.cluster" not in mods
+    assert "ceph_tpu_torch.cluster" in mods
 
 
 def _function(path, name, cls=None):
@@ -643,3 +643,60 @@ def test_regenerating_carries_no_guard_or_mesh():
     for fn in ("encode_batch", "decode_batch", "repair"):
         assert not _catch_alls(_function("ec/regenerating.py", fn,
                                          "ErasureCodeRegenerating"))
+
+
+def test_walk_sees_the_cluster_slice():
+    """The package walk reaches ``MiniCluster``, the mgr chain, the mesh's
+    chip scoreboard (and nothing else of the mesh), the traffic harness
+    and the cluster tools."""
+    mods = _modules()
+    for m in ("cluster", "mgr", "mgr.mgr", "mgr.telemetry", "mgr.incident",
+              "mgr.http", "common.http_serve", "control",
+              "control.controller", "chaos", "chaos.scenario",
+              "chaos.engine", "mesh", "mesh.chipstat", "load",
+              "load.traffic", "tools.rados", "tools.rados_bench",
+              "tools.ceph_cli", "tools.psim"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert sorted(m for m in mods if m.startswith("ceph_tpu_torch.mesh")) \
+        == ["ceph_tpu_torch.mesh", "ceph_tpu_torch.mesh.chipstat"]
+    from ceph_tpu_torch import mesh
+    assert sorted(mesh.__all__) == ["ChipStat", "chip_latency_axes",
+                                    "g_chipstat", "mesh_chip_perf_counters"]
+
+
+def test_cluster_slice_carries_no_breaker():
+    """No module of the cluster slice reads a breaker: the port has
+    none, so ``g_breakers`` is named nowhere in their code."""
+    for path in ("cluster.py", "mgr/mgr.py", "mgr/http.py",
+                 "mgr/incident.py", "chaos/engine.py"):
+        tree = ast.parse((PKG / path).read_text())
+        names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        names |= {a.name for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) for a in n.names}
+        assert "g_breakers" not in names, path
+        assert "breakers" not in {a.arg for n in ast.walk(tree)
+                                  if isinstance(n, ast.FunctionDef)
+                                  for a in n.args.args}, path
+
+
+def test_cluster_slice_device_seams_hold_no_catch_all():
+    """Nothing added by the cluster slice wraps device work in a catch-
+    all: the only broad ``except`` is the incident capture's, around the
+    bundle's assembly."""
+    for path in ("cluster.py", "mgr/mgr.py", "mgr/telemetry.py",
+                 "mgr/http.py", "control/controller.py", "chaos/engine.py",
+                 "chaos/scenario.py", "load/traffic.py", "tools/rados.py",
+                 "tools/rados_bench.py", "tools/ceph_cli.py",
+                 "tools/psim.py", "mesh/chipstat.py"):
+        tree = ast.parse((PKG / path).read_text())
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                assert not _catch_alls(fn), (path, fn.name)
+    cap = _function("mgr/incident.py", "capture", "IncidentManager")
+    assert len(_catch_alls(cap)) == 1
+    tries = [n for n in ast.walk(cap) if isinstance(n, ast.Try)]
+    assert len(tries) == 1
+    called = {n.func.attr for n in ast.walk(tries[0].body[-1])
+              if isinstance(n, ast.Call) and isinstance(n.func,
+                                                        ast.Attribute)}
+    assert called == {"_build_bundle"}
