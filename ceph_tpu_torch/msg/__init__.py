@@ -1,5 +1,6 @@
 """Messages of the port: the ``M*`` types, their wire codec and the
-in-process messenger fabric (the TCP transport is not ported yet)."""
+in-process messenger fabric.  The TCP transport is ``msg.tcp``, which the
+package does not import here, as the JAX package's ``msg`` does not."""
 from .messages import (
     MOSDECSubOpRead, MOSDECSubOpReadReply, MOSDECSubOpWrite,
     MOSDECSubOpWriteReply, MOSDMap, MOSDOp, MOSDOpReply, MOSDPGInfo,

@@ -75,7 +75,8 @@ def gf_bit_matmul(data: torch.Tensor,
                   bitmat: Union[BitMatrix, np.ndarray]) -> torch.Tensor:
     """data (S, k, C) uint8, bitmat (8k, 8r) 0/1 -> (S, r, C) uint8.
 
-    The contract of ``ceph_tpu.ops.gf_matmul.gf_bit_matmul``; a numpy
+    The contract of the JAX package's ``gf_bit_matmul`` (``ceph_tpu/ops/
+    gf_matmul.py``); a numpy
     bit matrix is moved to ``data``'s device first (pass a ``BitMatrix``
     to reuse one)."""
     if not isinstance(bitmat, BitMatrix):
@@ -86,8 +87,8 @@ def gf_bit_matmul(data: torch.Tensor,
 def gfw_bit_matmul(data: torch.Tensor,
                    bitmat: Union[BitMatrix, np.ndarray], w: int) -> torch.Tensor:
     """data (S, k, C) uint8 read as LE w-bit words, bitmat (k*w, r*w) 0/1
-    -> (S, r, C) uint8: the contract of
-    ``ceph_tpu.ops.gf_matmul.gfw_bit_matmul`` for w = 16, 32."""
+    -> (S, r, C) uint8: the contract of the JAX package's
+    ``gfw_bit_matmul`` (``ceph_tpu/ops/gf_matmul.py``) for w = 16, 32."""
     if not isinstance(bitmat, BitMatrix):
         bitmat = BitMatrix(bitmat, data.device)
     return gfw_bit_matmul_kernel(data, bitmat, w)

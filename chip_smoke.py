@@ -102,8 +102,8 @@ m=4's ``create_rule`` (chooseleaf indep, size 12):
    with OSD (7e+3) % 1000 out (the K7a count must not move on them); an
    OSDMap of the (u) map with a replicated pool of 65536 PGs and an EC pool
    of 32768, ``OSDMapMapping().update`` and 10 epochs of ``mark_out`` (both
-   pools must map on the card).  A 4096-x sample of every epoch goes
-   against ``crush_do_rule`` and 2048 PGs per pool against
+   pools must map on the card).  A 2048-x sample of every epoch goes
+   against ``crush_do_rule`` and 1024 PGs per pool against
    ``pg_to_up_acting_osds``, in a pool of worker processes; epoch 10 goes
    against the plain versions on all 100000 x;
 5c. K7a over one candidate phase per configuration and K7b per epoch, in
@@ -316,8 +316,27 @@ The OSD data path slice (``common/work_queue.py``, ``osd/ec_backend.py``,
    codec), and each leg's K1, K4 and K5 counts, set to 0 just before it,
    must move as ``osd_path_slice`` states.  Wall and GiB/s per leg, and
    from a separate traced run (``LegTrace``: the kernel timer and
-   ``torch.profiler``) the share of the wall in kernels.
-   ``python3 chip_smoke.py --osd-path`` runs 4p alone after phases 1-2.
+   ``torch.profiler``) the share of the wall in kernels, but for the two
+   rebuilds.  ``python3 chip_smoke.py --osd-path`` runs 4p alone after
+   phases 1-2, the rebuilds' traced runs included.
+
+The process slice (``msg/tcp.py``, ``auth/``, ``compressor/``,
+``vstart.py``) adds, after 4q:
+
+4v. the port's process cluster: ``ProcessCluster(device="cuda")`` spawns
+   one mon process and 12 OSD processes (``python -m
+   ceph_tpu_torch.vstart``, here through ``osd_launcher``), cephx on, each
+   OSD on a ``WALStore`` in a temporary directory; an isa k=8 m=4 pool of
+   32 PGs, 32 objects of 4 MiB from the seed and a client in this
+   process over TCP.  (a) writes and reads; (b) two OSDs holding data
+   shards SIGKILLed, degraded reads, 8 more writes; (c) both restarted on
+   their data directories, ``wait_healthy``, recovery's pushes, reads,
+   then 4 other OSDs SIGKILLed and the 8 late objects read through the
+   restarted disks' recovered shards.
+   Each OSD process opens the card and loads K1 before READY and reports
+   both and its own K1 launches (the sum must move in every leg); the
+   device memory the 12 processes took is the contexts' size.  ``python3 chip_smoke.py --vstart`` runs 4v
+   alone after phases 1-2.
 
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -1146,10 +1165,14 @@ def word_times(inputs, dev) -> dict:
 CRUSH_OSDS = 1000                 # measure_crush_remap's map: 50 hosts of 20
 CRUSH_PER_HOST = 20
 CRUSH_X = 100000                  # crushtool --test over 100k inputs
-CRUSH_SAMPLE = 4096               # x held against crush_do_rule every epoch
+CRUSH_SAMPLE = 4096               # x of 3c's K6 check
+# x (PGs per pool) of every drive epoch held against the host in worker
+# processes: half of the 4096 (2048) they were, which keeps the whole
+# smoke inside its time limit with the process cluster (4v) added
+CRUSH_EPOCH_SAMPLE = 2048
 CRUSH_EPOCHS = 10
 OSDMAP_PG_NUM = {"rep": 65536, "ec": 32768}
-OSDMAP_SAMPLE = 2048              # PGs per pool held against the scalar path
+OSDMAP_SAMPLE = 1024              # PGs per pool held against the scalar path
 CHECK_PROCS = 7                   # host checks beside the main process
 # Instructions per straw2 draw, at the fewest the card can take: hash32_3
 # (the seed XORs as two 3-input logic ops, then 5 mixes of 9 lines, each a
@@ -1549,7 +1572,7 @@ def crush_drive(configs, dev):
     from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
     xs = np.arange(CRUSH_X, dtype=np.uint32)
     sample = np.sort(np.random.default_rng(SEED).choice(
-        CRUSH_X, CRUSH_SAMPLE, replace=False))
+        CRUSH_X, CRUSH_EPOCH_SAMPLE, replace=False))
     out, jobs, rules = {}, [], {}
     for name, cw, rno, size in configs:
         fr = cf.compile_fast_rule(cw.crush, rno, size, device=dev)
@@ -4124,7 +4147,8 @@ class LegTrace:
 def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
                    pg_num: int = OSD_PATH_PG_NUM,
                    small_bytes: int = OSD_PATH_SMALL,
-                   regen_bytes: int = REGEN_OBJ_BYTES) -> dict:
+                   regen_bytes: int = REGEN_OBJ_BYTES,
+                   trace_rebuilds: bool = False) -> dict:
     """4p: a client's writes and reads through the port's daemons (the
     monitor, 12 OSDs with their PGs and ``ECBackend``s, the RADOS client),
     built by ``Daemons``, on a k=8 m=4 ``plugin=cuda`` pool:
@@ -4155,9 +4179,11 @@ def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
     Each leg's counts are reset just before it and read just after;
     writes and reads get a reply within ``OSD_PATH_DEADLINE_S`` and
     answer 0.  Walls are host clocks around work whose replies carry
-    host bytes (each op's device work is complete); each leg is run
-    once more under ``LegTrace`` for its kernel share (a recovery leg
-    on a second OSD whose disk is replaced).  On the CPU (a
+    host bytes (each op's device work is complete); each leg but the two
+    rebuilds is run once more under ``LegTrace`` for its kernel share;
+    with ``trace_rebuilds`` (``--osd-path``) so are (c) and (f), each on a
+    second OSD whose disk is replaced (~35 s each on the card, left out
+    of the whole smoke to keep it inside its time limit).  On the CPU (a
     rehearsal at small sizes) the codecs take ``backend=host`` and the
     launch counts are not checked."""
     import gc
@@ -4369,13 +4395,14 @@ def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
     need(n["gf_bit_matmul"] > 0, f"(c) K1 launches {n}")
     rec = leg("c_recovery", wall, rebuilt * obj_bytes // K, n,
               shards_rebuilt=rebuilt, bodies_checked=held)
-    # the traced run: the other downed OSD's disk, replaced and rebuilt
-    with LegTrace(dev, kernel_counters) as tr:
-        rebuild(d, pid, victims[1],
-                {(oid, s) for oid in final for s in range(K + M)})
-    traced(rec, tr)
-    rec["traced_bodies_checked"] = check_bodies(d, pid, expect,
-                                                "(c) traced")
+    if trace_rebuilds:
+        # the traced run: the other downed OSD's disk, replaced and rebuilt
+        with LegTrace(dev, kernel_counters) as tr:
+            rebuild(d, pid, victims[1],
+                    {(oid, s) for oid in final for s in range(K + M)})
+        traced(rec, tr)
+        rec["traced_bodies_checked"] = check_bodies(d, pid, expect,
+                                                    "(c) traced")
     reset()
     d.shutdown()
     del d, cl, expect
@@ -4586,19 +4613,22 @@ def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
     rec = leg("f_regen_recovery", wall, rounds * len(rexp["r0"][0]), n,
               repair_rounds=rounds, repair_fallbacks=fallbacks,
               bodies_checked=held)
-    # the traced run: a second OSD down, its disk replaced and rebuilt
-    d.kill_osd(acting[0])
-    d.mark_osd_down(acting[0])
-    r0, f0 = rpc.get(l_recovery_repair_rounds), rpc.get(l_recovery_fallbacks)
-    with LegTrace(dev, kernel_counters) as tr:
-        rebuild(d, pid, acting[0], want)
-    traced(rec, tr)
-    rec["traced_repair_rounds"] = rpc.get(l_recovery_repair_rounds) - r0
-    if rec["traced_repair_rounds"] <= 0 or \
-            rpc.get(l_recovery_fallbacks) != f0:
-        raise AssertionError(f"4p (f): traced recovery {rec}")
-    rec["traced_bodies_checked"] = check_bodies(d, pid, rexp,
-                                                "(f) traced")
+    if trace_rebuilds:
+        # the traced run: a second OSD down, its disk replaced and rebuilt
+        d.kill_osd(acting[0])
+        d.mark_osd_down(acting[0])
+        r0 = rpc.get(l_recovery_repair_rounds)
+        f0 = rpc.get(l_recovery_fallbacks)
+        with LegTrace(dev, kernel_counters) as tr:
+            rebuild(d, pid, acting[0], want)
+        traced(rec, tr)
+        rec["traced_repair_rounds"] = \
+            rpc.get(l_recovery_repair_rounds) - r0
+        if rec["traced_repair_rounds"] <= 0 or \
+                rpc.get(l_recovery_fallbacks) != f0:
+            raise AssertionError(f"4p (f): traced recovery {rec}")
+        rec["traced_bodies_checked"] = check_bodies(d, pid, rexp,
+                                                    "(f) traced")
     reset()
     d.shutdown()
     del d, cl
@@ -4623,8 +4653,8 @@ def osd_path_slice(dev, obj_bytes: int = OBJ_BYTES, n_obj: int = N_OBJ,
 
 def osd_path_alone(dev) -> None:
     """``--osd-path``: 4p alone after phases 1-2, its record written to
-    ``chiprun_out/osd_path.json``."""
-    out = osd_path_slice(dev)
+    ``chiprun_out/osd_path.json``; the two rebuilds are traced too."""
+    out = osd_path_slice(dev, trace_rebuilds=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "osd_path.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -4920,6 +4950,468 @@ def cluster_alone(dev) -> None:
         json.dump(out, f, indent=1, default=str)
 
 
+VSTART_OSDS = 12                  # one per host, crush-failure-domain=host
+VSTART_PG_NUM = 32
+VSTART_OBJ = 32                   # objects of OBJ_BYTES written in (a)
+VSTART_LATE = 8                   # objects written while two OSDs are down
+VSTART_COUNT_EVERY_S = 0.5        # the OSD launcher's count-file period
+VSTART_ATTEMPT_S = 10.0           # an op's reply wait before a map refresh
+VSTART_SETTLE_S = 10.0            # recovery pushes still this long: done
+VSTART_DIR = os.path.join("build", "vstart")
+
+
+class _ReadyStamp:
+    """The launcher's stdout: stamps the wall time the daemon prints
+    READY, and passes everything on."""
+
+    def __init__(self, out, state):
+        self.out, self.state = out, state
+
+    def write(self, text):
+        if "READY" in text and self.state["ready_t"] is None:
+            self.state["ready_t"] = time.time()
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def osd_launcher(count_dir: str, argv: list) -> None:
+    """``python3 chip_smoke.py --vstart-osd DIR <osd argv>``: one OSD of
+    4v.  Runs ``ceph_tpu_torch.vstart.main(argv)`` and, every
+    ``VSTART_COUNT_EVERY_S``, rewrites ``DIR/osd-<pid>.json`` with its
+    pid, K1's launch count in this process, whether the process holds a
+    CUDA context and K1's library, and the wall time it printed READY.  The daemon is
+    SIGKILLed, so the file is its last word; nothing waits for an exit
+    hook."""
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.ops import _build, gf_pallas
+    pid = os.getpid()
+    state = {"pid": pid, "osd": int(argv[argv.index("--id") + 1]),
+             "ready_t": None}
+    path = os.path.join(count_dir, f"osd-{pid}.json")
+
+    def dump():
+        while True:
+            rec = dict(state, launches=gf_pallas.launches.n,
+                       cuda=torch.cuda.is_initialized(),
+                       k1_loaded="gf_bit_matmul" in _build._libs,
+                       t=time.time())
+            with open(path + ".tmp", "w") as f:
+                json.dump(rec, f)
+            os.replace(path + ".tmp", path)
+            time.sleep(VSTART_COUNT_EVERY_S)
+
+    sys.stdout = _ReadyStamp(sys.stdout, state)
+    threading.Thread(target=dump, daemon=True).start()
+    vstart.main(argv)
+
+
+def counted_cluster(count_dir: str, **kw):
+    """The port's ``ProcessCluster`` whose OSDs start through
+    ``osd_launcher`` (so their K1 counts reach ``count_dir``), with each
+    daemon's spawn time and the mon's READY time kept."""
+    from ceph_tpu_torch.vstart import ProcessCluster
+
+    class CountedCluster(ProcessCluster):
+        def __init__(self):
+            self.spawned, self.ready = {}, {}
+            super().__init__(**kw)
+
+        def _spawn_mon(self, rank, with_pool, rejoin=False):
+            self.spawned[self.mon_names[rank]] = time.time()
+            super()._spawn_mon(rank, with_pool, rejoin)
+
+        def _await_ready(self, name, timeout=120.0):
+            super()._await_ready(name, timeout)
+            self.ready.setdefault(name, time.time())
+
+        def _spawn_osd(self, i):
+            self.spawned[f"osd.{i}"] = time.time()
+            self.procs[f"osd.{i}"] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--vstart-osd",
+                 count_dir, *self.osd_argv(i)],
+                stdout=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env=self._osd_args["env"])
+
+    return CountedCluster()
+
+
+def osd_counts(count_dir: str, live_pids, since: float,
+               timeout: float = 10.0) -> list:
+    """Every OSD process's last count record, once each live one has
+    written after ``since`` (a killed one's last record stands)."""
+    end = time.monotonic() + timeout
+    while True:
+        recs = []
+        for name in os.listdir(count_dir):
+            if name.endswith(".json"):
+                with open(os.path.join(count_dir, name)) as f:
+                    recs.append(json.load(f))
+        fresh = {r["pid"] for r in recs if r["t"] >= since}
+        if set(live_pids) <= fresh:
+            return recs
+        if time.monotonic() > end:
+            raise AssertionError(f"4v: no fresh count from pids "
+                                 f"{sorted(set(live_pids) - fresh)}")
+        time.sleep(0.1)
+
+
+def compute_apps() -> str:
+    """The card's compute processes as ``nvidia-smi`` lists them.  In a
+    container whose pids nvidia-smi cannot see it lists every process
+    as pid 1, so the OSD processes report their own contexts."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+class WireOps:
+    """4v's client ops: each goes to its PG's primary by the client's map
+    and waits for its own reply, up to ``VSTART_ATTEMPT_S`` before a map
+    refresh and a resend, and ``OSD_PATH_DEADLINE_S`` in all; an EAGAIN
+    (peering, a stale map) refreshes the map and resends, as the
+    Objecter does.  The client's ``write_full``/``read`` give up after
+    eight 50 ms windows of silence on the socket, shorter than a 4 MiB
+    op takes across processes (ROADMAP Queue 3).  Every op must answer
+    0; latencies are kept per kind."""
+
+    def __init__(self, cluster, cl, pool: str):
+        from ceph_tpu_torch.msg import messages
+        self.c, self.cl, self.msgs = cluster, cl, messages
+        self.pool_id = cl.lookup_pool(pool)
+        self.lat = {}
+
+    def refresh(self):
+        self.cl.mon.send_full_map(self.cl.name)
+        self.c.network.pump(quiesce=0.05, deadline=1.0)
+
+    def op(self, kind: str, oid: str, data: bytes = b""):
+        cl, m = self.cl, self.msgs
+        code = {"write": m.CEPH_OSD_OP_WRITEFULL,
+                "read": m.CEPH_OSD_OP_READ}[kind]
+        t0 = time.perf_counter()
+        seen = []
+        while time.perf_counter() - t0 < OSD_PATH_DEADLINE_S:
+            pgid, primary = cl._calc_target(self.pool_id, oid)
+            if primary < 0:
+                seen.append(("no primary", cl.osdmap.epoch))
+                self.refresh()
+                continue
+            cl._tid += 1
+            tid = cl._tid
+            cl.messenger.send_message(m.MOSDOp(
+                tid=tid, pool=pgid[0], oid=oid, pgid=pgid, op=code,
+                data=data, epoch=cl.osdmap.epoch), f"osd.{primary}")
+            t_try = time.perf_counter()
+            while tid not in cl._replies and \
+                    time.perf_counter() - t_try < VSTART_ATTEMPT_S:
+                self.c.network.pump(quiesce=0.002, deadline=0.05)
+            reply = cl._replies.pop(tid, None)
+            seen.append((primary, cl.osdmap.epoch,
+                         None if reply is None else reply.result))
+            if reply is not None and reply.result != -11:
+                dt = time.perf_counter() - t0
+                self.lat.setdefault(kind, []).append(dt)
+                if reply.result != 0:
+                    raise AssertionError(f"4v: {kind} {oid} answered "
+                                         f"{reply.result}")
+                return reply
+            self.refresh()
+        raise AssertionError(f"4v: {kind} {oid} unanswered after "
+                             f"{OSD_PATH_DEADLINE_S} s: (primary, epoch, "
+                             f"result) {seen[-12:]}")
+
+    def stats(self, kind: str, n_bytes: int) -> dict:
+        lat = sorted(self.lat.pop(kind, []))
+        wall = sum(lat)
+        return {"ops": len(lat), "wall_s": wall,
+                "GiBps": n_bytes / wall / 2**30 if wall else None,
+                "p50_s": lat[len(lat) // 2] if lat else None,
+                "p99_s": lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+                if lat else None}
+
+
+def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
+                 obj_bytes: int = OBJ_BYTES, n_obj: int = VSTART_OBJ,
+                 n_late: int = VSTART_LATE,
+                 pg_num: int = VSTART_PG_NUM) -> dict:
+    """4v: the port's process cluster (``ceph_tpu_torch.vstart``), one mon
+    process and ``n_osds`` OSD processes over the TCP messenger with cephx
+    on, each OSD on its own ``WALStore`` in a temporary ``data_root``, an
+    isa k=8 m=4 pool of ``pg_num`` PGs (``crush-failure-domain=host``;
+    the codec on the card, ``backend`` by default) and a client in this
+    process:
+
+    (a) ``n_obj`` objects of ``obj_bytes`` made from the seed written,
+        then read back;
+    (b) two OSDs that hold data shards of the first object SIGKILLed;
+        once the client's map shows them down, every object read
+        degraded, then ``n_late`` more objects written with the two down;
+    (c) one of them restarted on its data directory, then the other, then
+        ``wait_healthy``; once recovery's pushes stop moving, every object
+        read; then ``m`` other OSDs SIGKILLed, so that each late object's
+        read needs the restarted disks' recovered shards, and the late
+        objects read again.
+
+    Every op answers 0 within ``OSD_PATH_DEADLINE_S`` and every read is
+    byte-exact.  Each OSD process opens the card and loads K1 before it
+    reports READY, and counts its own K1 launches into
+    ``VSTART_DIR/counts`` (``osd_launcher``); the sum over the OSD
+    processes must move in (a), in (b) and in (c), every OSD process must
+    report its CUDA context and K1's library, and the device memory the
+    boot took must come to at least 64 MiB per OSD process.  On the CPU (a rehearsal at small
+    sizes) the profile takes ``backend=host``, the OSDs ``--device cpu``,
+    and the card's checks are skipped."""
+    import shutil
+    import tempfile
+    on_card = dev.type == "cuda"
+    profile = {"plugin": "isa", "k": str(k), "m": str(m),
+               "crush-failure-domain": "host"}
+    if not on_card:
+        profile["backend"] = "host"
+    count_dir = os.path.abspath(os.path.join(VSTART_DIR, "counts"))
+    shutil.rmtree(count_dir, ignore_errors=True)
+    os.makedirs(count_dir)
+    data_root = tempfile.mkdtemp(prefix="vstart_")
+    rng = np.random.default_rng(SEED + 7)
+    objs = {f"obj{i}": rng.integers(0, 256, obj_bytes,
+                                    dtype=np.uint8).tobytes()
+            for i in range(n_obj)}
+    late = {f"late{i}": rng.integers(0, 256, obj_bytes,
+                                     dtype=np.uint8).tobytes()
+            for i in range(n_late)}
+    out = {"legs": {}, "config": {
+        "osds": n_osds, "pg_num": pg_num, "profile": profile,
+        "objects": n_obj, "late_objects": n_late, "object_bytes": obj_bytes,
+        "auth": True, "device": dev.type}}
+    t_slice = time.perf_counter()
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4v: {what}")
+
+    def leg(name, **rec):
+        out["legs"][name] = rec
+        log(f"4v {name}: " + json.dumps(rec, default=str))
+        return rec
+
+    def live_osd_pids():
+        return [p.pid for n, p in c.procs.items()
+                if n.startswith("osd.") and p.poll() is None]
+
+    def k1_sum():
+        since = time.time()
+        recs = osd_counts(count_dir, live_osd_pids(), since)
+        return sum(r["launches"] for r in recs), recs
+
+    def wait_down_up(osd_id, up, timeout=90.0):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            c.pump_for(0.5)
+            cl.mon.send_full_map(cl.name)
+            c.network.pump()
+            if cl.osdmap.is_up(osd_id) == up:
+                return
+        raise AssertionError(f"4v: osd.{osd_id} never marked "
+                             f"{'up' if up else 'down'}")
+
+    def perf_dump(i):
+        """``perf dump`` of osd.i; the client's command gives up after
+        eight 50 ms windows, shorter than a recovering OSD may take."""
+        end = time.monotonic() + OSD_PATH_DEADLINE_S
+        while True:
+            try:
+                return cl.osd_command(i, "perf dump")
+            except IOError:
+                if time.monotonic() > end:
+                    raise
+                c.pump_for(0.2)
+
+    def recovery_pushes():
+        total = 0
+        for i in range(n_osds):
+            if c.procs[f"osd.{i}"].poll() is not None:
+                continue
+            dump = perf_dump(i)
+            stack = [dump]
+            while stack:
+                d = stack.pop()
+                for key, v in d.items():
+                    if isinstance(v, dict):
+                        stack.append(v)
+                    elif key == "recovery_push":
+                        total += int(v)
+        return total
+
+    free0 = torch.cuda.mem_get_info()[0] if on_card else 0
+    t0 = time.perf_counter()
+    c = counted_cluster(
+        count_dir, n_osds=n_osds,
+        pool={"name": "ec", "pg_num": pg_num, "profile": profile},
+        auth=True, data_root=data_root,
+        # Ceph's osd_heartbeat_grace: 13 processes that take ~20 s each
+        # to start on the card's 8 host cores miss the test settings' 4 s;
+        # a 2 s interval settles the first tick's reports (every peer
+        # not heard from yet) sooner than Ceph's 6 s
+        heartbeat_interval=2.0, heartbeat_grace=20.0,
+        down_out_interval=3600.0,       # the downed disks come back
+        device="cuda" if on_card else "cpu")
+    try:
+        cl = c.client()
+        c.wait_healthy(cl, timeout=120.0)
+        ops = WireOps(c, cl, "ec")
+        # the first op waits out the PGs' first peering: part of the boot
+        ops.op("write", "warmup", b"warmup")
+        ops.lat.clear()
+        out["boot_s"] = time.perf_counter() - t0
+        k1_total, recs = k1_sum()
+        first = {f"osd.{r_['osd']}": r_ for r_ in recs}
+        boot = {n: c.ready[n] - c.spawned[n] for n in c.mon_names}
+        for n in (f"osd.{i}" for i in range(n_osds)):
+            boot[n] = first[n]["ready_t"] - c.spawned[n]
+            need(first[n]["cuda"] and first[n]["k1_loaded"],
+                 f"{n} holds no CUDA context or K1 library at READY")
+        out["process_boot_s"] = boot
+        if on_card:
+            # what the device lost to the cluster: the 12 OSD contexts
+            # (this process does no device work while they boot)
+            ctx = (free0 - torch.cuda.mem_get_info()[0]) / n_osds / 2**20
+            need(ctx >= 64, f"{ctx:.0f} MiB of device memory per OSD "
+                            "process: not a CUDA context each")
+            out["context_mib_per_osd"] = ctx
+            log(f"4v: device memory per OSD process {ctx:.1f} MiB "
+                f"(free before the spawn minus after the boot, over "
+                f"{n_osds})")
+        log(f"4v: {1 + n_osds} processes up in {out['boot_s']:.1f} s; "
+            f"boot seconds " + json.dumps(
+                {n: round(v, 2) for n, v in boot.items()}))
+
+        # -- (a) writes and reads ---------------------------------------------
+        n0 = k1_total
+        for oid, body in objs.items():
+            ops.op("write", oid, body)
+        w = ops.stats("write", n_obj * obj_bytes)
+        n1, _ = k1_sum()
+        for oid, body in objs.items():
+            if ops.op("read", oid).data != body:
+                raise AssertionError(f"4v (a): read of {oid} differs")
+        r = ops.stats("read", n_obj * obj_bytes)
+        n2, recs = k1_sum()
+        need(n1 - n0 > 0, f"(a) the OSD processes launched K1 {n1 - n0} "
+                          "times in the writes")
+        apps = compute_apps() if on_card else ""
+        need(all(r_["cuda"] and r_["k1_loaded"] for r_ in recs
+                 if r_["pid"] in live_osd_pids()),
+             "an OSD process lost its CUDA context or K1 library")
+        out["nvidia_smi_compute_apps"] = apps
+        leg("a_write_read", write=w, read=r, k1_writes=n1 - n0,
+            k1_reads=n2 - n1, osd_pids=sorted(live_osd_pids()),
+            nvidia_smi_compute_apps=apps)
+        k1_leg = {"a": n2 - n0}
+
+        # -- (b) two OSDs down: degraded reads and writes ---------------------
+        from ceph_tpu_torch.osdmap import pg_t
+        pgid, primary = cl._calc_target(ops.pool_id, "obj0")
+        acting = cl.osdmap.pg_to_up_acting_osds(pg_t(*pgid))[2]
+        victims = [o for o in acting[:k]
+                   if o != primary and 0 <= o < n_osds][:2]
+        if len(victims) < 2:
+            raise AssertionError(f"4v (b): obj0's data shards sit on "
+                                 f"{acting[:k]}")
+        for v in victims:
+            c.kill_osd(v)
+        t_kill = time.perf_counter()
+        for v in victims:
+            wait_down_up(v, up=False)
+        detect_s = time.perf_counter() - t_kill
+        n0, _ = k1_sum()
+        for oid, body in objs.items():
+            if ops.op("read", oid).data != body:
+                raise AssertionError(f"4v (b): degraded read of {oid} "
+                                     "differs")
+        r = ops.stats("read", n_obj * obj_bytes)
+        n1, _ = k1_sum()
+        for oid, body in late.items():
+            ops.op("write", oid, body)
+        w = ops.stats("write", n_late * obj_bytes)
+        n2, _ = k1_sum()
+        need(n1 - n0 > 0, f"(b) degraded reads launched K1 {n1 - n0} "
+                          "times")
+        leg("b_degraded", victims=victims, detect_s=detect_s, read=r,
+            k1_reads=n1 - n0, late_write=w, k1_late_writes=n2 - n1)
+        k1_leg["b"] = n2 - n0
+
+        # -- (c) the disks come back: recovery, a healthy cluster --------------
+        n0, _ = k1_sum()
+        p0 = recovery_pushes()
+        t0 = time.perf_counter()
+        c.restart_osd(victims[0])
+        wait_down_up(victims[0], up=True)
+        first_up_s = time.perf_counter() - t0
+        c.restart_osd(victims[1])
+        c.wait_healthy(cl, timeout=120.0)
+        healthy_s = time.perf_counter() - t0
+        # recovery has settled once its pushes stop moving
+        pushes, still_since = 0, time.monotonic()
+        end = time.monotonic() + 2 * OSD_PATH_DEADLINE_S
+        while time.monotonic() < end:
+            now = recovery_pushes() - p0
+            if now != pushes:
+                pushes, still_since = now, time.monotonic()
+            elif pushes and time.monotonic() - still_since >= \
+                    VSTART_SETTLE_S:
+                break
+            c.pump_for(1.0)
+        recovered_s = time.perf_counter() - t0
+        if not pushes:
+            raise AssertionError("4v (c): recovery pushed nothing")
+        for oid, body in {**objs, **late}.items():
+            if ops.op("read", oid).data != body:
+                raise AssertionError(f"4v (c): read of {oid} differs")
+        r = ops.stats("read", (n_obj + n_late) * obj_bytes)
+        # the proof: with m other OSDs gone, every late object's read
+        # needs the k survivors' shards, the two restarted disks' ones
+        # (which only recovery gave them) among them
+        others = [o for o in range(n_osds) if o not in victims][-m:]
+        for o in others:
+            c.kill_osd(o)
+        for o in others:
+            wait_down_up(o, up=False)
+        for oid, body in late.items():
+            if ops.op("read", oid).data != body:
+                raise AssertionError(f"4v (c): {oid} read through the "
+                                     "restarted disks differs")
+        proof = ops.stats("read", n_late * obj_bytes)
+        n1, _ = k1_sum()
+        need(n1 - n0 > 0, f"(c) recovery launched K1 {n1 - n0} times")
+        leg("c_restart_recover", first_up_s=first_up_s,
+            healthy_s=healthy_s, recovered_s=recovered_s,
+            recovery_pushes=pushes, read=r, killed_for_proof=others,
+            proof_read=proof, k1=n1 - n0)
+        k1_leg["c"] = n1 - n0
+    finally:
+        c.close()
+        shutil.rmtree(data_root, ignore_errors=True)
+    out["k1_by_leg"] = k1_leg
+    out["launches"] = {"gf_bit_matmul": sum(k1_leg.values())}
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4v: K1 in the OSD processes {out['launches']}; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def vstart_alone(dev) -> None:
+    """``--vstart``: 4v alone after phases 1-2, its record written to
+    ``chiprun_out/vstart.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = vstart_slice(dev)
+    with open(os.path.join("chiprun_out", "vstart.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4990,11 +5482,12 @@ def main() -> int:
                         ("--dispatch-scan", dispatch_scan_turns),
                         ("--k8-parent", k8_parent_turns),
                         ("--osd-path", osd_path_alone),
-                        ("--cluster", cluster_alone)):
+                        ("--cluster", cluster_alone),
+                        ("--vstart", vstart_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
-                    "--cluster"):
+                    "--cluster", "--vstart"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -5323,6 +5816,13 @@ def main() -> int:
     cli_zc = results["native_bench"]["zero_copy_launches"]
     phase_done("4q MiniCluster")
 
+    # -- 4v. the process cluster: a client's writes, degraded reads and a
+    # recovery through daemons that each run K1 in their own process,
+    # after the earlier slices' phases, which run as they did before it --
+    vs = vstart_slice(dev)
+    results["vstart"] = vs
+    phase_done("4v process cluster")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -5345,7 +5845,8 @@ def main() -> int:
         "launches": (launches + res_launches["gf_bit_matmul"] + family_k1
                      + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]
                      + path_n["gf_bit_matmul"] + cl_n["gf_bit_matmul"]
-                     + cli_zc["gf_bit_matmul"]),
+                     + cli_zc["gf_bit_matmul"]
+                     + vs["launches"]["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -5484,4 +5985,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--vstart-osd"]:
+        osd_launcher(sys.argv[2], sys.argv[3:])
+    else:
+        sys.exit(main())

@@ -8,6 +8,7 @@
 """
 import ast
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -357,7 +358,7 @@ def test_walk_sees_the_placement_and_store_slice():
               "tools.dencoder", "os_store.memstore", "os_store.walstore",
               "osd.pg_log"):
         assert f"ceph_tpu_torch.{m}" in mods
-    assert "ceph_tpu_torch.msg.tcp" not in mods
+    assert "ceph_tpu_torch.msg.tcp" in mods       # since the process slice
 
 
 def test_upmap_raw_all_catches_nothing():
@@ -700,3 +701,73 @@ def test_cluster_slice_device_seams_hold_no_catch_all():
               if isinstance(n, ast.Call) and isinstance(n.func,
                                                         ast.Attribute)}
     assert called == {"_build_bundle"}
+
+
+_JAX_MODULE_PATH = re.compile(r"(?<![\w.])ceph_tpu\.[A-Za-z_]")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
+def test_source_names_no_jax_module_or_platform(path):
+    """No text of the port (code, comment or docstring) names a module of
+    the JAX package by its dotted path (``ceph_tpu_torch.`` is the port's
+    own), or sets JAX's platform variables: a daemon it spawns is the
+    port's, on the device the caller chose."""
+    text = (REPO / path).read_text()
+    assert not _JAX_MODULE_PATH.search(text), (
+        path, _JAX_MODULE_PATH.search(text))
+    for name in ("JAX_PLATFORMS", "XLA_FLAGS"):
+        assert name not in text, (path, name)
+
+
+def test_walk_sees_the_process_slice():
+    """The package walk reaches the compressors, cephx, the TCP
+    messenger, vstart and the offline tools."""
+    mods = _modules()
+    for m in ("compressor", "compressor.registry", "auth", "auth.crypto",
+              "auth.keyring", "auth.cephx", "msg.tcp", "vstart",
+              "tools.authtool", "tools.monmaptool", "tools.ceph_conf",
+              "tools.kvstore_tool", "tools.monstore_tool",
+              "tools.objectstore_tool", "tools.rebuild_mondb"):
+        assert f"ceph_tpu_torch.{m}" in mods
+
+
+def test_process_cluster_on_cuda_without_card_raises(monkeypatch):
+    """``ProcessCluster(device="cuda")`` (the default) needs the card
+    before it builds or spawns anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch import vstart
+
+    def boom(*a, **kw):
+        raise AssertionError("spawned or built without a card")
+    monkeypatch.setattr(vstart.subprocess, "Popen", boom)
+    monkeypatch.setattr(_build, "build", boom)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vstart.ProcessCluster(n_osds=3, **kw)
+    with pytest.raises(ValueError, match="neither cuda nor cpu"):
+        vstart.ProcessCluster(n_osds=3, device="tpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vstart._open_device("cuda")
+
+
+def test_vstart_mds_path_raises():
+    """The MDS path waits for the port's ``mds/`` and ``cephfs/``: the
+    cluster with an MDS, its daemon main and the ``mds`` subcommand all
+    raise before anything starts."""
+    from ceph_tpu_torch import vstart
+    with pytest.raises(NotImplementedError, match="mds/ and cephfs/"):
+        vstart.ProcessCluster(n_osds=3, n_mds=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        vstart.main(["mds", "--port", "1", "--directory", "{}",
+                     "--n-osds", "3"])
+    assert not hasattr(vstart.ProcessCluster, "kill_mds")
+
+
+def test_vstart_daemons_hold_no_catch_all():
+    """Opening the card and the daemon mains catch nothing: a missing
+    card or a failed build ends the OSD process before READY."""
+    for fn in ("_open_device", "osd_main", "mon_main", "_daemon_start"):
+        f = _function("vstart.py", fn)
+        assert not [n for n in ast.walk(f) if isinstance(n, ast.Try)], fn

@@ -8,6 +8,7 @@ seeds and sizes.  The JAX side runs ``plugin=tpu`` on its CPU platform;
 the port side ``plugin=cuda, backend=host`` (the kernels' plain PyTorch
 versions on CPU tensors).
 """
+import gc
 import struct
 
 import numpy as np
@@ -20,10 +21,13 @@ from ceph_tpu.fault import g_breakers as jax_breakers
 from ceph_tpu.fault import g_faults as jax_faults
 from ceph_tpu.mesh import g_chipstat as jax_chipstat
 from ceph_tpu.mesh import g_mesh as jax_mesh
+from ceph_tpu.trace.journal import g_journal as jax_journal
 
 from ceph_tpu_torch.common.config import g_conf
 from ceph_tpu_torch.dispatch import g_dispatcher
 from ceph_tpu_torch.fault import g_faults
+from ceph_tpu_torch.mesh import g_chipstat
+from ceph_tpu_torch.trace.journal import g_journal
 
 JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
 PLUGIN = {JAX: {"plugin": "tpu"},
@@ -32,8 +36,17 @@ PLUGIN = {JAX: {"plugin": "tpu"},
 
 def reset_both() -> None:
     """Both packages at their defaults: dispatchers drained, every
-    option unset, no fault armed, the JAX mesh down with its chip
-    statistics and breakers empty."""
+    option unset, no fault armed, both event journals and chip
+    scoreboards empty, the JAX mesh down with its breakers empty.
+
+    The journals are process-global and no cluster clears them: an
+    incident bundle's timeline is the merged tail of every event the
+    worker emitted, so a JAX-only cluster test earlier in the same
+    worker would put its ``osd_down`` events in one side only.  For the
+    same reason the garbage of earlier tests is collected first: the
+    device-shard budgets count every resident shard alive in the process
+    (``test_device_crc.py`` leaves 89 in reference cycles)."""
+    gc.collect()
     g_dispatcher.flush()
     jax_dispatcher.flush()
     g_faults.clear()
@@ -42,6 +55,9 @@ def reset_both() -> None:
         for name in list(conf.values):
             conf.rm_val(name)
     jax_mesh.topology()
+    g_journal.reset()
+    jax_journal.reset()
+    g_chipstat.reset()
     jax_chipstat.reset()
     jax_breakers.reset()
 
