@@ -15,11 +15,16 @@ Port of ``ceph_tpu/bench/__main__.py``.  Modes:
                 100000 PGs, 10 epochs, the native host mapper beside
                 it).  No card raises.
 
-Both modes then run the three cluster workloads on a ``MiniCluster``: the
-traffic harness (8 clients over a replicated pool), the zero-copy write
-A/B (resident against the bytes twin, gated by regress.py's ZERO-COPY
-gate) and the recovery storm (RS against regenerating, the recovery
-gate), at the JAX CLI's shapes.
+Both modes then run the mesh workloads on 8 mesh members (members per
+device from ``CEPH_TPU_TORCH_MESH_MEMBERS`` when it is set, else 8): the
+mesh encode against one device, the skew ruler (regress.py's SKEW GATE),
+the rateless straggler A/B and the degraded read (the STRAGGLER GATE);
+and the three cluster workloads on a ``MiniCluster``: the traffic
+harness (8 clients over a replicated pool), the zero-copy write A/B
+(resident against the bytes twin, gated by regress.py's ZERO-COPY gate)
+and the recovery storm (RS against regenerating, the recovery gate), at
+the JAX CLI's shapes.  Members that share one card give parity and
+per-member launches, not scaling.
 
   --gate off|warn|fail   compare fenced metrics against the archived
                 BENCH_r*.json trajectory (regress.py), readings of the
@@ -28,8 +33,7 @@ gate), at the JAX CLI's shapes.
 
 Output: ONE JSON line on stdout carrying schema-valid metrics; human
 progress goes to stderr.  The line's ``not_ported`` names the JAX
-bench's workloads that need a mesh, which this CLI does not run until
-the port has one.
+bench's workloads this CLI does not run yet.
 """
 from __future__ import annotations
 
@@ -40,10 +44,8 @@ import sys
 import time
 import traceback
 
-# the JAX bench's workloads that need a mesh
-NOT_PORTED = ("measure_ec_mesh", "measure_mesh_skew",
-              "measure_mesh_straggler", "measure_degraded_read",
-              "measure_composed_chaos", "measure_slo_autotune")
+# the JAX bench's workloads this CLI does not run yet
+NOT_PORTED = ("measure_composed_chaos", "measure_slo_autotune")
 
 
 def main(argv=None) -> int:
@@ -66,11 +68,20 @@ def main(argv=None) -> int:
     from . import regress
     from .workloads import (_device_info, bench_perf_counters,
                             measure_crush_remap, measure_decode,
-                            measure_dispatch_coalesce, measure_ec_pipeline,
+                            measure_degraded_read,
+                            measure_dispatch_coalesce, measure_ec_mesh,
+                            measure_ec_pipeline,
                             measure_ec_write_zero_copy, measure_encode,
-                            measure_host_native, measure_recovery_storm,
+                            measure_host_native, measure_mesh_skew,
+                            measure_mesh_straggler, measure_recovery_storm,
                             measure_traffic, parity_check)
     from ..gf.matrices import gf_gen_rs_matrix
+    from ..mesh import topology
+
+    # the mesh workloads run on 8 members, as the JAX CLI's virtual
+    # 8-device mesh does, unless the environment names a member count
+    if topology.MEMBERS_ENV not in os.environ:
+        topology.set_members_per_device(8)
 
     K, M = 8, 4
     if args.smoke:
@@ -130,6 +141,48 @@ def main(argv=None) -> int:
                  f"{mp1['value']} depth-1 (x{mp['speedup']}, occupancy "
                  f"{mp['mean_batch_occupancy']}, identical "
                  f"{mp['identical']})")
+        # the mesh runtime (mesh/): the same salted k8m4 encode step
+        # across the batch-axis mesh vs one device, drained per member,
+        # plus the dispatch-path identity/occupancy receipt
+        mm, mm1 = measure_ec_mesh(
+            matrix, mesh_chips=8 if args.smoke else -1,
+            target_seconds=0.3 if args.smoke else 2.0,
+            repeats=repeats, warmup=warmup,
+            n_steps=3 if args.smoke else None, device=device)
+        result["metrics"] += [mm, mm1]
+        occupied = sum(1 for v in mm["per_chip_stripes"].values()
+                       if v > 0)
+        progress(f"ec_mesh {mm['value']} GiB/s over {mm['mesh_chips']} "
+                 f"members vs {mm1['value']} single (x{mm['speedup']}, "
+                 f"identical {mm['identical']}, "
+                 f"members occupied {occupied}/{mm['mesh_chips']})")
+        # the straggler ruler (mesh/chipstat): mesh twin healthy vs one
+        # member slowed, scoreboard detection latency + TPU_MESH_SKEW
+        # raise/clear gated by regress.py's SKEW GATE
+        msk = measure_mesh_skew(device=device)
+        result["metrics"].append(msk)
+        sk = msk["skew"]
+        progress(f"mesh_skew chip {sk['detected_chip']} at "
+                 f"x{sk['skew_ratio_detected']} detected in "
+                 f"{sk['detection_probes']} probes (healthy false "
+                 f"suspects {sk['healthy_false_suspects']}, raised "
+                 f"{sk['raised']}, cleared {sk['cleared']}, identical "
+                 f"{msk['identical']})")
+        # the straggler-proof encode A/B (mesh/rateless): rateless-coded
+        # mesh healthy vs one member slowed 10x, gated by regress.py's
+        # STRAGGLER GATE
+        mst = measure_mesh_straggler(
+            n_flushes=24 if args.smoke else 48, device=device)
+        result["metrics"].append(mst)
+        st = mst["straggler"]
+        progress(f"mesh_straggler protected p999 "
+                 f"x{st['protected_p999_ratio']} rollup / "
+                 f"x{st['protected_p999_wall_ratio']} wall of healthy "
+                 f"(unprotected x{st['unprotected_p999_wall_ratio']}, "
+                 f"detected in {st['detection_probes']} probes, "
+                 f"bw overhead x{st['bandwidth_overhead']}, "
+                 f"subset completions {st['subset_completions']}, "
+                 f"identical {mst['identical']})")
         host = measure_host_native(matrix, batch[0],
                                    target_seconds=0.3 if args.smoke
                                    else 1.5)
@@ -191,6 +244,22 @@ def main(argv=None) -> int:
                  f" B/shard regen vs {rec['bytes_per_repaired_shard_rs']}"
                  f" RS (ratio {rec['regen_vs_rs_ratio']}, identical "
                  f"{mr['identical']}, slo {mr['slo']})")
+        # degraded-read A/B (mesh/): shard kill under open-loop traffic,
+        # then meshed rateless decode healthy vs one member slowed 10x vs
+        # the mesh-off single-device twin (the STRAGGLER GATE)
+        md = measure_degraded_read(
+            n_batches=10 if args.smoke else 32,
+            ops_per_client=6 if args.smoke else 32, device=device)
+        result["metrics"].append(md)
+        sd = md["straggler"]
+        progress(f"degraded_read protected p999 "
+                 f"x{sd['protected_p999_ratio']} rollup / "
+                 f"x{sd['protected_p999_wall_ratio']} wall of healthy "
+                 f"(detected in {sd['detection_probes']} probes, "
+                 f"bw overhead x{sd['bandwidth_overhead']}, "
+                 f"subset completions {sd['subset_completions']}, "
+                 f"fallbacks {sd['single_device_fallbacks']}, "
+                 f"identical {md['identical']})")
         result["decode_parity"] = parity_check(matrix, device=device)
         if not result["decode_parity"]:
             rc = 1

@@ -18,9 +18,11 @@ from cache) and the fetch-drain fence are both load-bearing.
 
 The cluster workloads (``measure_traffic``, ``measure_ec_write_zero_copy``,
 ``measure_recovery_storm``) drive a ``MiniCluster`` through the traffic
-harness and the recovery scheduler.  Not here yet: the mesh branch of
-``_measure_fenced_gf`` (it raises until the port has its mesh modules)
-and the workloads that need a mesh.
+harness and the recovery scheduler.  The mesh workloads
+(``measure_ec_mesh``, ``measure_mesh_skew``, ``measure_mesh_straggler``,
+``measure_degraded_read``) run on a mesh of members (``mesh/``); members
+that share one card give parity and per-member launches, not scaling.
+Not here yet: ``measure_slo_autotune`` and ``measure_composed_chaos``.
 """
 from __future__ import annotations
 
@@ -170,20 +172,58 @@ def _measure_fenced_gf(bits: BitMatrix, batch: np.ndarray, *,
     device that holds ``bits``: warm the salted step, calibrate the
     per-region launch count, take warmup+repeat fenced samples, and wrap
     the median in a schema metric with a roofline verdict.  Encode and
-    decode differ only in the bitmatrix and the cost model.  The mesh
-    form waits for the port's mesh modules and raises."""
-    if mesh is not None:
-        raise NotImplementedError("the meshed bench path waits for the "
-                                  "port's mesh modules")
-    dev = bits.device
-    data = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
-    step_fn = salted_matmul_step()
-    step_fn(data, bits, 0)                       # first launch, builds
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    decode differ only in the bitmatrix and the cost model.
 
-    def step(i: int):
-        return step_fn(data, bits, _next_salt())
+    With *mesh* the same step runs over its members: member i takes rows
+    [i*S/n, (i+1)*S/n) of the batch on its device and launches the step
+    on its stream, the fence is ``drain_sharded`` (one fetch per member,
+    on its stream: each member's completion proven, not inferred) and
+    the roofline verdict scales the chip peaks by the mesh's distinct
+    devices (``mesh_roofline``)."""
+    dev = bits.device
+    step_fn = salted_matmul_step()
+    drain_fn = None
+    if mesh is not None:
+        from ..mesh.topology import Shard, Sharded
+        from ..parallel.ec import drain_sharded
+        n = mesh.size
+        if batch.shape[0] % n:
+            raise ValueError(f"{batch.shape[0]} stripes do not divide "
+                             f"over {n} mesh members")
+        rows = batch.shape[0] // n
+        per_dev = {d: BitMatrix(bits.bits.cpu().numpy(), d)
+                   for d in mesh.distinct_devices}
+        pieces = []
+        for i, mem in enumerate(mesh.members):
+            sl = slice(i * rows, (i + 1) * rows)
+            with mem.launching():
+                d = torch.from_numpy(
+                    np.ascontiguousarray(batch[sl])).to(mem.device)
+            pieces.append((mem, sl, d, per_dev[mem.device]))
+
+        def mesh_step(salt: int) -> Sharded:
+            shards = []
+            for mem, sl, d, bm in pieces:
+                with mem.launching():
+                    out = step_fn(d, bm, salt)
+                shards.append(Shard(mem, out, (sl,)))
+            return Sharded((batch.shape[0], bits.r, batch.shape[2]),
+                           shards)
+
+        drain_sharded(mesh_step(0))              # first launches, builds
+
+        def step(i: int):
+            return mesh_step(_next_salt())
+
+        drain_fn = drain_sharded
+    else:
+        data = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+        step_fn(data, bits, 0)                   # first launch, builds
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        def step(i: int):
+            return step_fn(data, bits, _next_salt())
 
     if rtt_s is None:
         rtt_s = measure_rtt(device=dev)
@@ -192,24 +232,31 @@ def _measure_fenced_gf(bits: BitMatrix, batch: np.ndarray, *,
     if n_steps is None:
         n_steps = _calibrate_steps(step,
                                    target_seconds / max(repeats, 1),
-                                   rtt_s)
+                                   rtt_s, drain_fn=drain_fn)
     flow0 = g_devprof.snapshot()
     stage0 = g_oplat.snapshot()
     wall_t0 = time.perf_counter()
     st = repeat_measure(
         lambda: _fenced_throughput(step, n_steps, bytes_per_step, rtt_s,
-                                   kernel_name)[0],
+                                   kernel_name, drain_fn=drain_fn)[0],
         repeats=repeats, warmup=warmup)
     wall_s = time.perf_counter() - wall_t0
     n_ops = n_steps * (repeats + warmup)
     devflow = _devflow_since(flow0, n_ops)
     platform, kind, ndev = _device_info(dev)
-    rl = validate_reading(st["median"], workload, platform, kind, ndev)
+    extra = {}
+    if mesh is not None:
+        from ..parallel.ec import mesh_roofline
+        rl = mesh_roofline(st["median"], workload, mesh)
+        ndev = len(mesh.distinct_devices)
+        extra["mesh_members"] = mesh.size
+    else:
+        rl = validate_reading(st["median"], workload, platform, kind, ndev)
     return make_metric(
         metric_name, st["median"], "GiB/s", fenced=True,
         rtt_s=rtt_s, stats=st, roofline=rl,
         extra={"n_steps": n_steps, "bytes_per_step": bytes_per_step,
-               "platform": platform, "n_devices": ndev,
+               "platform": platform, "n_devices": ndev, **extra,
                "devflow": devflow,
                "stage_breakdown": _stage_breakdown_since(
                    stage0, wall_s, n_ops)})
@@ -1228,5 +1275,811 @@ def measure_recovery_storm(*, k: int = 8, m: int = 4, d: int = 10,
                 stage0, wall_run_s,
                 max(regen["repaired_shards"]
                     + rs["repaired_shards"], 1)),
+            "errors": res.errors[:8],
+        })
+
+
+def _launches() -> Dict[str, int]:
+    """K1's and K9x's launch counts so far (the mesh workloads record
+    their deltas as a ``launches`` block)."""
+    from ..ops import gf_pallas, mesh_xor
+    return {"gf_bit_matmul": gf_pallas.launches.n,
+            "mesh_xor": mesh_xor.launches.n}
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {n: v - before[n] for n, v in _launches().items()}
+
+
+def _mesh_codec(k: int, m: int, device):
+    """The reed_sol_van ``cuda`` plugin of the mesh workloads (the JAX
+    package's ``tpu``), with ``backend=host`` when the caller asks for
+    the CPU: a codec rides the mesh only on its own platform."""
+    from ..ec.cuda_plugin import ErasureCodeCuda
+    impl = ErasureCodeCuda()
+    impl.init({"k": str(k), "m": str(m), "technique": "reed_sol_van",
+               "backend": "cuda" if resolve_device(device).type == "cuda"
+               else "host"})
+    return impl
+
+
+def _mesh_dispatch_receipt(mesh_chips: int, n_requests: int,
+                           object_bytes: int, device="cuda"
+                           ) -> Dict[str, Any]:
+    """The mesh workload's correctness + occupancy receipt, taken
+    through the REAL dispatch path: the same coalesced k8m4 encode
+    batch through the scheduler with the mesh on vs the single-device
+    twin (mesh off), outputs byte-compared shard by shard, per-chip
+    stripe deltas read back from the runtime.  Runs outside the timed
+    region — receipts must not pollute the fenced numbers."""
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+    from ..mesh import g_mesh
+    from ..ops import gf_pallas
+
+    impl, _dev, sinfo, want = _dispatch_codec(device, object_bytes)
+    rng = np.random.default_rng(20260805)
+    payloads = [rng.integers(0, 256, size=object_bytes, dtype=np.uint8)
+                for _ in range(n_requests)]
+    saved = {name: g_conf.values.get(name) for name in
+             ("ec_dispatch_batch_max", "ec_dispatch_batch_window_us",
+              "ec_mesh_chips")}
+
+    def run_batch():
+        futs = [g_dispatcher.submit_encode(sinfo, impl, p, want)
+                for p in payloads]
+        g_dispatcher.flush()
+        return [f.result() for f in futs]
+
+    try:
+        g_conf.set_val("ec_dispatch_batch_max", n_requests)
+        g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+        g_conf.set_val("ec_mesh_chips", 0)
+        single = run_batch()
+        g_conf.set_val("ec_mesh_chips", mesh_chips)
+        chips0 = {i: v["stripes"] for i, v in g_mesh.per_chip().items()}
+        k1_0 = gf_pallas.launches.n
+        meshed = run_batch()
+        k1_launches = gf_pallas.launches.n - k1_0
+        per_chip = {i: v["stripes"] - chips0.get(i, 0)
+                    for i, v in g_mesh.per_chip().items()}
+        identical = all(
+            sorted(a) == sorted(b)
+            and all(np.asarray(a[i]).tobytes()
+                    == np.asarray(b[i]).tobytes() for i in a)
+            for a, b in zip(meshed, single))
+        dump = g_mesh.dump()
+        return {"identical": bool(identical),
+                "per_chip_stripes": per_chip,
+                "mesh_size": dump["size"],
+                "plan_cache": len(dump["plans"]),
+                "pool": dump["pool"],
+                "k1_launches": k1_launches}
+    finally:
+        for name, v in saved.items():
+            g_conf.rm_val(name) if v is None else g_conf.set_val(name, v)
+        g_dispatcher.flush()
+
+
+def measure_ec_mesh(matrix: np.ndarray, *, mesh_chips: int = 8,
+                    chunk: int = 8192, n_requests: int = 8,
+                    object_bytes: int = 65536,
+                    target_seconds: float = 0.3, repeats: int = 3,
+                    warmup: int = 1, rtt_s: Optional[float] = None,
+                    n_steps: Optional[int] = None, device="cuda"
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """k=8,m=4 encodes across the dispatch mesh vs a single-device
+    twin (``mesh/``, docs/DISPATCH.md "Mesh-sharded dispatch").
+
+    Two legs of the SAME salted GF bit-matmul step: ``ec_mesh_fenced``
+    runs it over a 1-D batch-axis mesh of *mesh_chips* members (each
+    launching on its own stream), completion-fenced via
+    ``drain_sharded`` — one readback from EVERY member, because a mesh
+    output is only proven complete per member — and validated by
+    ``mesh_roofline`` (chip peaks scaled by distinct devices: members
+    sharing one card read 1x);
+    ``ec_mesh_single_fenced`` is the identical step on one device
+    under the standard drain.  The RTT is measured and reported, never
+    subtracted; inputs are salted per dispatch.
+
+    The mesh metric also carries the dispatch-path receipt
+    (``_mesh_dispatch_receipt``): byte-identity of a coalesced batch
+    through the real scheduler with the mesh on vs off, and the
+    per-chip stripe occupancy the flush produced — every chip of the
+    smoke mesh must show work.
+    """
+    from ..mesh.topology import batch_mesh
+
+    dev = resolve_device(device)
+    launches0 = _launches()
+    mesh = batch_mesh(mesh_chips, platform=dev.type)
+    batch_s = 2 * mesh.size
+    rng = np.random.default_rng(20260806)
+    batch = rng.integers(0, 256, size=(batch_s, K, chunk),
+                         dtype=np.uint8)
+    bits = encode_bitmatrix(matrix, dev)
+    if rtt_s is None:
+        rtt_s = measure_rtt(device=dev)
+    # a PINNED step count (smoke) keeps the twin's fence-flow per-op
+    # figures deterministic round over round; None (full mode)
+    # calibrates the region like every other fenced workload
+    m_single = _measure_fenced_gf(
+        bits, batch, metric_name="ec_mesh_single_fenced",
+        workload=EC_ENCODE_K8M4, kernel_name="bench_mesh_single_fenced",
+        target_seconds=target_seconds, repeats=repeats, warmup=warmup,
+        rtt_s=rtt_s, n_steps=n_steps)
+    m_mesh = _measure_fenced_gf(
+        bits, batch, metric_name="ec_mesh_fenced",
+        workload=EC_ENCODE_K8M4, kernel_name="bench_mesh_fenced",
+        target_seconds=target_seconds, repeats=repeats, warmup=warmup,
+        rtt_s=rtt_s, mesh=mesh, n_steps=n_steps)
+    receipt = _mesh_dispatch_receipt(mesh_chips, n_requests,
+                                     object_bytes, device=dev)
+    m_mesh["mesh_chips"] = mesh.size
+    m_mesh["single_gibs"] = round(m_single["value"], 4)
+    m_mesh["speedup"] = round(
+        m_mesh["value"] / max(m_single["value"], 1e-9), 3)
+    m_mesh.update(receipt)
+    m_mesh["launches"] = _launches_since(launches0)
+    return m_mesh, m_single
+
+
+def measure_mesh_skew(*, mesh_chips: int = 8, slow_chip: int = 5,
+                      delay_us: int = 30_000, threshold: float = 3.0,
+                      healthy_flushes: int = 4, max_probes: int = 10,
+                      n_requests: int = 3, chunk: int = 1024, k: int = 4,
+                      m: int = 2, n_stripes: int = 2,
+                      name: str = "ec_mesh_skew",
+                      device="cuda") -> Dict[str, Any]:
+    """The straggler ruler (docs/OBSERVABILITY.md "Per-chip timing &
+    skew health"): run the mesh twin healthy vs one-chip-slowed and
+    measure what the chip-health scoreboard SEES — skew ratio at
+    detection, per-chip p99 spread, and detection latency in probes.
+
+    Shape: a mini cluster (the mgr must tick DURING the run — the
+    TPU_MESH_SKEW raise/clear is part of the measurement) with an
+    8-chip mesh and ``ec_mesh_skew_sample_every=1``; coalesced k4m2
+    encode flushes drive the dispatch path directly.  Leg 1 (healthy):
+    N flushes, the scoreboard must stay quiet — zero false suspects is
+    a gated assertion, not a hope.  Leg 2 (slowed): the fault registry
+    arms ``mesh.chip_slowdown`` on exactly *slow_chip* with a
+    *delay_us* stall (~10x the healthy CPU probe delta) and the run
+    counts flushes until the scoreboard marks a suspect; the suspect
+    must be exactly the slowed chip, TPU_MESH_SKEW must raise while
+    the mgr ticks, and after the fault clears the check must clear
+    again.  Every flush's output is byte-compared against the
+    single-request oracle (skew sampling must never touch the data
+    path).  bench/regress.py's SKEW GATE enforces the detection
+    window, the exact-chip verdict and the quiet healthy twin.
+
+    Members that share one card (or the CPU) share its cores, so the
+    HEALTHY per-member spread here is calibration only.
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+    from ..fault import g_faults
+    from ..mesh import g_chipstat, g_mesh
+    from ..osd.ecutil import encode as eu_encode, stripe_info_t
+
+    saved = {opt: g_conf.values.get(opt) for opt in
+             ("ec_mesh_chips", "ec_dispatch_batch_max",
+              "ec_dispatch_batch_window_us",
+              "ec_mesh_skew_sample_every", "ec_mesh_skew_threshold")}
+    g_conf.set_val("ec_mesh_chips", mesh_chips)
+    g_conf.set_val("ec_dispatch_batch_max", 64)
+    g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+    g_conf.set_val("ec_mesh_skew_sample_every", 1)
+    g_conf.set_val("ec_mesh_skew_threshold", threshold)
+
+    cluster = MiniCluster(n_osds=4)
+    impl = _mesh_codec(k, m, device)
+    sinfo = stripe_info_t(k, k * chunk)
+    want = set(range(k + m))
+    rng = np.random.default_rng(20260804)
+    flow0 = g_devprof.snapshot()
+    launches0 = _launches()
+    stage0 = g_oplat.snapshot()
+    t_wall0 = time.perf_counter()
+
+    n_flushes = [0]
+
+    def flush_once() -> bool:
+        """One coalesced mesh flush, byte-checked vs the oracle."""
+        n_flushes[0] += 1
+        payloads = [rng.integers(0, 256, size=n_stripes * k * chunk,
+                                 dtype=np.uint8)
+                    for _ in range(n_requests)]
+        oracles = [eu_encode(sinfo, impl, p, want) for p in payloads]
+        futs = [g_dispatcher.submit_encode(sinfo, impl, p, want)
+                for p in payloads]
+        g_dispatcher.flush()
+        ok = True
+        for f, oracle in zip(futs, oracles):
+            res = f.result()
+            ok = ok and sorted(res) == sorted(oracle) and all(
+                np.asarray(res[i]).tobytes()
+                == np.asarray(oracle[i]).tobytes() for i in oracle)
+        cluster.tick(dt=1.0)     # the mgr judges DURING the run
+        return ok
+
+    def spread(pcts: Dict[int, Dict[str, float]]) -> float:
+        # max p99 over the mesh-median p99, with the scoreboard's own
+        # median rule so the two surfaces cannot drift
+        from ..mesh.chipstat import ChipStat
+        p99s = [p["p99"] for p in pcts.values() if p["p99"] > 0]
+        if not p99s:
+            return 0.0
+        med = ChipStat._median(p99s)
+        return round(max(p99s) / max(med, 1e-9), 3)
+
+    identical = True
+    try:
+        identical &= flush_once()          # compile warmup
+        g_chipstat.reset()                 # drop compile-era samples
+        # ---- leg 1: healthy twin ----------------------------------------
+        for _ in range(healthy_flushes):
+            identical &= flush_once()
+        healthy_false_suspects = len(g_chipstat.suspects())
+        healthy_raised = "TPU_MESH_SKEW" in cluster.mgr.health_checks
+        healthy_spread = spread(g_chipstat.per_chip_percentiles())
+        healthy_max_ratio = max(
+            (r["skew_ratio"] for r in
+             g_chipstat.summary()["per_chip"].values()), default=0.0)
+        # ---- leg 2: one chip slowed -------------------------------------
+        g_chipstat.reset()
+        g_faults.inject("mesh.chip_slowdown", mode="always",
+                        match=f"chip={slow_chip}/", delay_us=delay_us)
+        detection_probes = 0
+        for i in range(1, max_probes + 1):
+            identical &= flush_once()
+            if g_chipstat.suspects():
+                detection_probes = i
+                break
+        suspects = g_chipstat.suspects()
+        detected_chip = suspects[0]["chip"] if suspects else -1
+        skew_ratio_detected = suspects[0]["skew_ratio"] if suspects \
+            else 0.0
+        raised = "TPU_MESH_SKEW" in cluster.mgr.health_checks
+        raised_message = cluster.mgr.health_checks.get(
+            "TPU_MESH_SKEW", "")
+        slowed_spread = spread(g_chipstat.per_chip_percentiles())
+        # ---- leg 3: fault removed, the check must clear -----------------
+        g_faults.clear("mesh.chip_slowdown")
+        cleared = False
+        for _ in range(4 * max_probes):
+            identical &= flush_once()
+            if not g_chipstat.suspects() \
+                    and "TPU_MESH_SKEW" not in \
+                    cluster.mgr.health_checks:
+                cleared = True
+                break
+        n_probes_total = g_chipstat.summary()["probes"]
+    finally:
+        g_faults.clear("mesh.chip_slowdown")
+        for opt, v in saved.items():
+            g_conf.rm_val(opt) if v is None else g_conf.set_val(opt, v)
+        g_dispatcher.flush()
+        g_mesh.topology()
+        # the scoreboard is process-global: a residual suspect (a run
+        # whose clear leg failed) must not raise TPU_MESH_SKEW in the
+        # unrelated workloads that follow this one
+        g_chipstat.reset()
+    wall_s = max(time.perf_counter() - t_wall0, 1e-3)
+    # EXACT op count for the gated per-op blocks: the clear leg's
+    # flush count varies with how fast the EWMA streaks settle, so
+    # reconstructing it would make copies_per_op wobble round-to-round
+    n_ops = n_flushes[0] * n_requests
+    v = max(skew_ratio_detected, 1e-6)
+    return make_metric(
+        name, v, "ratio", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "skew": {
+                "mesh_chips": mesh_chips,
+                "slow_chip": slow_chip,
+                "delay_us": delay_us,
+                "threshold": threshold,
+                "detected_chip": detected_chip,
+                "skew_ratio_detected": skew_ratio_detected,
+                "detection_probes": detection_probes,
+                "healthy_false_suspects": healthy_false_suspects,
+                "healthy_raised": bool(healthy_raised),
+                "healthy_max_ratio": healthy_max_ratio,
+                "healthy_p99_spread": healthy_spread,
+                "slowed_p99_spread": slowed_spread,
+                "raised": bool(raised),
+                "cleared": bool(cleared),
+                "probes_total": n_probes_total,
+            },
+            "identical": bool(identical),
+            "launches": _launches_since(launches0),
+            "raised_message": raised_message,
+            "devflow": _devflow_since(flow0, max(n_ops, 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_s, max(n_ops, 1)),
+        })
+
+
+def measure_mesh_straggler(*, mesh_chips: int = 8, slow_chip: int = 5,
+                           delay_us: int = 30_000, threshold: float = 3.0,
+                           n_flushes: int = 24, detect_max: int = 10,
+                           n_requests: int = 3, chunk: int = 1024,
+                           k: int = 4, m: int = 2, n_stripes: int = 2,
+                           unprotected_flushes: int = 6,
+                           name: str = "ec_mesh_straggler",
+                           device="cuda") -> Dict[str, Any]:
+    """The straggler-proof encode A/B (docs/DISPATCH.md "Rateless
+    coded encode"): the flagship robustness claim — with one chip
+    slowed 10x, the rateless-coded mesh keeps cluster_rollup
+    ``device_call`` p999 next to the healthy twin's, where the
+    block-sharded path pays the whole delay on every probing flush.
+
+    Four legs on one mini cluster (the mgr ticks after EVERY flush, so
+    each phase's cluster_rollup window isolates that phase's
+    histogram deltas):
+
+    1. **healthy** (rateless on): N coalesced flushes; phase
+       rollup yields the healthy ``device_call`` p999 and the devprof
+       site deltas yield the coded-bandwidth overhead the healthy
+       twin pays for protection (parity h2d over systematic h2d —
+       gated < 2x).
+    2. **detect** (``mesh.chip_slowdown`` armed on exactly
+       *slow_chip*): flushes until the scoreboard marks the suspect —
+       ``skew_ratio_detected`` is the injected-degradation receipt
+       the gate requires, ``detection_probes`` bounds the transient.
+    3. **protected steady state** (fault still armed, chip now
+       SUSPECT): N more flushes; the phase rollup's ``device_call``
+       p999 over the healthy twin's is ``protected_p999_ratio`` — the
+       gated claim.  Rollup percentiles are log2-bucket edges, so the
+       companion ``protected_p999_wall_ratio`` (exact per-flush wall
+       times) carries the unquantized figure.
+    4. **unprotected twin** (rateless OFF, fault still armed): a few
+       flushes through the block-sharded path, whose every-flush
+       probe genuinely waits out the delay — the ~10x p999 the fix
+       exists to kill, reported for contrast.
+
+    Every flush's outputs are byte-compared against the unprotected
+    single-device oracle (subset completion + host re-solves must be
+    invisible in the bytes), and the protected legs must record zero
+    single-device fallbacks (the port has none; the counter is read as
+    the JAX workload reads it) — completion comes from the surviving
+    subset.
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+    from ..fault import g_faults
+    from ..mesh import (g_chipstat, g_mesh, rateless_perf_counters)
+    from ..mesh.runtime import l_mesh_fallbacks, mesh_perf_counters
+    from ..osd.ecutil import encode as eu_encode, stripe_info_t
+
+    saved = {opt: g_conf.values.get(opt) for opt in
+             ("ec_mesh_chips", "ec_dispatch_batch_max",
+              "ec_dispatch_batch_window_us",
+              "ec_mesh_skew_sample_every", "ec_mesh_skew_threshold",
+              "ec_mesh_rateless", "ec_mesh_rateless_tasks")}
+    g_conf.set_val("ec_mesh_chips", mesh_chips)
+    g_conf.set_val("ec_dispatch_batch_max", 64)
+    g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+    g_conf.set_val("ec_mesh_skew_sample_every", 1)
+    g_conf.set_val("ec_mesh_skew_threshold", threshold)
+    g_conf.set_val("ec_mesh_rateless", True)
+
+    cluster = MiniCluster(n_osds=4)
+    impl = _mesh_codec(k, m, device)
+    sinfo = stripe_info_t(k, k * chunk)
+    want = set(range(k + m))
+    rng = np.random.default_rng(20260804)
+    flow0 = g_devprof.snapshot()
+    launches0 = _launches()
+    stage0 = g_oplat.snapshot()
+    t_wall0 = time.perf_counter()
+    n_flushes_total = [0]
+    identical = [True]
+
+    def flush_once() -> float:
+        """One coalesced mesh flush, byte-checked vs the oracle;
+        returns the wall seconds of the submit->resolve section (the
+        oracle encode and the byte compare run outside the clock)."""
+        n_flushes_total[0] += 1
+        payloads = [rng.integers(0, 256, size=n_stripes * k * chunk,
+                                 dtype=np.uint8)
+                    for _ in range(n_requests)]
+        oracles = [eu_encode(sinfo, impl, p, want) for p in payloads]
+        t0 = time.perf_counter()
+        futs = [g_dispatcher.submit_encode(sinfo, impl, p, want)
+                for p in payloads]
+        g_dispatcher.flush()
+        results = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        for res, oracle in zip(results, oracles):
+            ok = sorted(res) == sorted(oracle) and all(
+                np.asarray(res[i]).tobytes()
+                == np.asarray(oracle[i]).tobytes() for i in oracle)
+            identical[0] = identical[0] and ok
+        cluster.tick(dt=1.0)     # the mgr rolls up DURING the run
+        return wall
+
+    def phase(n: int):
+        """Run *n* flushes as one cluster_rollup window; returns
+        (device_call percentiles from the phase rollup, wall p999)."""
+        cluster.tick(dt=1.0)            # the window's baseline sample
+        clock0 = cluster.clock
+        walls = [flush_once() for _ in range(n)]
+        # window anchored ON the baseline sample: the newest sample at
+        # least (span - 0.5) old is exactly the clock0 tick (samples
+        # land on 1.0-spaced ticks), so the rollup deltas cover THIS
+        # phase's flushes and nothing earlier
+        roll = cluster.mgr.telemetry.rollup(
+            window_s=cluster.clock - clock0 - 0.5)
+        dc = roll.get("oplat", {}).get("device_call", {})
+        walls.sort()
+        p999_wall = walls[min(int(np.ceil(0.999 * len(walls))) - 1,
+                              len(walls) - 1)]
+        return dc, p999_wall * 1e6
+
+    def wasted_ratio(c0: Dict[str, int]) -> float:
+        c1 = rateless_perf_counters().dump()
+        coded = c1["coded_tasks"] - c0["coded_tasks"]
+        parity = c1["parity_tasks"] - c0["parity_tasks"]
+        return round(coded / max(coded - parity, 1), 4)
+
+    try:
+        flush_once()                    # compile warmup
+        g_chipstat.reset()
+        rl0 = rateless_perf_counters().dump()
+        mesh_fb0 = mesh_perf_counters().get(l_mesh_fallbacks)
+        # ---- leg 1: healthy twin, rateless on ---------------------------
+        sites0 = {s: dict(v) for s, v in
+                  g_devprof.dump()["sites"].items()}
+        healthy_dc, healthy_wall_p999 = phase(n_flushes)
+        sites1 = g_devprof.dump()["sites"]
+
+        def h2d_delta(site: str) -> int:
+            return (sites1.get(site, {}).get("h2d_bytes", 0)
+                    - sites0.get(site, {}).get("h2d_bytes", 0))
+
+        sys_h2d = h2d_delta("mesh.encode")
+        parity_h2d = h2d_delta("mesh.rateless_parity")
+        bandwidth_overhead = round(
+            (sys_h2d + parity_h2d) / max(sys_h2d, 1), 4)
+        healthy_false_suspects = len(g_chipstat.suspects())
+        # ---- leg 2: slow one chip, count probes to detection ------------
+        g_faults.inject("mesh.chip_slowdown", mode="always",
+                        match=f"chip={slow_chip}/", delay_us=delay_us)
+        detection_probes = 0
+        for i in range(1, detect_max + 1):
+            flush_once()
+            if g_chipstat.suspects():
+                detection_probes = i
+                break
+        suspects = g_chipstat.suspects()
+        detected_chip = suspects[0]["chip"] if suspects else -1
+        skew_ratio_detected = suspects[0]["skew_ratio"] if suspects \
+            else 0.0
+        # ---- leg 3: protected steady state (chip SUSPECT, still slow) --
+        slowed_dc, slowed_wall_p999 = phase(n_flushes)
+        subset_completions = (rateless_perf_counters().dump()
+                              ["subset_completions"]
+                              - rl0["subset_completions"])
+        chip_failures = (rateless_perf_counters().dump()
+                         ["chip_failures"] - rl0["chip_failures"])
+        fallbacks = mesh_perf_counters().get(l_mesh_fallbacks) \
+            - mesh_fb0
+        coded_overhead = wasted_ratio(rl0)
+        # ---- leg 4: the unprotected twin (block-sharded SPMD path) ------
+        g_conf.set_val("ec_mesh_rateless", False)
+        flush_once()       # SPMD plan compile warmup, outside the clock
+        unprot_dc, unprot_wall_p999 = phase(unprotected_flushes)
+        g_conf.set_val("ec_mesh_rateless", True)
+    finally:
+        g_faults.clear("mesh.chip_slowdown")
+        for opt, v in saved.items():
+            g_conf.rm_val(opt) if v is None else g_conf.set_val(opt, v)
+        g_dispatcher.flush()
+        g_mesh.topology()
+        # process-global scoreboard: a leftover suspect must not haunt
+        # the workloads that follow (the skew workload's policy)
+        g_chipstat.reset()
+    # incident forensics receipt: the detect/protected legs raise
+    # TPU_MESH_SKEW through the ticked mgr, which auto-captures a
+    # bundle; the operator fallback only fires if detection never did
+    inc_mgr = cluster.mgr.incident
+    if inc_mgr.captures_total == 0:
+        inc_mgr.capture("operator", "straggler forensic snapshot",
+                        reason="operator")
+    incidents = inc_mgr.receipt()
+    wall_s = max(time.perf_counter() - t_wall0, 1e-3)
+    n_ops = n_flushes_total[0] * n_requests
+    healthy_p999 = float(healthy_dc.get("p999", 0.0) or 0.0)
+    slowed_p999 = float(slowed_dc.get("p999", 0.0) or 0.0)
+    unprot_p999 = float(unprot_dc.get("p999", 0.0) or 0.0)
+    ratio = round(slowed_p999 / max(healthy_p999, 1e-9), 4)
+    wall_ratio = round(slowed_wall_p999 / max(healthy_wall_p999, 1e-9),
+                       4)
+    v = max(wall_ratio, 1e-6)
+    return make_metric(
+        name, v, "ratio", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "straggler": {
+                "mesh_chips": mesh_chips,
+                "slow_chip": slow_chip,
+                "delay_us": delay_us,
+                "threshold": threshold,
+                "detection_probes": detection_probes,
+                "detected_chip": detected_chip,
+                "skew_ratio_detected": skew_ratio_detected,
+                "healthy_false_suspects": healthy_false_suspects,
+                "healthy_p999_usec": healthy_p999,
+                "slowed_p999_usec": slowed_p999,
+                "unprotected_p999_usec": unprot_p999,
+                "protected_p999_ratio": ratio,
+                "protected_p999_wall_ratio": wall_ratio,
+                "healthy_p999_wall_usec": round(healthy_wall_p999, 1),
+                "slowed_p999_wall_usec": round(slowed_wall_p999, 1),
+                "unprotected_p999_wall_usec": round(unprot_wall_p999,
+                                                    1),
+                "unprotected_p999_wall_ratio": round(
+                    unprot_wall_p999 / max(healthy_wall_p999, 1e-9),
+                    4),
+                "bandwidth_overhead": bandwidth_overhead,
+                "coded_task_overhead": coded_overhead,
+                "subset_completions": int(subset_completions),
+                "chip_failures": int(chip_failures),
+                "single_device_fallbacks": int(fallbacks),
+                "byte_identical": bool(identical[0]),
+            },
+            "identical": bool(identical[0]),
+            "launches": _launches_since(launches0),
+            "incidents": incidents,
+            "devflow": _devflow_since(flow0, max(n_ops, 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_s, max(n_ops, 1)),
+        })
+
+
+def measure_degraded_read(*, mesh_chips: int = 8, slow_chip: int = 5,
+                          delay_us: int = 30_000, threshold: float = 3.0,
+                          n_batches: int = 16, detect_max: int = 10,
+                          n_objects: int = 4, object_bytes: int = 4096,
+                          k: int = 4, m: int = 2,
+                          n_clients: int = 4, ops_per_client: int = 8,
+                          meshoff_batches: int = 6,
+                          seed: int = 20260807,
+                          name: str = "ec_degraded_read",
+                          device="cuda") -> Dict[str, Any]:
+    """The straggler-proof degraded-read A/B (docs/DISPATCH.md
+    "Mesh-sharded degraded reads"): kill a data-shard OSD under
+    open-loop harness traffic, then drive every read of the pool
+    through the meshed rateless decode path with one chip slowed 10x —
+    the read-side twin of ``ec_mesh_straggler``, judged by the same
+    STRAGGLER GATE.
+
+    Shape: one pg_num=1 EC pool so a single OSD kill (acting[1] — a
+    non-primary DATA shard) degrades every object; the traffic harness
+    lands the kill mid-run (open-loop clients stay byte-exact through
+    it), after which the cluster never backfills (down, not out) and
+    each read is a fresh survivor-sharded decode.  Four legs on the
+    degraded cluster, each a cluster_rollup window like the encode
+    twin's:
+
+    1. **healthy** (mesh on, rateless on): N read batches; phase
+       rollup yields the healthy ``device_call`` p999 and the
+       DECODE_SITES h2d deltas yield the coded-bandwidth overhead
+       (parity over systematic — gated < 2x).
+    2. **detect** (``mesh.chip_slowdown`` armed on *slow_chip*): read
+       batches until the scoreboard marks the suspect from decode
+       probes alone — no write traffic to help.
+    3. **protected steady state** (fault armed, chip SUSPECT): N more
+       batches; ``device_call`` p999 over the healthy twin's is the
+       gated ``protected_p999_ratio``, wall p999 the unquantized
+       companion.
+    4. **mesh-off twin** (``ec_mesh_chips=1`` via the checked-set
+       membership transition): the single-device decode baseline the
+       tentpole replaced, reported as the stage_breakdown A/B
+       (``device_call``/``d2h`` per-op, mesh-on vs mesh-off).
+
+    Every read byte-compared against the pre-populated body; the
+    protected legs must record zero ``mesh_decode_fallbacks`` (the port
+    has no fallback; read as the JAX workload reads it) — completion
+    comes from the first spanning subset.
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..fault import g_faults
+    from ..load import TrafficSpec, run_traffic
+    from ..mesh import g_chipstat, g_mesh, rateless_perf_counters
+    from ..mesh.runtime import (l_mdec_fallbacks,
+                                mesh_decode_perf_counters)
+
+    saved = {opt: g_conf.values.get(opt) for opt in
+             ("ec_mesh_chips", "ec_mesh_skew_sample_every",
+              "ec_mesh_skew_threshold", "ec_mesh_rateless",
+              "ec_mesh_rateless_tasks")}
+    g_conf.set_val("ec_mesh_chips", mesh_chips)
+    g_conf.set_val("ec_mesh_skew_sample_every", 1)
+    g_conf.set_val("ec_mesh_skew_threshold", threshold)
+    g_conf.set_val("ec_mesh_rateless", True)
+
+    cluster = MiniCluster(n_osds=k + m + 2)
+    cluster.create_ec_pool("dread", k=k, m=m, pg_num=1, plugin="cuda",
+                           extra_profile=_cluster_profile(device))
+    cl = cluster.client("client.dread")
+    rng = np.random.default_rng(seed)
+    bodies: Dict[str, bytes] = {}
+    for i in range(n_objects):
+        body = rng.integers(0, 256, object_bytes,
+                            dtype=np.uint8).tobytes()
+        bodies[f"dread-{i}"] = body
+        assert cl.write_full("dread", f"dread-{i}", body) == 0
+    pool_id = cluster.mon.osdmap.lookup_pg_pool_name("dread")
+    acting = next(pg.acting for pgid, pg in cluster.primary_pgs()
+                  if pg.backend is not None and pgid[0] == pool_id)
+    victim = acting[1]                  # non-primary DATA shard
+    flow0 = g_devprof.snapshot()
+    launches0 = _launches()
+    stage0 = g_oplat.snapshot()
+    t_wall0 = time.perf_counter()
+    n_batches_total = [0]
+    identical = [True]
+
+    def read_batch() -> float:
+        """One batch of degraded reads (every object, byte-compared);
+        returns the wall seconds of the read section."""
+        n_batches_total[0] += 1
+        t0 = time.perf_counter()
+        got = [cl.read("dread", oid) for oid in bodies]
+        wall = time.perf_counter() - t0
+        for g, body in zip(got, bodies.values()):
+            identical[0] = identical[0] and g == body
+        cluster.tick(dt=1.0)     # the mgr rolls up DURING the run
+        return wall
+
+    def phase(n: int):
+        """Run *n* read batches as one cluster_rollup window; returns
+        (device_call percentiles from the phase rollup, wall p999) —
+        the anchored-window pattern of measure_mesh_straggler."""
+        cluster.tick(dt=1.0)
+        clock0 = cluster.clock
+        walls = [read_batch() for _ in range(n)]
+        roll = cluster.mgr.telemetry.rollup(
+            window_s=cluster.clock - clock0 - 0.5)
+        dc = roll.get("oplat", {}).get("device_call", {})
+        walls.sort()
+        p999_wall = walls[min(int(np.ceil(0.999 * len(walls))) - 1,
+                              len(walls) - 1)]
+        return dc, p999_wall * 1e6
+
+    def stage_pair(before, wall_s: float, n_ops: int) -> Dict[str, Any]:
+        sb = _stage_breakdown_since(before, max(wall_s, 1e-3),
+                                    max(n_ops, 1))
+        stages = sb.get("stages") or {}
+        return {st: stages.get(st, {}) for st in ("device_call", "d2h")}
+
+    try:
+        # ---- the storm: open-loop traffic, kill landing mid-run ------
+        spec = TrafficSpec(
+            pool="dread", n_clients=n_clients,
+            ops_per_client=ops_per_client, read_fraction=0.5,
+            mode="open", rate=4.0, seed=seed, keep_completions=False,
+            events=((1, "osd_kill", victim),))
+        res = run_traffic(cluster, spec)
+        traffic_byte_exact = bool(res.byte_exact)
+        read_batch()                    # decode compile warmup
+        g_chipstat.reset()
+        mdec0 = mesh_decode_perf_counters().get(l_mdec_fallbacks)
+        # ---- leg 1: healthy twin, meshed rateless decode -------------
+        sites0 = {s: dict(v) for s, v in
+                  g_devprof.dump()["sites"].items()}
+        on0 = g_oplat.snapshot()
+        t_on0 = time.perf_counter()
+        healthy_dc, healthy_wall_p999 = phase(n_batches)
+        sites1 = g_devprof.dump()["sites"]
+
+        def h2d_delta(site: str) -> int:
+            return (sites1.get(site, {}).get("h2d_bytes", 0)
+                    - sites0.get(site, {}).get("h2d_bytes", 0))
+
+        sys_h2d = h2d_delta("mesh.decode")
+        parity_h2d = h2d_delta("mesh.decode_parity")
+        bandwidth_overhead = round(
+            (sys_h2d + parity_h2d) / max(sys_h2d, 1), 4)
+        healthy_false_suspects = len(g_chipstat.suspects())
+        # ---- leg 2: slow one chip, detect from decode probes alone ---
+        rl0 = rateless_perf_counters().dump()
+        g_faults.inject("mesh.chip_slowdown", mode="always",
+                        match=f"chip={slow_chip}/", delay_us=delay_us)
+        detection_probes = 0
+        for i in range(1, detect_max + 1):
+            read_batch()
+            if g_chipstat.suspects():
+                detection_probes = i
+                break
+        suspects = g_chipstat.suspects()
+        detected_chip = suspects[0]["chip"] if suspects else -1
+        skew_ratio_detected = suspects[0]["skew_ratio"] if suspects \
+            else 0.0
+        # ---- leg 3: protected steady state (chip SUSPECT, slow) ------
+        slowed_dc, slowed_wall_p999 = phase(n_batches)
+        n_on_ops = n_batches_total[0] * n_objects
+        twin_on = stage_pair(on0, time.perf_counter() - t_on0,
+                             n_on_ops)
+        subset_completions = (rateless_perf_counters().dump()
+                              ["subset_completions"]
+                              - rl0["subset_completions"])
+        fallbacks = mesh_decode_perf_counters().get(l_mdec_fallbacks) \
+            - mdec0
+        # ---- leg 4: the mesh-off twin (single-device decode) ---------
+        g_conf.set_checked("ec_mesh_chips", 1)
+        read_batch()                    # single-device compile warmup
+        off0 = g_oplat.snapshot()
+        t_off0 = time.perf_counter()
+        batches_before = n_batches_total[0]
+        unprot_dc, unprot_wall_p999 = phase(meshoff_batches)
+        twin_off = stage_pair(
+            off0, time.perf_counter() - t_off0,
+            (n_batches_total[0] - batches_before) * n_objects)
+    finally:
+        g_faults.clear("mesh.chip_slowdown")
+        for opt, v in saved.items():
+            g_conf.rm_val(opt) if v is None else g_conf.set_val(opt, v)
+        g_mesh.topology()
+        g_chipstat.reset()
+    inc_mgr = cluster.mgr.incident
+    if inc_mgr.captures_total == 0:
+        inc_mgr.capture("operator", "degraded-read forensic snapshot",
+                        reason="operator")
+    incidents = inc_mgr.receipt()
+    wall_s = max(time.perf_counter() - t_wall0, 1e-3)
+    n_ops = n_batches_total[0] * n_objects
+    healthy_p999 = float(healthy_dc.get("p999", 0.0) or 0.0)
+    slowed_p999 = float(slowed_dc.get("p999", 0.0) or 0.0)
+    unprot_p999 = float(unprot_dc.get("p999", 0.0) or 0.0)
+    ratio = round(slowed_p999 / max(healthy_p999, 1e-9), 4)
+    wall_ratio = round(slowed_wall_p999 / max(healthy_wall_p999, 1e-9),
+                       4)
+    v = max(wall_ratio, 1e-6)
+    return make_metric(
+        name, v, "ratio", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "straggler": {
+                "mesh_chips": mesh_chips,
+                "slow_chip": slow_chip,
+                "delay_us": delay_us,
+                "threshold": threshold,
+                "detection_probes": detection_probes,
+                "detected_chip": detected_chip,
+                "skew_ratio_detected": skew_ratio_detected,
+                "healthy_false_suspects": healthy_false_suspects,
+                "healthy_p999_usec": healthy_p999,
+                "slowed_p999_usec": slowed_p999,
+                "meshoff_p999_usec": unprot_p999,
+                "protected_p999_ratio": ratio,
+                "protected_p999_wall_ratio": wall_ratio,
+                "healthy_p999_wall_usec": round(healthy_wall_p999, 1),
+                "slowed_p999_wall_usec": round(slowed_wall_p999, 1),
+                "meshoff_p999_wall_usec": round(unprot_wall_p999, 1),
+                "bandwidth_overhead": bandwidth_overhead,
+                "subset_completions": int(subset_completions),
+                "single_device_fallbacks": int(fallbacks),
+                "byte_identical": bool(identical[0]
+                                       and traffic_byte_exact),
+            },
+            "victim_osd": victim,
+            "identical": bool(identical[0]),
+            "launches": _launches_since(launches0),
+            "byte_exact_traffic": traffic_byte_exact,
+            "traffic_completed": res.completed,
+            "twin": {"mesh_on": twin_on, "mesh_off": twin_off},
+            "incidents": incidents,
+            "devflow": _devflow_since(flow0, max(n_ops, 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_s, max(n_ops, 1)),
             "errors": res.errors[:8],
         })

@@ -1,5 +1,5 @@
 """The seeded composed-chaos scenario engine; port of ``ceph_tpu/chaos``
-(``run_scenario`` raises until the port has a mesh).
+(``run_scenario`` raises: running a storyline is not ported yet).
 
 Deterministic multi-fault storylines sampled over the cluster's
 primitive inventory (fault sites, topology events, the abusive-client

@@ -32,12 +32,13 @@ composing and judging are host work (the fence-count extension in
 tests/test_observability.py pins zero device syncs).
 
 Port of ``ceph_tpu/chaos/engine.py``.  A storyline runs on an 8-chip
-mesh (``BASE_MESH_CHIPS``); the port reads the mesh through its mesh
-switch (``dispatch/batch.py::_mesh_active``), which raises
-``NotImplementedError`` for 2 or more chips, so ``run_scenario`` raises
-until the port has a mesh.  The settle phase's oracle codec is the
-``cuda`` plugin; the port has no breakers to reset and no mesh fallback
-counter (its receipt's ``mesh_fallbacks`` is 0).
+mesh (``BASE_MESH_CHIPS``).  Composing and judging are ported;
+``run_scenario`` raises ``NotImplementedError`` before it touches any
+state: executing a storyline on the mesh is the next item of ROADMAP
+Queue 1 (with the bench's composed-chaos workload).  The settle
+phase's oracle codec is the ``cuda`` plugin; the port has no breakers
+to reset and its receipt's ``mesh_fallbacks`` is 0 (the mesh has no
+fallback).
 """
 from __future__ import annotations
 
@@ -355,11 +356,14 @@ def run_scenario(spec: ScenarioSpec, n_osds: int = 6, k: int = 3,
     universal-acceptance receipt.  Owns the cluster and every process
     singleton it touches (conf saved/restored, faults/dispatcher/
     scoreboard reset after), so scenarios compose into
-    soaks without bleeding state.  Raises ``NotImplementedError`` at
-    the mesh switch until the port has a mesh."""
+    soaks without bleeding state.  Raises ``NotImplementedError``
+    before touching any state: running a storyline on the mesh is not
+    ported yet (ROADMAP Queue 1)."""
+    raise NotImplementedError(
+        "run_scenario: executing a storyline on the mesh is not ported "
+        "yet (ROADMAP Queue 1)")
     from ..cluster import MiniCluster
     from ..dispatch import g_dispatcher
-    from ..dispatch.batch import _mesh_active
     from ..fault import g_faults
     from ..mesh import g_chipstat
     pc = chaos_perf_counters()
@@ -380,7 +384,6 @@ def run_scenario(spec: ScenarioSpec, n_osds: int = 6, k: int = 3,
         g_conf.set_val("mgr_journal_ring_size", 2048)
         g_faults.clear()
         g_dispatcher.flush()
-        _mesh_active()
         c = MiniCluster(n_osds=n_osds)
         c.create_ec_pool("chaos", k=k, m=m, pg_num=8)
         g_conf.set_val("mgr_control_enable", True)

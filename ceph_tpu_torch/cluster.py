@@ -11,9 +11,7 @@ Port of ``ceph_tpu/cluster.py``.  EC pools default to the ``cuda``
 plugin (give the profile ``"backend": "host"`` to run on the CPU).  The
 port has no codec circuit breakers, so the ``breaker dump`` command, the
 breaker gauges of the Prometheus scrape and ``breakers_open`` in ``tpu
-status`` are absent; of the JAX mesh's perf-counter families only the
-chip-health scoreboard's (``mesh_chip``) is collected until the mesh is
-ported.
+status`` are absent.
 """
 from __future__ import annotations
 
@@ -296,8 +294,15 @@ class MiniCluster:
             "per-shard op queue sizes and mclock tags")
         from .dispatch import dispatch_perf_counters, g_dispatcher
         self.perf_collection.add(dispatch_perf_counters())
-        from .mesh import g_chipstat, mesh_chip_perf_counters
+        from .mesh import (g_chipstat, membership_perf_counters,
+                           mesh_chip_perf_counters,
+                           mesh_decode_perf_counters, mesh_perf_counters,
+                           rateless_perf_counters)
+        self.perf_collection.add(mesh_perf_counters())
         self.perf_collection.add(mesh_chip_perf_counters())
+        self.perf_collection.add(rateless_perf_counters())
+        self.perf_collection.add(membership_perf_counters())
+        self.perf_collection.add(mesh_decode_perf_counters())
         asok.register(
             "mesh skew dump",
             lambda c, a: g_chipstat.dump(),

@@ -37,10 +37,10 @@ With ``mgr_control_enable`` off (the default) :meth:`Controller.step`
 returns before sensing anything: the mgr is today's observer by
 construction, not by configuration distance.
 
-Port of ``ceph_tpu/control/controller.py``.  The mesh reads follow the
-port's mesh switch (``dispatch/batch.py::_mesh_active``): no mesh for
-0 or 1 chips, a raise for 2 or more; the rateless sense reads zeros and
-the straggler reflex stays off until the mesh is ported.
+Port of ``ceph_tpu/control/controller.py``.  The mesh reads (the
+rateless knob's bounds, the rateless sense and the straggler reflex)
+read the port's mesh runtime (``mesh/``) as the JAX controller reads
+its own.
 """
 from __future__ import annotations
 
@@ -57,6 +57,10 @@ from ..trace.journal import g_journal
 # the healthy parity fraction at the auto width (~2/(size+2)) sits
 # below it, so narrowing only triggers on widened-but-idle protection
 WASTE_RATIO_MAX = 0.30
+# consecutive controller ticks a skew / waste signal must hold before
+# the straggler reflex moves (its own sustain hysteresis — the mesh
+# health check flaps more than a width decision should)
+STRAGGLER_STREAK = 2
 
 # ---- perf counters (perf dump / Prometheus ceph_daemon_control_*) ----
 CONTROL_FIRST = 94000
@@ -235,13 +239,9 @@ def _encode_recovery_weight(ctrl: "Controller",
 
 
 def _mesh_size() -> Optional[int]:
-    """The mesh's size for the rateless knob's bounds.  The port reads
-    the mesh as ``dispatch/batch.py::_mesh_active`` does: 0 or 1 chips
-    is the single device (no mesh, None); 2 or more raises until the
-    port has a mesh."""
-    from ..dispatch.batch import _mesh_active
-    _mesh_active()
-    return None
+    from ..mesh import g_mesh
+    mesh = g_mesh.topology()
+    return mesh.size if mesh is not None else None
 
 
 def _get_rateless_tasks(ctrl: "Controller") -> Optional[float]:
@@ -426,9 +426,8 @@ class Controller:
             and rsum > self._last_recovery)
         self._last_recovery = rsum
         # straggler economics: mesh skew health vs wasted-block ratio
-        # the port has no rateless coder (it comes with the mesh), so
-        # its counters read zero, as the JAX ones do with no mesh
-        rl: Dict[str, int] = {}
+        from ..mesh import rateless_perf_counters
+        rl = rateless_perf_counters().dump()
         wasted = int(rl.get("wasted_blocks", 0))
         coded = int(rl.get("coded_tasks", 0))
         waste_ratio = None
@@ -511,8 +510,22 @@ class Controller:
                              why, opts)
 
     def _straggler_reflex(self, sig, opts) -> Optional[_Move]:
-        # the port has no rateless coder: the reflex is off, as the JAX
-        # one is with ec_mesh_rateless off (its default)
+        from ..mesh.rateless import rateless_opts
+        if not rateless_opts()[0]:
+            return None
+        if sig["skew_streak"] >= STRAGGLER_STREAK:
+            return self._step("ec_mesh_rateless_tasks", +1, False,
+                              "straggler",
+                              f"TPU_MESH_SKEW sustained "
+                              f"{sig['skew_streak']} ticks: widen",
+                              opts)
+        if sig["waste_streak"] >= STRAGGLER_STREAK:
+            return self._step("ec_mesh_rateless_tasks", -1, False,
+                              "straggler",
+                              f"wasted_blocks ratio >= "
+                              f"{WASTE_RATIO_MAX:g} with skew quiet "
+                              f"{sig['waste_streak']} ticks: narrow",
+                              opts)
         return None
 
     def _restore_reflex(self, sig, opts) -> Optional[_Move]:

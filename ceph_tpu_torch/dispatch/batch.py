@@ -20,10 +20,10 @@ Requests are executed via the exact ecutil entry points when alone
 (``run_one`` IS the passthrough path — not a reimplementation of it), so
 window=0 behavior is the uncoalesced behavior by construction.
 
-The port has no mesh yet: ``ec_mesh_chips`` of 0 or 1 is the JAX
-package's mesh-off path, which this module runs; 2 or more (or -1 with
-several cards visible) raises before any launch instead of running a
-meshed flush on one device.
+With a mesh up (``mesh/``, ``ec_mesh_chips``), encode groups execute
+through the mesh runtime, one K1 launch per member; a codec whose
+backend does not live on the mesh's platform, or whose layout is not
+row-shardable, is declined and runs the single-device path.
 """
 from __future__ import annotations
 
@@ -31,9 +31,7 @@ import time
 from typing import Dict, List
 
 import numpy as np
-import torch
 
-from ..common.config import g_conf
 from ..trace.devprof import g_devprof
 from .signature import KIND_DECODE_CONCAT, KIND_ENCODE, next_pow2
 
@@ -94,25 +92,11 @@ def _use_device(ec_impl) -> bool:
     return bool(getattr(ec_impl, "_use_device", lambda: False)())
 
 
-def _mesh_active() -> bool:
-    """The port's mesh switch: ``ec_mesh_chips`` 0 or 1 is the single
-    device (False); a mesh of 2 or more raises, since the port's mesh
-    modules (the mesh item of ROADMAP Queue 1) do not exist yet."""
-    chips = int(g_conf.get_val("ec_mesh_chips"))
-    if chips < 0:
-        chips = torch.cuda.device_count()
-    if chips >= 2:
-        raise NotImplementedError("mesh: not ported (ROADMAP Queue 1, the mesh)")
-    return False
-
-
 def run_one(req: Request):
     """Exact per-request execution — the window=0 passthrough path and
     the re-run when a batched call throws.  Calls the SAME ecutil entry
     points ECBackend calls, so outputs are identical to the uncoalesced
     code by construction."""
-    if _use_device(req.ec_impl):
-        _mesh_active()
     eu = _ecutil()
     if req.kind == KIND_ENCODE:
         return eu.encode(req.sinfo, req.ec_impl, req.payload, req.want)
@@ -157,17 +141,30 @@ def run_group(reqs: List[Request], bucket_c: int) -> List:
     """One coalesced device call for a signature/bucket group; returns
     per-request results aligned with *reqs*.  Any failure propagates to
     the caller, which re-runs each request alone so one bad request
-    cannot poison its batchmates."""
+    cannot poison its batchmates.
+
+    With a mesh up encode groups — including single-request flushes,
+    whose stripes alone can span the members — execute through the mesh
+    runtime; mesh off (the default) or size 1 is the existing path by
+    construction.  Decode groups ride the mesh one level down: every
+    path here funnels into the codec's ``decode_batch``, whose mesh hook
+    (matrix_plugin.py / regenerating.py -> ``decode_stacked``) shards
+    the survivor stack across the members."""
     leader = reqs[0].ec_impl
     kind = reqs[0].kind
     use_device = _use_device(leader)
-    if use_device:
-        _mesh_active()
+    if kind == KIND_ENCODE:
+        if len(reqs) > 1 or _mesh_active():
+            return _run_group_encode(reqs, bucket_c, leader, use_device)
+        return [run_one(reqs[0])]
     if len(reqs) == 1:
         return [run_one(reqs[0])]
-    if kind == KIND_ENCODE:
-        return _run_group_encode(reqs, bucket_c, leader, use_device)
     return _run_group_decode(reqs, bucket_c, leader, use_device, kind)
+
+
+def _mesh_active() -> bool:
+    from ..mesh import g_mesh
+    return g_mesh.active()
 
 
 def _run_group_encode(reqs, bucket_c, leader, use_device):
@@ -181,7 +178,7 @@ def _run_group_encode(reqs, bucket_c, leader, use_device):
     # all rows from the coalesced result, none from the input
     prepare = getattr(leader, "regen_prepare_batch", None)
     full_out = bool(getattr(leader, "dispatch_full_output", False))
-    offsets, stacks, s0 = [], [], 0
+    raw, offsets, s0 = [], [], 0
     for r in reqs:
         if prepare is not None:
             stripes = prepare(r.payload, r.n_stripes)
@@ -189,13 +186,25 @@ def _run_group_encode(reqs, bucket_c, leader, use_device):
             stripes = np.frombuffer(bytes(r.payload), dtype=np.uint8) \
                 if not isinstance(r.payload, np.ndarray) else r.payload
             stripes = stripes.reshape(r.n_stripes, k, r.chunk_size)
+        raw.append(stripes)
         offsets.append((s0, stripes))
-        stacks.append(_pad_cols(stripes, bucket_c))
         s0 += r.n_stripes
-    stacked = np.ascontiguousarray(np.concatenate(stacks))
-    g_devprof.account_host_copy("dispatch.stack", stacked.nbytes)
-    big = _pad_stripes(stacked, use_device)
-    coding = leader.encode_batch(big)          # (S_total[, pad], m, Cb)
+    # mesh path: the runtime assembles straight into its pooled padded
+    # staging buffer and splits the batch axis over the members; None
+    # means mesh down or the codec declined (not row-shardable, or its
+    # backend is not on the mesh's platform)
+    from ..mesh import g_mesh
+    coding = g_mesh.encode_stacked(leader, raw, bucket_c)
+    if coding is None:
+        stacks = [_pad_cols(st, bucket_c) for st in raw]
+        if len(stacks) == 1:
+            # a single-request flush only reaches here when the mesh
+            # declined it: run the exact per-request path
+            return [run_one(reqs[0])]
+        stacked = np.ascontiguousarray(np.concatenate(stacks))
+        g_devprof.account_host_copy("dispatch.stack", stacked.nbytes)
+        big = _pad_stripes(stacked, use_device)
+        coding = leader.encode_batch(big)      # (S_total[, pad], m, Cb)
     _mark_device_call(reqs)
     coding = np.asarray(coding)
     out: List[Dict[int, np.ndarray]] = []

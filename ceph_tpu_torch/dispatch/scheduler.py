@@ -36,7 +36,6 @@ their own locks.
 """
 from __future__ import annotations
 
-import copy
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -55,43 +54,6 @@ from .future import DispatchFuture
 from .signature import (KIND_DECODE, KIND_DECODE_CONCAT, KIND_ENCODE,
                         batchable, bucket_chunk_size, codec_signature,
                         stripe_block_of)
-
-# ``dump()["mesh"]``: the JAX package's ``g_mesh.dump()`` with
-# ``ec_mesh_chips=0`` (its mesh off), as a constant until the port has
-# its mesh modules
-MESH_OFF_DUMP = {
-    "options": {"ec_mesh_chips": 0, "ec_mesh_pool_buffers": 4,
-                "ec_mesh_donate": True},
-    "active": False, "size": 0, "axis": "batch", "per_chip": {},
-    "plans": [],
-    "pool": {"shapes": {}, "hits": 0, "misses": 0, "per_shape": 4},
-    "counters": {"dispatches": 0, "reqs": 0, "stripes": 0,
-                 "pad_stripes": 0, "bytes": 0, "plan_builds": 0,
-                 "plan_hits": 0, "pool_hits": 0, "pool_misses": 0,
-                 "fallbacks": 0, "chips": 0},
-    "decode": {"inflight": 0,
-               "counters": {"dispatches": 0, "stripes": 0,
-                            "pad_stripes": 0, "bytes": 0,
-                            "plan_builds": 0, "plan_hits": 0,
-                            "fallbacks": 0, "repair_solves": 0,
-                            "col_folds": 0, "inflight": 0}},
-    "membership": {"transitions": 0, "hold": False,
-                   "counters": {"transitions": 0, "chip_adds": 0,
-                                "chip_retires": 0, "drained_reqs": 0,
-                                "plans_dropped": 0, "pool_dropped": 0,
-                                "suspect_retires": 0, "target_chips": 0}},
-    "rateless": {"options": {"ec_mesh_rateless": False,
-                             "ec_mesh_rateless_tasks": 0},
-                 "counters": {"flushes": 0, "coded_tasks": 0,
-                              "parity_tasks": 0, "wasted_blocks": 0,
-                              "subset_completions": 0, "host_resolves": 0,
-                              "suspect_deweights": 0, "chip_failures": 0,
-                              "insufficient": 0}},
-    "skew": {"options": {"ec_mesh_skew_sample_every": 16,
-                         "ec_mesh_skew_threshold": 3.0},
-             "sustain_probes": 3, "clear_probes": 3, "flushes": 0,
-             "probes": 0, "per_chip": {}, "suspects": []},
-}
 
 # ---- perf counters ---------------------------------------------------------
 DISPATCH_FIRST = 91000
@@ -497,8 +459,15 @@ class DeviceDispatcher:
             "queues": queues,
             "counters": dispatch_perf_counters().dump(),
             "occupancy_histogram": self._hist.dump(),
-            "mesh": copy.deepcopy(MESH_OFF_DUMP),
+            "mesh": self._mesh_dump(),
         }
+
+    @staticmethod
+    def _mesh_dump() -> Dict:
+        """The mesh runtime's state rides `dispatch dump`: the mesh is
+        the flush path's device back end, so operators read one pane."""
+        from ..mesh import g_mesh
+        return g_mesh.dump()
 
 
 # process-wide scheduler: one accelerator per process, like g_tracer

@@ -17,9 +17,11 @@ before any device call (``ceph_tpu/ec/jerasure.py:203-207``), and
 ``decode_batch_device`` raises.
 
 Deliberately not carried over from the JAX package: the fault guard
-(injection, retry, watchdog), the circuit breaker, the host fallback on
-``DeviceUnavailable`` and the mesh hook.  A CUDA error propagates to the
-caller; the port never answers a device request from the CPU.
+(injection, retry, watchdog), the circuit breaker and the host fallback
+on ``DeviceUnavailable``.  A CUDA error propagates to the caller; the
+port never answers a device request from the CPU.  The mesh hook is
+carried: with a mesh up, ``decode_batch``'s survivor matmul runs across
+the mesh members (``g_mesh.decode_stacked``).
 """
 from __future__ import annotations
 
@@ -59,10 +61,9 @@ class ErasureCodeMatrixRS(ErasureCode):
     # the concrete class name
     signature_family: "str | None" = None
 
-    # the JAX package's mesh may shard this codec's decode: true when
-    # decode_batch's device path is the plain inverted-survivor-matrix
-    # bit-matmul on raw (S, n_src, C) stacks.  Kept for the port's mesh
-    # (not ported yet), with the JAX package's rule.
+    # the mesh may shard this codec's decode: true when decode_batch's
+    # device path is the plain inverted-survivor-matrix bit-matmul on raw
+    # (S, n_src, C) stacks
     @property
     def mesh_decode_shardable(self) -> bool:
         return self.mesh_row_shardable and self._device_decode_supported
@@ -206,7 +207,14 @@ class ErasureCodeMatrixRS(ErasureCode):
         by_id: Dict[int, np.ndarray] = {}
         if missing_data:
             survivors = np.stack([chunks[i] for i in srcs], axis=1)
-            rec = dev.decode_data(survivors, srcs, missing_data)
+            # meshed degraded read: the survivor matmul splits across the
+            # mesh members (rateless-protected when that is on); None
+            # (mesh off, or the codec declined) keeps the single device
+            from ..mesh import g_mesh
+            rec = g_mesh.decode_stacked(self, survivors, srcs,
+                                        missing_data)
+            if rec is None:
+                rec = dev.decode_data(survivors, srcs, missing_data)
             by_id = {i: rec[:, idx] for idx, i in enumerate(missing_data)}
             for i in want_data:
                 out[i] = by_id[i]

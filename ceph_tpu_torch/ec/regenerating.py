@@ -40,10 +40,10 @@ cycles.
 
 Port of ``ceph_tpu/ec/regenerating.py`` without its fault guard, circuit
 breaker and host fallback (``run_device_call``, ``_note_cpu_fallback``):
-a device error propagates to the caller.  The JAX mesh hooks
-(``g_mesh.decode_stacked``) become the port's mesh switch
-(``dispatch/batch.py``): 0 or 1 chips is the single device, 2 or more
-raises until the port has a mesh (ROADMAP Queue 1, the mesh).
+a device error propagates to the caller.  The mesh hooks are carried:
+with a mesh up, the ≥d decode's survivor solve and the repair solve run
+across the mesh members (``g_mesh.decode_stacked``; the repair's single
+stripe folds its byte axis into rows first).
 """
 from __future__ import annotations
 
@@ -110,17 +110,8 @@ class ErasureCodeRegenerating(ErasureCodeMatrixRS):
     @property
     def mesh_decode_shardable(self) -> bool:
         # ...but the read side fits: the ≥d decode and the d×d repair
-        # solve are plain inverted-survivor matmuls over [[I],[Ψ]] rows.
-        # Kept with the JAX package's rule for the port's mesh
+        # solve are plain inverted-survivor matmuls over [[I],[Ψ]] rows
         return self._device_decode_supported
-
-    def _single_device(self) -> None:
-        """The port's mesh switch before a device solve (the JAX
-        package's ``g_mesh.decode_stacked`` site): raises for a mesh of
-        two or more chips on ``backend=cuda``."""
-        if self._use_device():
-            from ..dispatch.batch import _mesh_active
-            _mesh_active()
 
     def __init__(self):
         super().__init__()
@@ -492,13 +483,18 @@ class ErasureCodeRegenerating(ErasureCodeMatrixRS):
         if len(avail) >= self.d:
             srcs = avail[:self.d]
             row_ids = tuple(self.rows + h for h in srcs)
-            self._single_device()
             dev = self.device()
             survivors = np.stack(
                 [np.asarray(chunks[i], dtype=np.uint8) for i in srcs],
                 axis=1)
-            m_rows = dev.decode_data(survivors, row_ids,
-                                     tuple(range(self.rows)))
+            # meshed reconstruct: the Ψ-survivor solve splits across the
+            # mesh members; None keeps the single device
+            from ..mesh import g_mesh
+            m_rows = g_mesh.decode_stacked(self, survivors, row_ids,
+                                           tuple(range(self.rows)))
+            if m_rows is None:
+                m_rows = dev.decode_data(survivors, row_ids,
+                                         tuple(range(self.rows)))
             allc = dev.encode(m_rows)
             for i in miss:
                 out[i] = allc[:, i, :]
@@ -578,9 +574,16 @@ class ErasureCodeRegenerating(ErasureCodeMatrixRS):
             np.asarray(contributions[h], dtype=np.uint8).reshape(-1)
             for h in helpers])                      # (d, S·L)
         row_ids = tuple(self.rows + h for h in helpers)
-        self._single_device()
-        u = self.device().decode_data(stacked[None], row_ids,
-                                      tuple(range(self.rows)))[0]
+        # meshed repair solve: the runtime folds the (1, d, S·L) stack's
+        # byte axis into rows so this single "stripe" spreads across the
+        # members (repair=True for the counters); None: the single device
+        from ..mesh import g_mesh
+        u = g_mesh.decode_stacked(self, stacked[None], row_ids,
+                                  tuple(range(self.rows)), repair=True)
+        if u is None:
+            u = self.device().decode_data(stacked[None], row_ids,
+                                          tuple(range(self.rows)))
+        u = u[0]
         u = np.asarray(u, dtype=np.uint8).reshape(self.rows, S, L)
         if self.technique == "pm_msr":
             lam_f = int(self._lambda[lost])

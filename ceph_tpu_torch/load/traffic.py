@@ -32,8 +32,8 @@ assertable property, not a hope.
 
 Port of ``ceph_tpu/load/traffic.py``.  Every event and both loops are
 host code; the elastic-membership events (``mesh_chip_add`` /
-``mesh_chip_retire``) raise where they would build a mesh of 2 or more
-chips, as the port's mesh switch does.
+``mesh_chip_retire``) change ``ec_mesh_chips`` through the mesh
+runtime's observer, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -376,23 +376,18 @@ def _apply_event(cluster, action: str, osd_id: int) -> None:
     elif action in ("mesh_chip_add", "mesh_chip_retire"):
         # elastic membership as a first-class storyline step: the arg
         # is a CHIP COUNT delta (not an osd id) applied to the live
-        # ec_mesh_chips target.  The port's mesh switch
-        # (dispatch/batch.py::_mesh_active) reads 0 or 1 chips as the
-        # single device and raises for 2 or more, so a step to a mesh
-        # raises here, before the option changes.
-        import torch
+        # ec_mesh_chips target.  set_checked fires the MeshRuntime
+        # observer, so the drain-on-old-mesh + plan-cache rebuild run
+        # right here, between rounds, under open traffic.
+        from ..mesh import g_mesh
         cur = int(g_conf.get_val("ec_mesh_chips"))
         if cur < 0:         # -1 = all devices: resolve to the live size
-            cur = torch.cuda.device_count()
+            mesh = g_mesh.topology()
+            cur = 0 if mesh is None else mesh.size
         delta = int(osd_id)
         if action == "mesh_chip_retire":
             delta = -delta
-        target = max(cur + delta, 1)
-        if target >= 2:
-            raise NotImplementedError(
-                f"{action} to {target} chips: the mesh is not ported "
-                f"(ROADMAP Queue 1, the mesh)")
-        g_conf.set_checked("ec_mesh_chips", target)
+        g_conf.set_checked("ec_mesh_chips", max(cur + delta, 1))
     else:
         raise ValueError(f"unknown traffic event action '{action}'")
 

@@ -52,10 +52,14 @@ the same coalesced output the flush materializes anyway, so mesh-on
 clusters with sampling enabled stay byte-exact (property-tested).
 Port of ``ceph_tpu/mesh/chipstat.py``: the scoreboard (cadence,
 ``record_deltas``, hysteresis, views, counters) is host code and is
-carried whole.  ``probe`` reads a sharded output's per-chip shards, so
-it raises ``NotImplementedError`` until the port has a mesh.
+carried whole.  ``probe`` polls each member's CUDA event where JAX polls
+``Array.is_ready`` on each shard (on the CPU every piece is ready when
+its call returns).  A "chip" here is a mesh member; members that share
+one card are probed one by one all the same.
 """
 from __future__ import annotations
+
+import time
 
 from ..common.lockdep import DebugLock
 from typing import Any, Dict, List, Optional
@@ -222,17 +226,55 @@ class ChipStat:
             if self._flushes_since_probe > 0:
                 self._force_probe = True
 
+    # polling granularity for the readiness loop: coarse enough that a
+    # probe costs microseconds of host time, fine next to the 10x-class
+    # deltas the scoreboard exists to catch
+    PROBE_POLL_S = 1e-4
+
     # ---- the probe itself --------------------------------------------------
     def probe(self, out, mesh) -> None:
-        """Drain one element from every chip's shard of *out* (the
-        coalesced sharded output) and record each chip's completion
-        delta.  The JAX probe polls each addressable shard's readiness
-        and reads it back as it completes; the port has no mesh and no
-        sharded output yet, so this raises until the mesh is ported.
-        Nothing in the port calls it."""
-        raise NotImplementedError(
-            "ChipStat.probe needs the mesh: not ported (ROADMAP Queue 1, "
-            "the mesh)")
+        """Drain one element from every member's piece of *out* (the
+        coalesced ``Sharded`` output, before the full gather) and record
+        each member's completion delta.  The fetch from member i's piece
+        is the only proof member i finished (drain_sharded's contract),
+        but a fixed-order drain would charge a straggler's stall to every
+        member drained after it, so the probe POLLS readiness (the
+        member's CUDA event, non-blocking) and reads each piece back the
+        moment it completes: the delta is launch-to-THAT-member's
+        completion, order-free.  Each tiny fetch is accounted under the
+        ``mesh.skew_probe`` devprof site, a CALIBRATION site the
+        copy-budget gate excludes, like the bench drain fences.
+
+        The ``mesh.chip_slowdown`` fault site fires here, scoped by
+        ``match=`` on the ``chip=<i>/<n>`` context: an armed trigger
+        holds the matching member "not complete" for ``delay_us`` past
+        launch (the probe, and the flush behind it, genuinely waits)."""
+        from ..trace.devprof import g_devprof
+
+        shards = getattr(out, "addressable_shards", None)
+        if not shards:
+            return
+        n_shards = len(shards)
+        # one injection decision per chip per probe, before the clock
+        # starts (a mid-poll re-arm must not split one probe's view)
+        delay_until = slowdown_delays(n_shards)
+        pending = dict(enumerate(shards))
+        deltas: Dict[int, float] = {}
+        t0 = time.perf_counter()
+        while pending:
+            elapsed_us = (time.perf_counter() - t0) * 1e6
+            for i in sorted(pending):
+                if elapsed_us < delay_until.get(i, 0.0):
+                    continue    # injected straggler: not complete yet
+                if not pending[i].is_ready():
+                    continue
+                pending[i].fetch(1)   # THE fence: member i's readback
+                g_devprof.account_d2h("mesh.skew_probe", 1)
+                deltas[i] = (time.perf_counter() - t0) * 1e6
+                del pending[i]
+            if pending:
+                time.sleep(self.PROBE_POLL_S)
+        self._record(deltas)
 
     def record_deltas(self, deltas: Dict[int, float]) -> None:
         """The rateless drain's probe entry (rateless.py): on probe

@@ -966,12 +966,28 @@ class FastRule:
         the first ``n_flagged`` of them, writing each exact row, its count
         in the tail with the residual bit clear.  ``self._n_flagged`` keeps
         the device count."""
-        packed = self.resolve_packed(weight)
-        idx, n_flagged = self.flagged_index(packed)
-        self._rule(self.program, self._xd, weight, idx=idx, n_live=n_flagged,
-                   packed=packed)
-        self._n_flagged = n_flagged
+        if self._cand is None:
+            raise RuntimeError("no candidate tables; call "
+                               "prepare_candidates(xs) first")
+        packed, self._n_flagged, _idx = self.exact_rows(self._cand,
+                                                        self._xd, weight)
         return packed
+
+    def exact_rows(self, cand, xd: torch.Tensor, weight: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``exact_packed`` for the x of ``xd`` against the candidate
+        tables ``cand`` (``_candidates(xd)``), leaving this rule's own
+        cache alone: K7b, then K6 on the rows it flagged.  Returns
+        (packed, n_flagged, idx), all on the device; the first n_flagged
+        entries of idx are the flagged rows in order.  The sharded rule
+        (``parallel/crush.py``) calls it once per mesh member."""
+        c, leaf, risk0, valid, xl = cand
+        packed = self._resolve(self.spec, c, leaf, xl, valid, risk0,
+                               weight, self.parents, self.result_max, 0)
+        idx, n_flagged = self.flagged_index(packed)
+        self._rule(self.program, xd, weight, idx=idx, n_live=n_flagged,
+                   packed=packed)
+        return packed, n_flagged, idx
 
     def flagged_index(self, packed: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -212,10 +212,12 @@ def _check(data: torch.Tensor, bm: BitMatrix) -> None:
 
 
 def _launch(entry: str, data: torch.Tensor, r: int,
-            table: torch.Tensor, *extra) -> Tuple[torch.Tensor, bool]:
-    """Launch ``entry`` of the CUDA source on a CUDA tensor into a new
-    (S, r, C) output, or raise.  Returns the output and whether a kernel
-    ran (not for an empty one)."""
+            table: torch.Tensor, *extra,
+            out: torch.Tensor = None) -> Tuple[torch.Tensor, bool]:
+    """Launch ``entry`` of the CUDA source on a CUDA tensor into *out*
+    (a contiguous (S, r, C) uint8 tensor on the data's device) or a new
+    output, or raise.  Returns the output and whether a kernel ran (not
+    for an empty one)."""
     if data.device.type != "cuda":
         raise RuntimeError(f"gf_bit_matmul: no kernel for device "
                            f"{data.device}")
@@ -225,7 +227,12 @@ def _launch(entry: str, data: torch.Tensor, r: int,
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
     s, k, c = data.shape
-    out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
+    if out is None:
+        out = torch.empty((s, r, c), dtype=torch.uint8, device=data.device)
+    elif (tuple(out.shape) != (s, r, c) or out.dtype != torch.uint8
+          or out.device != data.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({s}, {r}, {c}) uint8 "
+                         f"tensor on {data.device}")
     if out.numel() == 0:
         return out, False
     lib = _build.load("gf_bit_matmul", _SIGNATURES)
@@ -237,15 +244,22 @@ def _launch(entry: str, data: torch.Tensor, r: int,
     return out, True
 
 
-def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix) -> torch.Tensor:
-    """data (S, k, C) uint8 -> (S, r, C) uint8 through the CUDA kernel.
+def gf_bit_matmul_kernel(data: torch.Tensor, bm: BitMatrix,
+                         out: torch.Tensor = None) -> torch.Tensor:
+    """data (S, k, C) uint8 -> (S, r, C) uint8 through the CUDA kernel,
+    written into *out* when given (the mesh's pooled output buffers).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel on the current stream or raises; any other device raises."""
     _check(data, bm)
     if data.device.type == "cpu":
-        return gf_bit_matmul_plain(data, bm.bits.cpu())
-    out, launched = _launch("gf_bit_matmul_launch", data, bm.r, bm.tables)
+        res = gf_bit_matmul_plain(data, bm.bits.cpu())
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    out, launched = _launch("gf_bit_matmul_launch", data, bm.r, bm.tables,
+                            out=out)
     launches.add(launched)
     return out
 

@@ -338,6 +338,29 @@ The process slice (``msg/tcp.py``, ``auth/``, ``compressor/``,
    device memory the 12 processes took is the contexts' size.  ``python3 chip_smoke.py --vstart`` runs 4v
    alone after phases 1-2.
 
+The mesh slice adds, after 4v (the earlier phases run as they did):
+
+4w. the mesh on 8 members of ``cuda:0`` (``set_members_per_device(8)``;
+   the members share one card: parity and per-member launches, not
+   scaling).  (a) K9x (``csrc/mesh_xor.cu``) against its plain version on
+   the partial products of the survivor-sharded decode of survivors
+   (8192, 8, 4096) with data shards 1 and 2 lost, for 2, 4 and 8
+   partials, max_abs_err 0 and equal to K1's whole decode; its time, a
+   device copy of the same bytes, its bound ((n+1) S r C bytes) and the
+   plain version.  (b) ``ShardedRS`` on a (4, 2) mesh: encode, decode,
+   survivor-sharded decode (K1 once per member, K9x once) and reshard,
+   byte-equal to one-device K1 and the native host coder;
+   ``ShardedFastRule`` on 4o's 1000-OSD map over 100000 x, rows equal to
+   ``FastRule``'s, K7a/K7b/K6 counted.  (c) a coalesced flush of 4d's 64
+   objects of 4 MiB with ``ec_mesh_chips=8`` against the mesh off:
+   byte-equal, every member occupied, K1 members x flushes; then
+   ``batch_mesh(-1)`` with one member per device: one member, the
+   single-device path.  (d) the gates of the bench CLI's four mesh
+   workloads from 4n's line (the skew ruler, the straggler and
+   degraded-read A/Bs, the mesh encode's receipt), with each leg's K1 /
+   K9x launches.  ``python3 chip_smoke.py --mesh`` runs 4w alone after
+   phases 1-2, running (d)'s workloads in its own process.
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
 Full results also go to ``chiprun_out/chip_smoke.json``.
@@ -3381,6 +3404,8 @@ def native_bench_slice() -> dict:
             "metrics": {m["name"]: m["value"] for m in line["metrics"]},
             "crush_remap": line.get("crush_remap"),
             "zero_copy_launches": zc_launches,
+            "mesh_metrics": {m["name"]: m for m in line["metrics"]
+                             if m["name"] in MESH_METRICS},
             "elapsed_s": line.get("elapsed_s")}
 
 
@@ -5412,6 +5437,404 @@ def vstart_alone(dev) -> None:
         json.dump(out, f, indent=1, default=str)
 
 
+# ---- 4w: the mesh, with K9x -----------------------------------------------------
+MESH_MEMBERS = 8                  # the JAX bench's mesh_chips=8, slow_chip=5
+MESH_SURV = (8192, K, CHUNK)      # (a) K9x's survivors: S, k, C
+MESH_LOST = (1, 2)                # (a) two lost data shards
+MESH_SHARD_AXES = (2, 4, 8)       # (a) partials XOR-reduced by one K9x
+MESH_RS_S = 1024                  # (b) stripes of the ShardedRS legs
+MESH_CRUSH_X = 100_000            # (b) x of the sharded CRUSH map
+MESH_METRICS = ("ec_mesh_fenced", "ec_mesh_skew", "ec_mesh_straggler",
+                "ec_degraded_read")
+
+
+def xor_bound_ms(n: int, nbytes: int):
+    """Least time of an n-way XOR reduction of ``nbytes`` each: every
+    partial read once and the output written once over HBM."""
+    return (n + 1) * nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def mesh_counters() -> dict:
+    from ceph_tpu_torch.ops import crush_fast as cf, crush_kernels as ck
+    from ceph_tpu_torch.ops import gf_pallas, mesh_xor
+    return {"gf_bit_matmul": gf_pallas.launches,
+            "mesh_xor": mesh_xor.launches,
+            "crush_descend": cf.descend_launches,
+            "crush_resolve": cf.resolve_launches,
+            "crush_rule": ck.rule_launches}
+
+
+def mesh_leg(name, drive) -> tuple:
+    """Every count set to 0 just before ``drive`` and read just after."""
+    counters = mesh_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = drive()
+    wall = time.perf_counter() - t0
+    counts = {n: c.n for n, c in counters.items()}
+    log(f"4w {name}: {wall:.2f} s, launches " + json.dumps(counts))
+    return out, counts, wall
+
+
+def mesh_k9x(dev, rs) -> dict:
+    """4w (a): K9x against its plain version on the partial products of
+    the survivor-sharded decode at MESH_SURV, for each shard axis: each
+    partial is K1 on a k-slice of the survivors with the matching rows of
+    the decode bit-matrix, and their XOR must equal K1's whole decode."""
+    from ceph_tpu_torch.ops import gf_pallas, mesh_xor
+    s, k, c = MESH_SURV
+    srcs = tuple(i for i in range(K + M) if i not in MESH_LOST)[:k]
+    full = rs._decode_bits_for(srcs, MESH_LOST)
+    bits = full.bits.cpu().numpy()
+    r = len(MESH_LOST)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    surv = torch.randint(0, 256, (s, k, c), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    whole = gf_pallas.gf_bit_matmul_kernel(surv, full)
+    out = {}
+    for n in MESH_SHARD_AXES:
+        kk = k // n
+        parts = torch.empty((n, s, r, c), dtype=torch.uint8, device=dev)
+        for b in range(n):
+            bm = gf_pallas.BitMatrix(bits[8 * kk * b:8 * kk * (b + 1)], dev)
+            gf_pallas.gf_bit_matmul_kernel(
+                surv[:, kk * b:kk * (b + 1)].contiguous(), bm,
+                out=parts[b])
+        got = mesh_xor.xor_reduce(parts)
+        want = mesh_xor.xor_reduce_plain(parts)
+        torch.cuda.synchronize()
+        err = int_err(got, want)
+        if err or not torch.equal(got, whole):
+            raise AssertionError(f"4w (a) n={n}: K9x max_abs_err {err}, "
+                                 f"equal to K1's decode "
+                                 f"{torch.equal(got, whole)}")
+        nbytes = s * r * c
+        half = (n + 1) * nbytes // 2
+        src = torch.empty(half, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        dst_out = torch.empty_like(got)
+        ms, copy = turns_ms([lambda: mesh_xor.xor_reduce(parts, out=dst_out),
+                             lambda: dst.copy_(src)], reps=REPS)
+        plain = cuda_ms(lambda: mesh_xor.xor_reduce_plain(parts))
+        b_ms, b_by = xor_bound_ms(n, nbytes)
+        out[n] = {"max_abs_err": err, "ms": ms, "copy_ms": copy,
+                  "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                  "share_of_bound": b_ms / ms,
+                  "GBps": (n + 1) * nbytes / ms / 1e6}
+        log(f"4w (a) K9x n={n} (S,r,C)=({s},{r},{c}) " + json.dumps(out[n]))
+        del parts, got, want, src, dst, dst_out
+    return out
+
+
+def mesh_crush_map(dev):
+    """4o's 1000-OSD map (osdmaptool --create-from-conf of the withracks
+    conf, pool 1 of size 3), built into ``build/mesh``."""
+    import contextlib
+    import io
+    from ceph_tpu_torch.osdmap.simple_build import mark_up_in
+    from ceph_tpu_torch.tools import osdmaptool
+    d = os.path.join("build", "mesh")
+    os.makedirs(d, exist_ok=True)
+    conf, om = os.path.join(d, "withracks.conf"), os.path.join(d, "om")
+    with open(conf, "w") as f:
+        f.write(withracks_conf())
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = osdmaptool.main(["--create-from-conf", om, "-c", conf,
+                              "--with-default-pool", "--pg_bits",
+                              str(TOOL_PG_BITS), "--pgp_bits",
+                              str(TOOL_PG_BITS), "--clobber"],
+                             device=dev.type)
+    if rc != 0:
+        raise AssertionError(f"4w: osdmaptool --create-from-conf exit {rc}")
+    with open(om, "rb") as f:
+        m = osdmaptool.load_map(f.read())
+    mark_up_in(m)
+    pool = m.pools[1]
+    ruleno = m.crush.find_rule(pool.crush_rule, pool.type, pool.size)
+    return m, ruleno, pool.size
+
+
+def mesh_sharded(dev, rs_matrix) -> dict:
+    """4w (b): ShardedRS's encode, decode, survivor-sharded decode and
+    reshard on 8 members of the card, each byte-equal to one-device K1 and
+    to the native host coder; ShardedFastRule on 4o's map over
+    MESH_CRUSH_X x, rows equal to FastRule's."""
+    from ceph_tpu_torch.ops.crush_fast import compile_fast_rule
+    from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
+    from ceph_tpu_torch.native import native_rs_encode
+    from ceph_tpu_torch.parallel import ShardedRS, make_mesh
+    from ceph_tpu_torch.parallel.crush import ShardedFastRule
+    mesh = make_mesh(MESH_MEMBERS, platform=dev.type)
+    one = DeviceRSBackend(rs_matrix, dev)
+    rng = np.random.default_rng(SEED + 18)
+    data = rng.integers(0, 256, (MESH_RS_S, K, CHUNK), dtype=np.uint8)
+    res = {"mesh": dict(mesh.shape), "members": mesh.size,
+           "devices": [str(d) for d in mesh.distinct_devices]}
+    sh, counts, wall = mesh_leg("(b) ShardedRS build",
+                                lambda: ShardedRS(rs_matrix, mesh))
+    coding, counts, wall = mesh_leg("(b) encode", lambda: sh.encode(data))
+    rows = np.ascontiguousarray(data.transpose(1, 0, 2)).reshape(K, -1)
+    host = native_rs_encode(rs_matrix[K:], rows).reshape(
+        M, MESH_RS_S, CHUNK).transpose(1, 0, 2)
+    if not np.array_equal(coding, one.encode(data)) or \
+            not np.array_equal(coding, host):
+        raise AssertionError("4w (b): sharded encode != one-device K1 or "
+                             "the native host coder")
+    if counts["gf_bit_matmul"] != mesh.size:
+        raise AssertionError(f"4w (b) encode: K1 launched "
+                             f"{counts['gf_bit_matmul']} times for "
+                             f"{mesh.size} members")
+    res["encode"] = {"launches": counts, "wall_s": wall}
+    allc = np.concatenate([data, coding], axis=1)
+    srcs = [i for i in range(K + M) if i not in MESH_LOST][:K]
+    surv = np.ascontiguousarray(allc[:, srcs])
+    want = np.ascontiguousarray(data[:, list(MESH_LOST)])
+    for name, fn in (("decode", sh.decode_data),
+                     ("decode_survivor_sharded",
+                      sh.decode_data_survivor_sharded)):
+        got, counts, wall = mesh_leg(f"(b) {name}",
+                                     lambda: fn(surv, srcs, MESH_LOST))
+        ref = one.decode_data(surv, srcs, MESH_LOST)
+        if not np.array_equal(got, want) or not np.array_equal(got, ref):
+            raise AssertionError(f"4w (b) {name}: != the lost data or "
+                                 "one-device K1")
+        k9x = 1 if name == "decode_survivor_sharded" else 0
+        if counts["gf_bit_matmul"] != mesh.size or \
+                counts["mesh_xor"] != k9x:
+            raise AssertionError(f"4w (b) {name}: launches {counts}")
+        res[name] = {"launches": counts, "wall_s": wall}
+    out, counts, wall = mesh_leg("(b) reshard",
+                                 lambda: sh.reshard_stripes_to_chunks(allc))
+    if not np.array_equal(out.numpy(), allc) or \
+            len(out.addressable_shards) != mesh.size:
+        raise AssertionError("4w (b) reshard: values or pieces differ")
+    res["reshard"] = {"launches": counts, "wall_s": wall,
+                      "piece_shape": list(out.addressable_shards[0]
+                                          .data.shape)}
+    del out
+    m, ruleno, size = mesh_crush_map(dev)
+    xs = np.arange(MESH_CRUSH_X, dtype=np.uint32)
+    weight = np.asarray(m.osd_weight, dtype=np.uint32)
+    fr = compile_fast_rule(m.crush.crush, ruleno, size, device=dev)
+    sf = ShardedFastRule(m.crush.crush, ruleno, size, mesh)
+    (srows, scnt), counts, wall = mesh_leg(
+        "(b) ShardedFastRule", lambda: sf.map_batch(xs, weight))
+    frows, fcnt = fr.map_batch(xs, weight)
+    if not (np.array_equal(scnt, fcnt) and np.array_equal(srows, frows)):
+        raise AssertionError("4w (b) ShardedFastRule rows != FastRule's")
+    if not (counts["crush_descend"] and counts["crush_resolve"]
+            and counts["crush_rule"] == mesh.size):
+        raise AssertionError(f"4w (b) ShardedFastRule launches {counts}")
+    res["crush"] = {"x": MESH_CRUSH_X, "osds": len(m.osd_weight),
+                    "rule": ruleno, "size": size, "launches": counts,
+                    "wall_s": wall,
+                    "residual_fraction": sf.residual_fraction}
+    return res
+
+
+def mesh_dispatch(dev) -> dict:
+    """4w (c): a coalesced flush of 4d's 64 objects of 4 MiB with
+    ec_mesh_chips=8 against the same flush with the mesh off: byte-equal,
+    every member occupied, K1 launched members x flushes; then the
+    discovery path, batch_mesh(-1) with one member per device: a mesh of
+    one, the single-device path."""
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import dispatch_perf_counters, g_dispatcher
+    from ceph_tpu_torch.dispatch import scheduler as ds
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.mesh import (batch_mesh, g_mesh,
+                                     set_members_per_device)
+    from ceph_tpu_torch.osd import ecutil
+    codec = create_erasure_code({
+        "plugin": "cuda", "k": str(K), "m": str(M),
+        "technique": "reed_sol_van",
+        "backend": "cuda" if dev.type == "cuda" else "host"})
+    sinfo = ecutil.stripe_info_t(K, K * CHUNK)
+    every = set(range(K + M))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    objs = torch.randint(0, 256, (N_OBJ, OBJ_BYTES), generator=gen,
+                         device=dev, dtype=torch.uint8).cpu().numpy()
+    pc = dispatch_perf_counters()
+
+    def flush():
+        b0 = pc.get(ds.l_dispatch_batches)
+        futs = [g_dispatcher.submit_encode(sinfo, codec, o, every)
+                for o in objs]
+        g_dispatcher.flush()
+        return [f.result() for f in futs], pc.get(ds.l_dispatch_batches) - b0
+
+    res = {}
+    try:
+        g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+        g_conf.set_val("ec_dispatch_batch_max", N_OBJ)
+        (off, n_off), c_off, w_off = mesh_leg("(c) mesh off", flush)
+        g_conf.set_val("ec_mesh_chips", MESH_MEMBERS)
+        chips0 = {i: v["stripes"] for i, v in g_mesh.per_chip().items()}
+        (on, n_on), c_on, w_on = mesh_leg("(c) ec_mesh_chips=8", flush)
+        occ = {i: v["stripes"] - chips0.get(i, 0)
+               for i, v in g_mesh.per_chip().items()}
+        same = all(sorted(a) == sorted(b) and all(
+            np.array_equal(a[i], b[i]) for i in a) for a, b in zip(on, off))
+        if not same or len(occ) != MESH_MEMBERS or \
+                not all(v > 0 for v in occ.values()) or \
+                c_on["gf_bit_matmul"] != MESH_MEMBERS * n_on or \
+                c_off["gf_bit_matmul"] != n_off:
+            raise AssertionError(
+                f"4w (c): identical {same}, occupancy {occ}, K1 "
+                f"{c_on['gf_bit_matmul']} for {n_on} meshed flushes, "
+                f"{c_off['gf_bit_matmul']} for {n_off} without")
+        res.update(identical=same, occupancy=occ, flushes=n_on,
+                   launches_mesh=c_on, launches_off=c_off,
+                   wall_s_mesh=w_on, wall_s_off=w_off,
+                   plans=len(g_mesh.dump()["plans"]),
+                   pool=g_mesh.dump()["pool"])
+        del on, off
+        set_members_per_device(1)
+        disc = batch_mesh(-1)
+        g_conf.set_val("ec_mesh_chips", -1)
+        (one, n_one), c_one, w_one = mesh_leg(
+            "(c) batch_mesh(-1), one member per device", flush)
+        if disc.size != 1 or g_mesh.active() or \
+                c_one["gf_bit_matmul"] != n_one:
+            raise AssertionError(f"4w (c) discovery: {disc}, active "
+                                 f"{g_mesh.active()}, K1 {c_one}")
+        res["discovery"] = {"batch_mesh_-1_members": disc.size,
+                            "active": g_mesh.active(), "launches": c_one,
+                            "flushes": n_one}
+    finally:
+        for name in ("ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                     "ec_mesh_chips"):
+            g_conf.rm_val(name)
+        set_members_per_device(MESH_MEMBERS)
+        g_mesh.topology()
+    return res
+
+
+def mesh_workload_metrics(dev) -> dict:
+    """The CLI's four mesh workloads at its full-mode shapes, in this
+    process (``--mesh``; the whole smoke reads them from 4n's CLI line)."""
+    from ceph_tpu_torch.bench import workloads as w
+    from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
+    mm, _single = w.measure_ec_mesh(gf_gen_rs_matrix(K + M, K),
+                                    mesh_chips=-1, target_seconds=2.0,
+                                    device=dev)
+    return {m["name"]: m for m in (
+        mm, w.measure_mesh_skew(device=dev),
+        w.measure_mesh_straggler(n_flushes=48, device=dev),
+        w.measure_degraded_read(n_batches=32, ops_per_client=32,
+                                device=dev))}
+
+
+def mesh_cli_gates(metrics: dict, smi: str) -> dict:
+    """4w (d): the mesh workloads' gates: the mesh encode's dispatch
+    receipt identical with every member occupied, regress.py's SKEW GATE
+    and STRAGGLER GATE (the injected slow member detected; the protected
+    p999 ratios; zero fallbacks; every read byte-exact).  Returns each
+    leg's readings and K1 / K9x launches (counted in the process that ran
+    it)."""
+    from ceph_tpu_torch.bench.regress import _skew_gate, _straggler_gate
+    missing = [n for n in MESH_METRICS if n not in metrics]
+    if missing:
+        raise AssertionError(f"4w (d): mesh workloads missing {missing}")
+    mm, sk, st, dr = (metrics[n] for n in MESH_METRICS)
+    fails = _skew_gate(sk["name"], sk["skew"]) + \
+        _straggler_gate(st["name"], st["straggler"]) + \
+        _straggler_gate(dr["name"], dr["straggler"])
+    occupied = [v > 0 for v in mm["per_chip_stripes"].values()]
+    if (fails or not mm["identical"] or len(occupied) != MESH_MEMBERS
+            or not all(occupied) or not sk["identical"]
+            or not st["identical"] or not dr["identical"]
+            or st["straggler"]["single_device_fallbacks"]
+            or dr["straggler"]["single_device_fallbacks"]
+            or not dr["straggler"]["byte_identical"]
+            or not all(m["launches"]["gf_bit_matmul"]
+                       for m in (mm, sk, st, dr))):
+        raise AssertionError(f"4w (d) gates: {fails}, identical "
+                             f"{[m.get('identical') for m in (mm, sk, st, dr)]}"
+                             f", occupied {occupied}")
+    out = {
+        "ec_mesh": {k: mm[k] for k in ("value", "single_gibs", "speedup",
+                                       "mesh_chips", "per_chip_stripes",
+                                       "identical", "launches", "n_devices",
+                                       "roofline")},
+        "skew": {**sk["skew"], "launches": sk["launches"]},
+        "straggler": {**st["straggler"], "launches": st["launches"]},
+        "degraded_read": {**dr["straggler"], "launches": dr["launches"]},
+        "card": smi,
+        "note": f"{MESH_MEMBERS} members share one card: parity and "
+                "per-member launches, not scaling"}
+    for name in ("ec_mesh", "skew", "straggler", "degraded_read"):
+        log(f"4w (d) {name} [{smi}; {MESH_MEMBERS} members share one card] "
+            + json.dumps(out[name], default=str))
+    return out
+
+
+def mesh_slice(dev, smi: str, cli_metrics: dict = None) -> dict:
+    """4w: the mesh on 8 members of the card.  (a) K9x against its plain
+    version; (b) ShardedRS and ShardedFastRule; (c) the dispatcher's flush
+    with ec_mesh_chips=8 and the discovery path; (d) the CLI's mesh
+    workloads' gates (from 4n's CLI line, or run here with ``--mesh``)."""
+    from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
+    from ceph_tpu_torch.mesh import set_members_per_device
+    from ceph_tpu_torch.ops.gf_matmul import DeviceRSBackend
+    t_phase = time.perf_counter()
+    set_members_per_device(MESH_MEMBERS)
+    matrix = gf_gen_rs_matrix(K + M, K)
+    res = {"members": MESH_MEMBERS, "card": smi}
+    t0 = time.perf_counter()
+    res["k9x"] = mesh_k9x(dev, DeviceRSBackend(matrix, dev))
+    res["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["sharded"] = mesh_sharded(dev, matrix)
+    res["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["dispatch"] = mesh_dispatch(dev)
+    res["c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cli_metrics is None:
+        cli_metrics = mesh_workload_metrics(dev)
+        res["d_source"] = "this process"
+    else:
+        res["d_source"] = "4n's bench CLI process"
+    res["workloads"] = mesh_cli_gates(cli_metrics, smi)
+    res["d_s"] = time.perf_counter() - t0
+    sharded = res["sharded"]
+    legs = [sharded[n]["launches"] for n in (
+        "encode", "decode", "decode_survivor_sharded", "reshard", "crush")]
+    legs += [res["dispatch"]["launches_mesh"],
+             res["dispatch"]["launches_off"],
+             res["dispatch"]["discovery"]["launches"]]
+    res["launches"] = {n: sum(leg[n] for leg in legs)
+                       for n in mesh_counters()}
+    res["cli_launches"] = {
+        n: sum(res["workloads"][w]["launches"][n] for w in (
+            "ec_mesh", "skew", "straggler", "degraded_read"))
+        for n in ("gf_bit_matmul", "mesh_xor")}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"4w took {res['seconds']:.1f} s ((a) {res['a_s']:.1f}, (b) "
+        f"{res['b_s']:.1f}, (c) {res['c_s']:.1f}, (d) {res['d_s']:.1f}); "
+        "launches " + json.dumps(res["launches"]) + ", CLI legs "
+        + json.dumps(res["cli_launches"]))
+    return res
+
+
+def mesh_alone(dev) -> None:
+    """``--mesh``: 4w alone after phases 1-2, its four workloads run in
+    this process, its record written to ``chiprun_out/mesh.json``."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = mesh_slice(dev, smi.splitlines()[0])
+    with open(os.path.join("chiprun_out", "mesh.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5483,11 +5906,12 @@ def main() -> int:
                         ("--k8-parent", k8_parent_turns),
                         ("--osd-path", osd_path_alone),
                         ("--cluster", cluster_alone),
-                        ("--vstart", vstart_alone)):
+                        ("--vstart", vstart_alone),
+                        ("--mesh", mesh_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
-                    "--cluster", "--vstart"):
+                    "--cluster", "--vstart", "--mesh"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -5823,6 +6247,16 @@ def main() -> int:
     results["vstart"] = vs
     phase_done("4v process cluster")
 
+    # -- 4w. the mesh on 8 members of the card: K9x, ShardedRS and
+    # ShardedFastRule, the dispatcher's meshed flush, and the gates of the
+    # CLI's mesh workloads (4n's CLI line), after the earlier slices'
+    # phases, which run as they did before it -------------------------------
+    mesh = mesh_slice(dev, smi, results["native_bench"].pop("mesh_metrics"))
+    results["mesh"] = mesh
+    mesh_n, mesh_cli = mesh["launches"], mesh["cli_launches"]
+    k9x = mesh["k9x"][2]         # the (4, 2) mesh's shard axis
+    phase_done("4w mesh")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -5846,7 +6280,8 @@ def main() -> int:
                      + bench_n["gf_bit_matmul"] + dispatch["k1_launches"]
                      + path_n["gf_bit_matmul"] + cl_n["gf_bit_matmul"]
                      + cli_zc["gf_bit_matmul"]
-                     + vs["launches"]["gf_bit_matmul"]),
+                     + vs["launches"]["gf_bit_matmul"]
+                     + mesh_n["gf_bit_matmul"] + mesh_cli["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -5892,7 +6327,7 @@ def main() -> int:
         "replaces": "ceph_tpu/ops/crush_fast.py:592",
         "launches": crush_launches["crush_descend"]
         + bench_n["crush_descend"] + tool["launches"]["crush_descend"]
-        + cl_n["crush_descend"],
+        + cl_n["crush_descend"] + mesh_n["crush_descend"],
         "max_abs_err": crush_err["crush_descend"],
         "ms": k7["k7a_ms"], "plain_ms": k7["k7a_plain_ms"],
         "bound_ms": k7["k7a_bound_ms"], "bound_by": "operations",
@@ -5916,7 +6351,7 @@ def main() -> int:
         "replaces": "ceph_tpu/ops/crush_fast.py:882",
         "launches": crush_launches["crush_resolve"]
         + bench_n["crush_resolve"] + tool["launches"]["crush_resolve"]
-        + cl_n["crush_resolve"],
+        + cl_n["crush_resolve"] + mesh_n["crush_resolve"],
         "max_abs_err": crush_err["crush_resolve"],
         "ms": k7["k7b_ms"], "plain_ms": k7["k7b_plain_ms"],
         "bound_ms": k7["k7b_bound_ms"], "bound_by": "bytes",
@@ -5931,7 +6366,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_kernels.py:436",
         "launches": crush_launches["crush_rule"] + bench_n["crush_rule"]
-        + tool["launches"]["crush_rule"] + cl_n["crush_rule"],
+        + tool["launches"]["crush_rule"] + cl_n["crush_rule"]
+        + mesh_n["crush_rule"],
         "max_abs_err": crush_err["crush_rule"],
         "ms": k6["k6_flagged_ms"], "plain_ms": k6["k6_flagged_plain_ms"],
         "bound_ms": k6["k6_flagged_bound_ms"], "bound_by": "operations",
@@ -5971,7 +6407,23 @@ def main() -> int:
             n: t["plain_ms_4096_x"] for n, t in legacy["times"].items()},
         "perm_x": legacy["checks"]["L_perm_x"],
         "local_x": legacy["checks"]["L_local_x"],
-        "hash_probe": hash_reading}]}
+        "hash_probe": hash_reading}, {
+        "name": "mesh_xor", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/mesh_xor.cu",
+        "replaces": "ceph_tpu/parallel/ec.py:255",
+        "launches": mesh_n["mesh_xor"] + mesh_cli["mesh_xor"],
+        "max_abs_err": max(t["max_abs_err"] for t in mesh["k9x"].values()),
+        "ms": k9x["ms"], "plain_ms": k9x["plain_ms"],
+        "bound_ms": k9x["bound_ms"], "bound_by": k9x["bound_by"],
+        "library_ms": None, "copy_ms": k9x["copy_ms"],
+        "partials": 2,
+        "ms_by_partials": {n: t["ms"] for n, t in mesh["k9x"].items()},
+        "bound_ms_by_partials": {n: t["bound_ms"]
+                                 for n, t in mesh["k9x"].items()},
+        "plain_ms_by_partials": {n: t["plain_ms"]
+                                 for n, t in mesh["k9x"].items()},
+        "copy_ms_by_partials": {n: t["copy_ms"]
+                                for n, t in mesh["k9x"].items()}}]}
     results.update(kernels)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

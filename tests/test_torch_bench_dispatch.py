@@ -187,9 +187,9 @@ def test_load_trajectory_equals_jax(tmp_path):
 
 def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     """``python -m ceph_tpu_torch.bench --smoke`` in this process: one
-    JSON line on stdout, every metric schema-valid and fenced, the three
-    cluster workloads run, the JAX bench's mesh workloads named under
-    ``not_ported``."""
+    JSON line on stdout, every metric schema-valid and fenced, the mesh
+    workloads and the three cluster workloads run, the two workloads left
+    to port named under ``not_ported``."""
     rc = bench_cli.main(["--smoke", "--gate", "warn"])
     out = capsys.readouterr().out
     lines = [ln for ln in out.splitlines() if ln.strip()]
@@ -202,21 +202,32 @@ def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     assert names == ["ec_encode_k8m4_fenced", "ec_decode_k8m4_e2_fenced",
                      "ec_dispatch_coalesce_fenced",
                      "ec_dispatch_serial_fenced", "ec_pipeline_fenced",
-                     "ec_pipeline_depth1_fenced", "ec_encode_host_native",
+                     "ec_pipeline_depth1_fenced", "ec_mesh_fenced",
+                     "ec_mesh_single_fenced", "ec_mesh_skew",
+                     "ec_mesh_straggler", "ec_encode_host_native",
                      "traffic_harness_smoke", "ec_write_zero_copy",
-                     "ec_recovery_storm"]
+                     "ec_recovery_storm", "ec_degraded_read"]
     for m in line["metrics"]:
         validate_metric(m)
         assert m["fenced"] and not m["suspect"]
     assert line["decode_parity"] is True
     assert line["metrics"][4]["identical"] is True
-    assert line["not_ported"] == list(bench_cli.NOT_PORTED)
-    assert "measure_ec_mesh" in line["not_ported"]
-    for name in ("measure_traffic", "measure_ec_write_zero_copy",
-                 "measure_recovery_storm"):
-        assert name not in line["not_ported"]
-    # no TPU-era or CPU round carries a comparable fenced reading
-    assert line["gate"]["regressions"] == []
+    assert line["not_ported"] == list(bench_cli.NOT_PORTED) == [
+        "measure_composed_chaos", "measure_slo_autotune"]
+    mesh = {m["name"]: m for m in line["metrics"]}
+    assert mesh["ec_mesh_fenced"]["identical"] is True
+    assert mesh["ec_mesh_fenced"]["mesh_chips"] == 8
+    assert mesh["ec_mesh_skew"]["identical"] is True
+    for name in ("ec_mesh_straggler", "ec_degraded_read"):
+        assert mesh[name]["straggler"]["byte_identical"] is True
+        assert mesh[name]["straggler"]["single_device_fallbacks"] == 0
+    # no TPU-era or CPU round carries a comparable fenced reading; the
+    # mesh workloads' SKEW and STRAGGLER gates judge wall-clock delays
+    # against the members' service times on a CPU that other test
+    # workers share, so they are gated on the card (chip_smoke.py 4w (d))
+    timed = ("ec_mesh_skew", "ec_mesh_straggler", "ec_degraded_read")
+    assert [r for r in line["gate"]["regressions"]
+            if r["name"].split(".")[0] not in timed] == []
     assert line["gate"]["platform"] == "cpu"
     for key in ("perf", "perf_histograms", "oplat", "devprof",
                 "elapsed_s"):

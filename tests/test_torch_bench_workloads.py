@@ -85,13 +85,32 @@ def test_parity_check_holds_on_both():
     assert pw.parity_check(MATRIX, device="cpu")
 
 
-def test_mesh_branch_and_missing_card_raise():
+def test_mesh_branch_runs_and_missing_card_raises():
+    """The fenced step over 8 CPU mesh members, drained per member, reads
+    like the JAX mesh branch on its 8 virtual devices, with the roofline
+    scaled by the one distinct device; without a card the default raises."""
+    from ceph_tpu.mesh.topology import batch_mesh as jax_batch_mesh
+    from ceph_tpu_torch.mesh import batch_mesh, set_members_per_device
+    set_members_per_device(8)
     bits = gf_pallas.BitMatrix(expand_to_bitmatrix(MATRIX[8:]), "cpu")
-    with pytest.raises(NotImplementedError):
-        pw._measure_fenced_gf(bits, _batch(43), metric_name="x",
-                              workload=pw.EC_ENCODE_K8M4_SALTED, kernel_name="x",
-                              target_seconds=0.1, repeats=1, warmup=0,
-                              rtt_s=1e-6, mesh=object())
+    batch = _batch(43, s=16, c=16384)
+    kw = dict(metric_name="x", kernel_name="x", target_seconds=0.1,
+              repeats=1, warmup=0, rtt_s=1e-6, n_steps=2)
+    m = pw._measure_fenced_gf(bits, batch,
+                              workload=pw.EC_ENCODE_K8M4_SALTED,
+                              mesh=batch_mesh(8, platform="cpu"), **kw)
+    j = jw._measure_fenced_gf(
+        jnp.asarray(expand_to_bitmatrix(MATRIX[8:]).astype(np.int8)),
+        batch, workload=jw.EC_ENCODE_K8M4, mesh=jax_batch_mesh(8), **kw)
+    assert m.keys() - {"mesh_members"} == j.keys()
+    assert m["mesh_members"] == 8 and m["n_devices"] == 1
+    assert j["n_devices"] == 8
+    assert m["n_steps"] == j["n_steps"] == 2
+    assert m["bytes_per_step"] == j["bytes_per_step"]
+    with pytest.raises(ValueError):
+        pw._measure_fenced_gf(bits, _batch(44, s=12),
+                              workload=pw.EC_ENCODE_K8M4_SALTED,
+                              mesh=batch_mesh(8, platform="cpu"), **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             pw.measure_encode(MATRIX, _batch(44))          # default: card

@@ -11,8 +11,8 @@ step, and ``checkpoint`` / ``restore`` brings the same bytes back.
 
 The differences by design (ROADMAP Queue 3) are pinned here too: the
 port has no codec breakers (no ``breaker dump``, no ``breakers_open``,
-``TPU_CODEC_DEGRADED`` never raised) and collects only the chip-health
-scoreboard's family of the JAX mesh's perf counters.
+``TPU_CODEC_DEGRADED`` never raised).  Both collect the mesh's five
+perf-counter families, and the chip probe reads a meshed flush on both.
 """
 import pytest
 
@@ -28,8 +28,9 @@ from torch_daemon_twin import (JAX, PORT, assert_same_state, clean,  # noqa: F40
 CLUSTERS = {JAX: JaxCluster, PORT: PortCluster}
 POOL_ARGS = {JAX: {"plugin": "tpu"},
              PORT: {"plugin": "cuda", "extra_profile": {"backend": "host"}}}
-# the JAX mesh's perf-counter families the port leaves out until its mesh
-MESH_FAMILIES = ("mesh", "mesh_decode", "mesh_membership", "mesh_rateless")
+# the mesh's perf-counter families, the chip scoreboard's included
+MESH_FAMILIES = ("mesh", "mesh_chip", "mesh_decode", "mesh_membership",
+                 "mesh_rateless")
 
 
 @pytest.fixture(autouse=True)
@@ -151,30 +152,54 @@ def test_no_breaker_surfaces_in_the_port(clean):
     assert not jax_breakers.degraded()
 
 
-def test_perf_collection_leaves_out_the_mesh_families(clean):
-    """Queue 3, by design: of the JAX mesh's counter families only the
-    chip-health scoreboard's (``mesh_chip``) is collected."""
+def test_perf_collection_carries_the_mesh_families(clean):
+    """Both clusters collect the mesh's five counter families, with the
+    same counters in each."""
     p, _ = boot(PORT)
     j, _ = boot(JAX)
     pd, jd = p.perf_collection.dump(), j.perf_collection.dump()
-    assert set(jd) - set(pd) == set(MESH_FAMILIES)
-    assert set(pd) <= set(jd)
-    assert "mesh_chip" in pd
-    assert pd["mesh_chip"].keys() == jd["mesh_chip"].keys()
+    assert set(pd) == set(jd)
+    for fam in MESH_FAMILIES:
+        assert pd[fam].keys() == jd[fam].keys(), fam
 
 
-def test_chip_probe_raises_until_the_mesh(clean):
-    """Queue 3, by design: ``ChipStat.probe`` reads a sharded output's
-    per-chip shards, so it raises until the port has a mesh; the rest of
-    the scoreboard runs and ``mesh skew dump`` answers as JAX's does."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        g_chipstat.probe(object(), None)
-    p, _ = boot(PORT)
-    j, _ = boot(JAX)
-    pd = p.admin_socket.execute("mesh skew dump")
-    jd = j.admin_socket.execute("mesh skew dump")
-    assert pd.keys() == jd.keys()
-    assert pd["probes"] == jd["probes"] == 0
+def test_chip_probe_reads_a_meshed_flush(clean):
+    """``ChipStat.probe`` polls each member's piece of a meshed flush and
+    records one delta per member, as JAX's does per shard; ``mesh skew
+    dump`` answers as JAX's does."""
+    from ceph_tpu.common.config import g_conf as jax_conf
+    from ceph_tpu.mesh import g_chipstat as jax_chipstat
+    from ceph_tpu.mesh import g_mesh as jax_mesh
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.mesh import g_mesh, set_members_per_device
+    set_members_per_device(8)
+    p, pcl = boot(PORT)
+    j, jcl = boot(JAX)
+    for conf in (g_conf, jax_conf):
+        conf.set_val("ec_mesh_chips", 8)
+        conf.set_val("ec_mesh_skew_sample_every", 1)
+        conf.set_val("ec_dispatch_batch_window_us", 200_000)
+    body = payloads(1, 5, base=8 * 4 * 4096)["obj0"]
+    try:
+        for c, cl, stat in ((p, pcl, g_chipstat), (j, jcl, jax_chipstat)):
+            stat.reset()
+            assert cl.write_full("ec", "probed", body) == 0
+            assert cl.read("ec", "probed") == body
+            summary = stat.summary()
+            assert summary["probes"] >= 1
+            assert len(summary["per_chip"]) == 8
+        pd = p.admin_socket.execute("mesh skew dump")
+        jd = j.admin_socket.execute("mesh skew dump")
+        assert pd.keys() == jd.keys()
+        assert pd["probes"] == jd["probes"]
+        assert pd["counters"]["samples"] == jd["counters"]["samples"]
+    finally:
+        for conf in (g_conf, jax_conf):
+            for name in ("ec_mesh_chips", "ec_mesh_skew_sample_every",
+                         "ec_dispatch_batch_window_us"):
+                conf.rm_val(name)
+        g_mesh.topology()
+        jax_mesh.topology()
 
 
 def test_osd_tick_kicks_the_chip_scoreboard(clean, monkeypatch):

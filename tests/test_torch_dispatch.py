@@ -11,7 +11,7 @@ plugin coalescing, backpressure, window-expiry ``poll``, unbatchable
 passthrough, span children, the mid-batch re-run, a raising done-callback
 and the occupancy histogram with ``dump``; plus the cross-package case
 (byte-equal outputs and equal ``dispatch.*`` host-copy bytes, one
-``encode_batch`` per flush) and the port's refusal of a mesh.  Every
+``encode_batch`` per flush) and a flush on a mesh of 2 or 8 members.  Every
 output is held byte-exact against per-request ``ecutil`` of both
 packages.
 """
@@ -36,8 +36,7 @@ from ceph_tpu_torch.common.config import g_conf
 from ceph_tpu_torch.dispatch import (KIND_ENCODE, batchable,
                                      bucket_chunk_size,
                                      dispatch_perf_counters, g_dispatcher)
-from ceph_tpu_torch.dispatch.scheduler import (MESH_OFF_DUMP,
-                                               l_dispatch_backpressure,
+from ceph_tpu_torch.dispatch.scheduler import (l_dispatch_backpressure,
                                                l_dispatch_coalesced,
                                                l_dispatch_errors,
                                                l_dispatch_fallback_reqs,
@@ -47,6 +46,7 @@ from ceph_tpu_torch.ec.cuda_plugin import ErasureCodeCuda
 from ceph_tpu_torch.ec.isa import ErasureCodeIsa
 from ceph_tpu_torch.ec.jerasure import ErasureCodeJerasure
 from ceph_tpu_torch.fault import g_faults
+from ceph_tpu_torch.mesh import g_mesh as port_mesh
 from ceph_tpu_torch.ops import gf_pallas
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.trace import g_devprof, g_perf_histograms, g_tracer
@@ -76,6 +76,7 @@ def _defaults():
     for name in JAX_MESH_OPTIONS:
         jax_conf.rm_val(name)
     jax_mesh.topology()          # rebuilt without a mesh at ec_mesh_chips 0
+    port_mesh.topology()
     jax_chipstat.reset()
     g_tracer.enable(False)
     g_tracer.collector.clear()
@@ -465,9 +466,12 @@ def test_occupancy_histogram_and_dump(dispatch_conf):
     assert d["occupancy_histogram"]["axes"] \
         == jd["occupancy_histogram"]["axes"]
     assert d["occupancy_histogram"]["axes"][0]["name"] == "batch_occupancy"
-    # the mesh pane: the JAX package's mesh-off dump, key for key
-    assert d["mesh"] == MESH_OFF_DUMP
+    # the mesh pane: the mesh runtime's dump, off, key for key the JAX
+    # package's (its counters are process-global, so not compared here)
     assert _keys(d["mesh"]) == _keys(jd["mesh"])
+    assert d["mesh"]["active"] is False and d["mesh"]["size"] == 0
+    assert d["mesh"]["options"] == jd["mesh"]["options"]
+    assert d["mesh"]["per_chip"] == {} and d["mesh"]["plans"] == []
     assert jd["mesh"]["active"] is False
 
 
@@ -539,34 +543,49 @@ def test_same_requests_through_both_dispatchers(dispatch_conf, kind,
     assert "dispatch.pad_stripes" not in pd
 
 
-def test_mesh_of_two_or_more_raises_before_any_launch(dispatch_conf,
-                                                      monkeypatch):
-    """The port has no mesh: ``ec_mesh_chips`` >= 2 refuses a device
-    codec's flush (and its per-request re-run) before any launch; 0 and
-    1 are the single-device path."""
+def test_mesh_of_two_or_more_rides_the_mesh_on_its_platform(
+        dispatch_conf, monkeypatch):
+    """With ``ec_mesh_chips`` of 2 or 8 a ``backend=host`` codec's flush
+    rides the CPU mesh byte-exactly, one K1 call per member (the plain
+    version here); a codec whose backend lives on another platform is
+    declined by the mesh before any launch and runs the single-device
+    path: a mesh never takes work across platforms."""
     from ceph_tpu_torch.dispatch import batch as pbatch
+    from ceph_tpu_torch.mesh import (g_mesh, mesh_perf_counters,
+                                     set_members_per_device)
+    set_members_per_device(8)
     impl = mk(ErasureCodeCuda, 4, 2, "reed_sol_van")
-    monkeypatch.setattr(impl, "_use_device", lambda: True)
-    launched = []
-    monkeypatch.setattr(impl, "encode_batch",
-                        lambda *a: launched.append(a))
     sinfo = ecutil.stripe_info_t(4, 4 * 512)
-    d = (np.arange(4 * 512) % 256).astype(np.uint8)
+    d = (np.arange(3 * 4 * 512) % 256).astype(np.uint8)
+    oracle = ecutil.encode(sinfo, impl, d, set(range(6)))
     for chips in (0, 1):
         g_conf.set_val("ec_mesh_chips", chips)
         assert pbatch._mesh_active() is False
+    pc = mesh_perf_counters()
+    calls = []
+    real = gf_pallas.gf_bit_matmul_kernel
+    monkeypatch.setattr(gf_pallas, "gf_bit_matmul_kernel",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    g_conf.set_val("ec_dispatch_batch_window_us", 10_000_000)
     for chips in (2, 8):
         g_conf.set_val("ec_mesh_chips", chips)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            g_dispatcher.encode(sinfo, impl, d, set(range(6)))
-        g_conf.set_val("ec_dispatch_batch_window_us", 10_000_000)
-        f1 = g_dispatcher.submit_encode(sinfo, impl, d, set(range(6)))
-        f2 = g_dispatcher.submit_encode(sinfo, impl, d, set(range(6)))
+        assert pbatch._mesh_active() is True
+        n0, calls[:] = pc.dump()["dispatches"], []
+        f = g_dispatcher.submit_encode(sinfo, impl, d, set(range(6)))
         g_dispatcher.flush()
-        for f in (f1, f2):
-            assert isinstance(f.exception(), NotImplementedError)
-        g_conf.rm_val("ec_dispatch_batch_window_us")
-    assert launched == []
+        got = f.result()
+        assert sorted(got) == sorted(oracle)
+        for i in oracle:
+            assert np.array_equal(got[i], oracle[i])
+        assert pc.dump()["dispatches"] == n0 + 1
+        assert len(calls) == chips          # one K1 call per member
+        assert g_mesh.topology().size == chips
+    other = mk(ErasureCodeCuda, 4, 2, "reed_sol_van")
+    monkeypatch.setattr(type(other), "torch_device", property(
+        lambda self: "cuda"))
+    assert g_mesh.encode_stacked(other, [d.reshape(3, 4, 512)], 512) is None
+    g_conf.rm_val("ec_mesh_chips")
+    g_mesh.topology()
 
 
 def test_launch_counter_under_threads():

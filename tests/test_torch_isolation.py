@@ -294,7 +294,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build("fused_encode_crc")
     assert _build.sources() == ["crc32c", "crush_fast", "crush_legacy",
                                 "crush_probe", "fused_encode_crc",
-                                "gf_bit_matmul"]
+                                "gf_bit_matmul", "mesh_xor"]
 
 
 def test_build_path_tracks_source(monkeypatch, tmp_path):
@@ -623,9 +623,10 @@ def test_device_seams_hold_no_catch_all():
     assert not [n for n in ast.walk(rnd) if isinstance(n, ast.Try)]
 
 
-def test_regenerating_carries_no_guard_or_mesh():
-    """The regenerating codec has no fault guard, breaker, host fallback
-    or JAX mesh hook: only the port's mesh switch."""
+def test_regenerating_carries_no_guard():
+    """The regenerating codec has no fault guard, breaker or host
+    fallback; its decode and repair solves reach the mesh through
+    ``g_mesh.decode_stacked``, the JAX package's hook."""
     tree = ast.parse((PKG / "ec" / "regenerating.py").read_text())
     used = set()
     for node in ast.walk(tree):
@@ -638,18 +639,18 @@ def test_regenerating_carries_no_guard_or_mesh():
         elif isinstance(node, ast.ImportFrom):
             used.add(node.module or "")
     for name in ("run_device_call", "_note_cpu_fallback",
-                 "DeviceUnavailable", "g_mesh", "decode_stacked", "mesh"):
+                 "DeviceUnavailable", "_mesh_active"):
         assert name not in used, name
-    assert "_mesh_active" in used
+    assert {"g_mesh", "decode_stacked"} <= used
     for fn in ("encode_batch", "decode_batch", "repair"):
         assert not _catch_alls(_function("ec/regenerating.py", fn,
                                          "ErasureCodeRegenerating"))
 
 
 def test_walk_sees_the_cluster_slice():
-    """The package walk reaches ``MiniCluster``, the mgr chain, the mesh's
-    chip scoreboard (and nothing else of the mesh), the traffic harness
-    and the cluster tools."""
+    """The package walk reaches ``MiniCluster``, the mgr chain, the mesh
+    (with its chip scoreboard), the traffic harness and the cluster
+    tools."""
     mods = _modules()
     for m in ("cluster", "mgr", "mgr.mgr", "mgr.telemetry", "mgr.incident",
               "mgr.http", "common.http_serve", "control",
@@ -659,10 +660,12 @@ def test_walk_sees_the_cluster_slice():
               "tools.ceph_cli", "tools.psim"):
         assert f"ceph_tpu_torch.{m}" in mods
     assert sorted(m for m in mods if m.startswith("ceph_tpu_torch.mesh")) \
-        == ["ceph_tpu_torch.mesh", "ceph_tpu_torch.mesh.chipstat"]
+        == ["ceph_tpu_torch.mesh", "ceph_tpu_torch.mesh.chipstat",
+            "ceph_tpu_torch.mesh.pool", "ceph_tpu_torch.mesh.rateless",
+            "ceph_tpu_torch.mesh.runtime", "ceph_tpu_torch.mesh.topology"]
+    from ceph_tpu import mesh as jax_mesh_pkg
     from ceph_tpu_torch import mesh
-    assert sorted(mesh.__all__) == ["ChipStat", "chip_latency_axes",
-                                    "g_chipstat", "mesh_chip_perf_counters"]
+    assert set(jax_mesh_pkg.__all__) <= set(mesh.__all__)
 
 
 def test_cluster_slice_carries_no_breaker():
@@ -771,3 +774,86 @@ def test_vstart_daemons_hold_no_catch_all():
     for fn in ("_open_device", "osd_main", "mon_main", "_daemon_start"):
         f = _function("vstart.py", fn)
         assert not [n for n in ast.walk(f) if isinstance(n, ast.Try)], fn
+
+
+# ---- the mesh slice ---------------------------------------------------------
+
+def test_walk_sees_the_mesh_slice():
+    """The package walk reaches the mesh and ``parallel/`` with the JAX
+    package's module names, and K9x's source is among the build's."""
+    mods = _modules()
+    for m in ("mesh.topology", "mesh.pool", "mesh.runtime", "mesh.rateless",
+              "mesh.chipstat", "parallel", "parallel.mesh", "parallel.step",
+              "parallel.ec", "parallel.crush", "ops.mesh_xor"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert "mesh_xor" in _build.sources()
+
+
+MESH_FILES = sorted(str(p.relative_to(PKG)) for d in ("mesh", "parallel")
+                    for p in (PKG / d).glob("*.py"))
+
+
+@pytest.mark.parametrize("path", MESH_FILES)
+def test_mesh_slice_imports_no_jax_and_holds_no_guard(path):
+    """Nothing under ``mesh/`` or ``parallel/`` imports ``jax`` or
+    ``ceph_tpu``, names ``run_device_call`` or ``DeviceUnavailable``, or
+    catches ``RuntimeError`` or everything around a launch."""
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] not in ("jax", "ceph_tpu"), path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in ("jax", "ceph_tpu"), path
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    names |= {a.name for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) for a in n.names}
+    for name in ("run_device_call", "DeviceUnavailable"):
+        assert name not in names, (path, name)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ExceptHandler):
+            caught = ([node.type] if not isinstance(node.type, ast.Tuple)
+                      else node.type.elts) if node.type else [None]
+            for c in caught:
+                assert c is None or getattr(c, "id", None) not in (
+                    "RuntimeError", "Exception", "BaseException"), \
+                    (path, node.lineno)
+                assert c is not None, (path, node.lineno)
+
+
+def test_batch_mesh_stays_on_its_platform():
+    """``batch_mesh(-1)`` holds members of one platform only, the CPU's
+    here, and clamps an over-ask; a mesh on ``cuda`` with no card
+    raises."""
+    from ceph_tpu_torch.mesh import (addressable_devices, batch_mesh,
+                                     members_per_device,
+                                     set_members_per_device)
+    from ceph_tpu_torch.parallel import make_mesh
+    set_members_per_device(8)
+    mesh = batch_mesh(-1)
+    assert {m.device.type for m in mesh.members} == {"cpu"}
+    assert mesh.size == 8 == members_per_device()
+    assert batch_mesh(64).size == 8
+    assert batch_mesh(-1, platform="cpu").size == 8
+    if not torch.cuda.is_available():
+        for call in (lambda: batch_mesh(-1, platform="cuda"),
+                     lambda: addressable_devices(platform="cuda"),
+                     lambda: make_mesh(8, platform="cuda")):
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
+    with pytest.raises(ValueError):
+        set_members_per_device(0)
+
+
+def test_xor_reduce_non_cpu_tensor_never_takes_plain(monkeypatch):
+    """K9x's wrapper takes its plain version only for a CPU tensor: a
+    tensor on another device launches or raises."""
+    from ceph_tpu_torch.ops import mesh_xor
+
+    def boom(*a, **kw):
+        raise AssertionError("plain version reached")
+    monkeypatch.setattr(mesh_xor, "xor_reduce_plain", boom)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        mesh_xor.xor_reduce(torch.zeros((2, 4), dtype=torch.uint8,
+                                        device="meta"))

@@ -5,8 +5,8 @@ One seed and one shape per case go through both packages' ``run_traffic``
 on equal clusters: the deterministic tallies (ops completed, rounds,
 bytes moved, byte-exactness, per-client issued / completed / throttled
 and the round latency) are equal; wall-clock latencies are not compared.
-The elastic-membership events raise in the port where they would build a
-mesh of two or more chips.
+The elastic-membership events change both meshes alike (8 CPU members on
+the port's side, 8 virtual devices on JAX's).
 """
 import pytest
 
@@ -61,19 +61,56 @@ def test_run_traffic_tallies_equal(clean, pool_kind, shape):
     assert pc.pg_states() == jc.pg_states()
 
 
-def test_mesh_membership_events_raise_in_the_port(clean):
-    """``mesh_chip_add`` to 2 chips raises before the option changes; a
-    retire that lands on one chip (the single device) does not."""
-    c = PortCluster(n_osds=4)
-    c.create_replicated_pool("load", size=3, pg_num=8)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_run(c, PortSpec(pool="load", n_clients=2, ops_per_client=2,
-                             events=((0, "mesh_chip_add", 2),)))
-    assert int(g_conf.get_val("ec_mesh_chips")) == 0
-    res = port_run(c, PortSpec(pool="load", n_clients=2, ops_per_client=2,
-                               events=((0, "mesh_chip_retire", 1),)))
-    assert res.byte_exact
-    assert int(g_conf.get_val("ec_mesh_chips")) == 1
-    with pytest.raises(ValueError, match="unknown traffic event"):
-        port_run(c, PortSpec(pool="load", n_clients=1, ops_per_client=1,
-                             events=((0, "osd_explode", 1),)))
+def test_mesh_membership_events_equal(clean):
+    """``mesh_chip_retire`` / ``mesh_chip_add`` under EC traffic move both
+    packages' ``ec_mesh_chips`` and mesh through the same transitions:
+    byte-exact tallies, equal membership counters and journal events;
+    an unknown event raises in both."""
+    from ceph_tpu.common.config import g_conf as jax_conf
+    from ceph_tpu.mesh import g_mesh as jax_mesh
+    from ceph_tpu.mesh.runtime import membership_perf_counters as jax_mpc
+    from ceph_tpu.trace.journal import g_journal as jax_journal
+    from ceph_tpu_torch.mesh import (g_mesh, membership_perf_counters,
+                                     set_members_per_device)
+    from ceph_tpu_torch.trace.journal import g_journal
+    set_members_per_device(8)
+    confs = {PORT: g_conf, JAX: jax_conf}
+    meshes = {PORT: g_mesh, JAX: jax_mesh}
+    mpcs = {PORT: membership_perf_counters, JAX: jax_mpc}
+    journals = {PORT: g_journal, JAX: jax_journal}
+    seen = {}
+    try:
+        for pkg in (JAX, PORT):
+            confs[pkg].set_val("ec_mesh_chips", 8)
+            confs[pkg].set_val("ec_dispatch_batch_window_us", 200_000)
+            meshes[pkg].topology()
+            before = dict(mpcs[pkg]().dump())
+            res = run(pkg, "ec", n_clients=2, ops_per_client=6,
+                      events=((1, "mesh_chip_retire", 3),
+                              (3, "mesh_chip_add", 2)))[0]
+            after = mpcs[pkg]().dump()
+            seen[pkg] = (res, int(confs[pkg].get_val("ec_mesh_chips")),
+                         meshes[pkg].topology().size,
+                         {n: after[n] - before[n] for n in
+                          ("transitions", "chip_adds", "chip_retires")},
+                         [e["type"] for e in journals[pkg].merged()
+                          if e["type"] in ("mesh_chip_add",
+                                           "mesh_chip_retire")])
+    finally:
+        for pkg in (JAX, PORT):
+            confs[pkg].rm_val("ec_mesh_chips")
+            confs[pkg].rm_val("ec_dispatch_batch_window_us")
+            meshes[pkg].topology()
+    assert seen[PORT] == seen[JAX]
+    res, chips, size, counts, events = seen[PORT]
+    assert res[4] is True
+    assert chips == size == 7
+    assert counts == {"transitions": 2, "chip_adds": 2, "chip_retires": 3}
+    assert events == ["mesh_chip_retire", "mesh_chip_add"]
+    for pkg in (JAX, PORT):
+        cluster, spec, go, _ec = SIDES[pkg]
+        c = cluster(n_osds=4)
+        c.create_replicated_pool("load", size=3, pg_num=8)
+        with pytest.raises(ValueError, match="unknown traffic event"):
+            go(c, spec(pool="load", n_clients=1, ops_per_client=1,
+                       events=((0, "osd_explode", 1),)))

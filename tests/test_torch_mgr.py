@@ -7,8 +7,8 @@ the SLO engine and the controller act on (admission rejections on the
 cluster's clock) are deterministic and compared by value.  The
 exposition is compared family by family in a fresh interpreter, so that
 no earlier test's process-global histograms reach either side; the
-families the port leaves out by design (ROADMAP Queue 3) are the JAX
-mesh's four counter families and the breaker gauge.
+one family the port leaves out by design (ROADMAP Queue 3) is the
+breaker gauge.
 """
 import json
 import subprocess
@@ -156,15 +156,29 @@ def test_controller_moves_equal_from_the_same_slo_inputs(clean):
         jax_conf.get_val("osd_op_queue_admission_max") == 64
 
 
-def test_controller_rateless_knob_has_no_mesh(clean):
-    """The rateless width's bounds read the port's mesh switch: no mesh
-    for 0 or 1 chips, a raise for a mesh of 2 or more."""
-    ctl = PortController()
-    knobs = ctl.dump()["knobs"]["ec_mesh_rateless_tasks"]
-    assert knobs["floor"] is None and knobs["ceiling"] is None
-    g_conf.set_val("ec_mesh_chips", 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ctl.dump()
+def test_controller_rateless_knob_bounds_equal(clean):
+    """The rateless width's bounds read each package's mesh: none with
+    the mesh off, size + 1 .. 2 x size for a mesh of 1 or 2 (8 CPU
+    members on the port's side), equal in both controllers' dumps."""
+    from ceph_tpu.mesh import g_mesh as jax_mesh
+    from ceph_tpu_torch.mesh import g_mesh, set_members_per_device
+    set_members_per_device(8)
+    ctl, jctl = PortController(), JaxController()
+    try:
+        for chips, bounds in ((0, (None, None)), (1, (2, 2)),
+                              (2, (3, 4))):
+            set_both("ec_mesh_chips", chips)
+            g_mesh.topology()
+            jax_mesh.topology()
+            knob = ctl.dump()["knobs"]["ec_mesh_rateless_tasks"]
+            jknob = jctl.dump()["knobs"]["ec_mesh_rateless_tasks"]
+            assert (knob["floor"], knob["ceiling"]) == bounds, chips
+            assert knob == jknob
+    finally:
+        g_conf.rm_val("ec_mesh_chips")
+        jax_conf.rm_val("ec_mesh_chips")
+        g_mesh.topology()
+        jax_mesh.topology()
 
 
 def test_check_degraded_codecs_never_raises(clean):
@@ -210,10 +224,10 @@ print(json.dumps([families(run(J, {{"plugin": "tpu"}})),
 """
 
 
-def test_prometheus_exposition_equal_but_queue3_families():
+def test_prometheus_exposition_equal_but_breakers():
     """Every family the port exposes, the JAX package exposes with the
-    same type; the JAX-only families are exactly the mesh's four counter
-    loggers and the breaker gauge."""
+    same type, the mesh's five counter families included; the one
+    JAX-only family is the breaker gauge."""
     out = subprocess.run(
         [sys.executable, "-c", EXPOSITION.format(repo=str(REPO))],
         cwd=str(REPO), capture_output=True, text=True, timeout=300,
@@ -222,13 +236,10 @@ def test_prometheus_exposition_equal_but_queue3_families():
     jfam, pfam = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(pfam) <= set(jfam)
     assert {n: jfam[n] for n in pfam} == pfam
-    extra = set(jfam) - set(pfam)
-    mesh = ("ceph_daemon_mesh_", "ceph_daemon_mesh_decode_",
-            "ceph_daemon_mesh_membership_", "ceph_daemon_mesh_rateless_")
-    assert "ceph_tpu_codec_degraded" in extra
-    rest = extra - {"ceph_tpu_codec_degraded"}
-    assert rest and all(n.startswith(mesh) for n in rest)
-    assert not any(n.startswith("ceph_daemon_mesh_chip_") for n in extra)
-    assert any(n.startswith("ceph_daemon_mesh_chip_") for n in pfam)
+    assert set(jfam) - set(pfam) == {"ceph_tpu_codec_degraded"}
+    for prefix in ("ceph_daemon_mesh_", "ceph_daemon_mesh_decode_",
+                   "ceph_daemon_mesh_membership_",
+                   "ceph_daemon_mesh_rateless_", "ceph_daemon_mesh_chip_"):
+        assert any(n.startswith(prefix) for n in pfam), prefix
     assert "ceph_cluster_control_moves" in pfam
     assert any(n.startswith("ceph_oplat_") for n in pfam)

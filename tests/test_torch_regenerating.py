@@ -89,7 +89,7 @@ def test_codec_matches_jax(clean, profile):
             np.testing.assert_array_equal(rebuilt.reshape(-1), full[lost])
 
 
-def test_repair_refusals_and_mesh(clean, monkeypatch):
+def test_repair_refusals_and_mesh(clean):
     port, ref = _pair({"k": "3", "m": "2", "d": "4"})
     n = port.get_chunk_count()
     full = port.encode(set(range(n)), bytes(range(256)) * 20)
@@ -100,14 +100,29 @@ def test_repair_refusals_and_mesh(clean, monkeypatch):
             codec.repair(0, dict(list(contribs.items())[:3]))
         with pytest.raises(ValueError):
             codec.repair(1, contribs)
-    # the JAX codec would shard this solve over a mesh; the port's has
-    # none and refuses before any launch
-    monkeypatch.setattr(port, "_use_device", lambda: True)
+    # with a mesh of two members the port's repair solve and decode
+    # ride it (the repair folded along the byte axis), byte-equal to the
+    # JAX codec's single-device answers
+    from ceph_tpu_torch.mesh import (g_mesh, mesh_decode_perf_counters,
+                                     set_members_per_device)
+    from ceph_tpu_torch.mesh.runtime import (l_mdec_dispatches,
+                                             l_mdec_repair_solves)
+    set_members_per_device(8)
     g_conf.set_val("ec_mesh_chips", 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.repair(0, contribs)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.decode_batch({i: full[i][None, :] for i in range(1, n)}, [0])
+    pc = mesh_decode_perf_counters()
+    r0, d0 = pc.get(l_mdec_repair_solves), pc.get(l_mdec_dispatches)
+    try:
+        np.testing.assert_array_equal(port.repair(0, contribs),
+                                      ref.repair(0, contribs))
+        chunks = {i: full[i][None, :] for i in range(1, n)}
+        np.testing.assert_array_equal(
+            port.decode_batch(chunks, [0])[0],
+            ref.decode_batch(chunks, [0])[0])
+        assert pc.get(l_mdec_repair_solves) == r0 + 1
+        assert pc.get(l_mdec_dispatches) >= d0 + 2
+    finally:
+        g_conf.rm_val("ec_mesh_chips")
+        g_mesh.topology()
 
 
 def _regen_boot(pkg):

@@ -26,7 +26,7 @@ from ceph_tpu.trace.journal import g_journal as jax_journal
 from ceph_tpu_torch.common.config import g_conf
 from ceph_tpu_torch.dispatch import g_dispatcher
 from ceph_tpu_torch.fault import g_faults
-from ceph_tpu_torch.mesh import g_chipstat
+from ceph_tpu_torch.mesh import g_chipstat, g_mesh
 from ceph_tpu_torch.trace.journal import g_journal
 
 JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
@@ -37,7 +37,7 @@ PLUGIN = {JAX: {"plugin": "tpu"},
 def reset_both() -> None:
     """Both packages at their defaults: dispatchers drained, every
     option unset, no fault armed, both event journals and chip
-    scoreboards empty, the JAX mesh down with its breakers empty.
+    scoreboards empty, both meshes down and the JAX breakers empty.
 
     The journals are process-global and no cluster clears them: an
     incident bundle's timeline is the merged tail of every event the
@@ -55,6 +55,7 @@ def reset_both() -> None:
         for name in list(conf.values):
             conf.rm_val(name)
     jax_mesh.topology()
+    g_mesh.topology()
     g_journal.reset()
     jax_journal.reset()
     g_chipstat.reset()
