@@ -23,8 +23,12 @@ and the three cluster workloads on a ``MiniCluster``: the traffic
 harness (8 clients over a replicated pool), the zero-copy write A/B
 (resident against the bytes twin, gated by regress.py's ZERO-COPY gate)
 and the recovery storm (RS against regenerating, the recovery gate), at
-the JAX CLI's shapes.  Members that share one card give parity and
-per-member launches, not scaling.
+the JAX CLI's shapes; and last the harnesses on top of the mesh: the SLO
+autotune (the controller's three closed-loop scenarios, regress.py's
+CONTROL GATE) and composed chaos (seeded storylines, the CHAOS GATE:
+seed 24 in the smoke, seeds 24, 103, 196 and 20260807 on the card).
+Members that share one card give parity and per-member launches, not
+scaling.
 
   --gate off|warn|fail   compare fenced metrics against the archived
                 BENCH_r*.json trajectory (regress.py), readings of the
@@ -33,7 +37,7 @@ per-member launches, not scaling.
 
 Output: ONE JSON line on stdout carrying schema-valid metrics; human
 progress goes to stderr.  The line's ``not_ported`` names the JAX
-bench's workloads this CLI does not run yet.
+bench's workloads this CLI does not run (none).
 """
 from __future__ import annotations
 
@@ -44,8 +48,8 @@ import sys
 import time
 import traceback
 
-# the JAX bench's workloads this CLI does not run yet
-NOT_PORTED = ("measure_composed_chaos", "measure_slo_autotune")
+# the JAX bench's workloads this CLI does not run
+NOT_PORTED: tuple = ()
 
 
 def main(argv=None) -> int:
@@ -67,6 +71,7 @@ def main(argv=None) -> int:
 
     from . import regress
     from .workloads import (_device_info, bench_perf_counters,
+                            measure_composed_chaos,
                             measure_crush_remap, measure_decode,
                             measure_degraded_read,
                             measure_dispatch_coalesce, measure_ec_mesh,
@@ -74,7 +79,8 @@ def main(argv=None) -> int:
                             measure_ec_write_zero_copy, measure_encode,
                             measure_host_native, measure_mesh_skew,
                             measure_mesh_straggler, measure_recovery_storm,
-                            measure_traffic, parity_check)
+                            measure_slo_autotune, measure_traffic,
+                            parity_check)
     from ..gf.matrices import gf_gen_rs_matrix
     from ..mesh import topology
 
@@ -260,6 +266,36 @@ def main(argv=None) -> int:
                  f"subset completions {sd['subset_completions']}, "
                  f"fallbacks {sd['single_device_fallbacks']}, "
                  f"identical {md['identical']})")
+        # the self-tuning control plane (control/): the three closed-loop
+        # scenarios on real clusters, the actuation receipts gated by
+        # regress.py's CONTROL GATE
+        ma = measure_slo_autotune(device=device)
+        result["metrics"].append(ma)
+        ctrl = ma["control"]
+        scen = ctrl["scenarios"]
+        progress(f"slo_autotune worst converge {ma['value']} ticks "
+                 f"(admission {scen['admission']['converge_ticks']}, "
+                 f"recovery {scen['recovery']['converge_ticks']}, "
+                 f"straggler {scen['straggler']['converge_ticks']}; "
+                 f"disabled twin moves {ctrl['disabled_moves']}, "
+                 f"byte_exact {ctrl['byte_exact']}, "
+                 f"launches {ma['launches']}, wall {ma['wall_s']} s)")
+        # composed chaos (chaos/): pinned seeded storylines end to end,
+        # every receipt judged by regress.py's CHAOS GATE; the smoke runs
+        # seed 24 (straggler + chip-fail + elastic membership), the card
+        # all four
+        mx = measure_composed_chaos(
+            seeds=(24,) if args.smoke else (24, 103, 196, 20260807),
+            device=device)
+        result["metrics"].append(mx)
+        chb = mx["chaos"]
+        progress(f"composed_chaos {mx['value']} ops/s over "
+                 f"{len(chb['receipts'])} storylines (accepted "
+                 f"{chb['accepted']}, wedges "
+                 f"{sum(1 for r in chb['receipts'] if r['wedged'])}, "
+                 f"byte_exact "
+                 f"{all(r['byte_exact'] for r in chb['receipts'])}, "
+                 f"launches {mx['launches']}, wall {mx['wall_s']} s)")
         result["decode_parity"] = parity_check(matrix, device=device)
         if not result["decode_parity"]:
             rc = 1

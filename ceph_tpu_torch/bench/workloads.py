@@ -22,7 +22,10 @@ harness and the recovery scheduler.  The mesh workloads
 (``measure_ec_mesh``, ``measure_mesh_skew``, ``measure_mesh_straggler``,
 ``measure_degraded_read``) run on a mesh of members (``mesh/``); members
 that share one card give parity and per-member launches, not scaling.
-Not here yet: ``measure_slo_autotune`` and ``measure_composed_chaos``.
+The harnesses on top of the mesh (``measure_slo_autotune``, the
+controller's three closed-loop scenarios, and ``measure_composed_chaos``,
+seeded storylines through ``chaos.run_scenario``) drive clusters and the
+mesh together.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from .roofline import (EC_DECODE_K8M4_SALTED, EC_ENCODE_K8M4,
 from .schema import make_metric
 from .stats import repeat_measure, summarize
 from ..common.perf_counters import PerfCounters, PerfCountersBuilder
+from ..ec.cuda_plugin import backend_profile
 from ..gf.tables import expand_to_bitmatrix
 from ..ops.gf_matmul import DeviceRSBackend, resolve_device
 from ..ops.gf_pallas import BitMatrix, gf_bit_matmul_kernel
@@ -858,14 +862,6 @@ def measure_crush_remap(n_osds=1000, n_pgs=100_000, epochs=10,
 
 
 # ---- the cluster workloads (MiniCluster, load/, recovery) -----------------
-def _cluster_profile(device) -> Dict[str, str]:
-    """The extra EC profile of a cluster workload's pools: none on the
-    card (the codecs' default backend is ``cuda``), ``backend=host``
-    when the caller asks for the CPU."""
-    return {} if resolve_device(device).type == "cuda" \
-        else {"backend": "host"}
-
-
 def measure_traffic(*, n_clients: int = 8, ops_per_client: int = 32,
                     read_fraction: float = 0.5, n_osds: int = 4,
                     pg_num: int = 8, mode: str = "closed",
@@ -1033,7 +1029,7 @@ def measure_ec_write_zero_copy(*, n_osds: int = 6, k: int = 3,
             g_conf.set_val("os_memstore_device_bytes_max", budget)
             cluster = MiniCluster(n_osds=n_osds)
             cluster.create_ec_pool("zc", k=k, m=m, pg_num=pg_num,
-                                   extra_profile=_cluster_profile(device))
+                                   extra_profile=backend_profile(device))
             cl = cluster.client(f"client.zc_{leg}")
             flow0 = g_devprof.snapshot()
             stage0 = g_oplat.snapshot()
@@ -1139,11 +1135,11 @@ def measure_recovery_storm(*, k: int = 8, m: int = 4, d: int = 10,
     cluster = MiniCluster(n_osds=n_osds)
     cluster.create_ec_pool("storm_rs", k=k, m=m, pg_num=pg_num,
                            plugin="cuda",
-                           extra_profile=_cluster_profile(device))
+                           extra_profile=backend_profile(device))
     cluster.create_ec_pool("storm_regen", k=k, m=m, pg_num=pg_num,
                            plugin="regenerating",
                            extra_profile={"d": str(d),
-                                          **_cluster_profile(device)})
+                                          **backend_profile(device)})
     cl = cluster.client("client.storm")
     rng = np.random.default_rng(seed)
     bodies: Dict[str, bytes] = {}
@@ -1298,8 +1294,7 @@ def _mesh_codec(k: int, m: int, device):
     from ..ec.cuda_plugin import ErasureCodeCuda
     impl = ErasureCodeCuda()
     impl.init({"k": str(k), "m": str(m), "technique": "reed_sol_van",
-               "backend": "cuda" if resolve_device(device).type == "cuda"
-               else "host"})
+               **backend_profile(device)})
     return impl
 
 
@@ -1907,7 +1902,7 @@ def measure_degraded_read(*, mesh_chips: int = 8, slow_chip: int = 5,
 
     cluster = MiniCluster(n_osds=k + m + 2)
     cluster.create_ec_pool("dread", k=k, m=m, pg_num=1, plugin="cuda",
-                           extra_profile=_cluster_profile(device))
+                           extra_profile=backend_profile(device))
     cl = cluster.client("client.dread")
     rng = np.random.default_rng(seed)
     bodies: Dict[str, bytes] = {}
@@ -2082,4 +2077,393 @@ def measure_degraded_read(*, mesh_chips: int = 8, slow_chip: int = 5,
             "stage_breakdown": _stage_breakdown_since(
                 stage0, wall_s, max(n_ops, 1)),
             "errors": res.errors[:8],
+        })
+
+
+# ---- the harnesses on the mesh (control/, chaos/) ---------------------------
+def measure_slo_autotune(*, mesh_chips: int = 8, slow_chip: int = 5,
+                         delay_us: int = 30_000,
+                         tick_budget: int = 80,
+                         seed: int = 20260807,
+                         name: str = "slo_autotune",
+                         device="cuda") -> Dict[str, Any]:
+    """The closed-loop control-plane workload (docs/CONTROL.md): run
+    the policy map's three scenarios — abusive client, recovery storm
+    under an SLO burn, straggling chip — on real mini clusters with
+    the mgr controller ENABLED and nothing else touching the knobs,
+    and record the actuation receipts bench/regress.py's CONTROL GATE
+    pins as absolute invariants:
+
+    - each scenario RAISES its SLO/health pressure, the controller
+      moves the responsible knob, and the episode CLEARS (knobs back
+      at baseline) within *tick_budget* mgr ticks of the pressure
+      ending — zero operator action;
+    - every move in every ledger stays inside its knob's
+      floor/ceiling;
+    - a disabled-controller twin of the abusive-client leg makes ZERO
+      moves (observe-only mgr by construction);
+    - client ops stay byte-exact throughout (the control plane must
+      never touch the data path).
+
+    The metric value is the worst (largest) convergence tick count
+    across the three scenarios — lower is a snappier control plane,
+    and the CONTROL GATE's budget is the hard wall.
+
+    The recovery leg's ``regenerating`` pool and the straggler leg's
+    ``cuda`` codec (the JAX package's ``tpu``) run on the card;
+    ``device="cpu"`` gives them ``backend=host``, the backend of a CPU
+    mesh.  The ``launches`` block holds K1's and K9x's launch counts.
+    """
+    from ..cluster import MiniCluster
+    from ..common.config import g_conf
+    from ..dispatch import g_dispatcher
+    from ..fault import g_faults
+    from ..load import TrafficSpec, run_traffic
+    from ..mesh import g_chipstat, g_mesh
+    from ..osd.ecutil import encode as eu_encode, stripe_info_t
+
+    saved = {opt: g_conf.values.get(opt) for opt in
+             ("mgr_control_enable", "mgr_control_cooldown_ticks",
+              "mgr_control_bounds", "mgr_slo_admission_rate_max",
+              "mgr_slo_oplat_p99_usec", "mgr_slo_fast_window_s",
+              "mgr_slo_slow_window_s", "mgr_telemetry_retention",
+              "osd_op_queue_admission_max",
+              "osd_mclock_client_overrides",
+              "osd_mclock_class_overrides", "osd_recovery_max_active",
+              "ec_mesh_chips", "ec_mesh_rateless",
+              "ec_mesh_rateless_tasks", "ec_mesh_skew_sample_every",
+              "ec_mesh_skew_threshold", "ec_dispatch_batch_max",
+              "ec_dispatch_batch_window_us")}
+    t_wall0 = time.perf_counter()
+    flow0 = g_devprof.snapshot()
+    launches0 = _launches()
+    stage0 = g_oplat.snapshot()
+    byte_exact = True
+    receipts: list = []
+    incident_blocks: Dict[str, Any] = {}
+
+    def _leg_incidents(leg: str, cluster) -> None:
+        # each leg's cluster is discarded on return, so the incident
+        # receipt is harvested here; the health raise auto-captures,
+        # and the operator fallback only fires if it never raised
+        inc_mgr = cluster.mgr.incident
+        if inc_mgr.captures_total == 0:
+            inc_mgr.capture("operator", f"{leg} leg fallback capture",
+                            reason="operator")
+        incident_blocks[leg] = inc_mgr.receipt()
+
+    def _slo_windows() -> None:
+        g_conf.set_val("mgr_slo_fast_window_s", 6.0)
+        g_conf.set_val("mgr_slo_slow_window_s", 12.0)
+        g_conf.set_val("mgr_telemetry_retention", 10_000)
+
+    def _in_bounds(ctl) -> bool:
+        # pressure-driven moves must land inside [floor, ceiling];
+        # restore/teardown moves walk back to the OPERATOR baseline,
+        # which may legitimately sit outside the actuation corridor
+        # (e.g. cap 0 = uncapped) — their invariant is "cleared"
+        knobs = ctl.dump()["knobs"]
+        return all(knobs[e["knob"]]["floor"] <= e["to"]
+                   <= knobs[e["knob"]]["ceiling"]
+                   for e in ctl._ledger
+                   if e["reflex"] not in ("restore", "teardown"))
+
+    def _abusive_run(cluster, ops_per_client=96):
+        spec = TrafficSpec(pool="abuse", n_clients=4,
+                           ops_per_client=ops_per_client,
+                           read_fraction=0.25,
+                           mode="open", rate=10.0,
+                           rate_multipliers=(6.0, 1.0, 1.0, 1.0),
+                           tick_every=1, seed=seed,
+                           keep_completions=False)
+        return run_traffic(cluster, spec)
+
+    def leg_disabled_twin() -> int:
+        """The abusive-client drive with the controller OFF: the mgr
+        must be observe-only by construction — zero moves."""
+        nonlocal byte_exact
+        cluster = MiniCluster(n_osds=4)
+        cluster.create_replicated_pool("abuse", size=2, pg_num=8)
+        _slo_windows()
+        g_conf.set_val("mgr_slo_admission_rate_max", 0.001)
+        g_conf.set_val("osd_op_queue_admission_max", 4)
+        res = _abusive_run(cluster, ops_per_client=48)
+        byte_exact &= bool(res.byte_exact)
+        for _ in range(8):
+            cluster.tick(dt=1.0)
+        return cluster.mgr.control.moves_total
+
+    def leg_admission() -> Dict[str, Any]:
+        nonlocal byte_exact
+        cluster = MiniCluster(n_osds=4)
+        cluster.create_replicated_pool("abuse", size=2, pg_num=8)
+        g_conf.set_val("mgr_control_enable", True)
+        g_conf.set_val("mgr_control_cooldown_ticks", 1)
+        _slo_windows()
+        g_conf.set_val("mgr_slo_admission_rate_max", 0.001)
+        g_conf.set_val("osd_op_queue_admission_max", 4)
+        res = _abusive_run(cluster)
+        byte_exact &= bool(res.byte_exact)
+        ctl = cluster.mgr.control
+        tightens = [e for e in ctl._ledger
+                    if e["reflex"] == "admission"]
+        converge = -1
+        for i in range(tick_budget):
+            cluster.tick(dt=1.0)
+            if "TPU_SLO_ADMISSION" not in cluster.mgr.health_checks \
+                    and all(k["baseline"] is None for k in
+                            ctl.dump()["knobs"].values()):
+                converge = i + 1
+                break
+        receipts.extend(list(ctl._ledger)[-6:])
+        _leg_incidents("admission", cluster)
+        return {"raised": bool(tightens),
+                "moves": ctl.moves_total,
+                "abuser_correct": all("client.abuse.0" in e["reason"]
+                                      for e in tightens),
+                "cleared": converge >= 0,
+                "converge_ticks": converge,
+                "in_bounds": _in_bounds(ctl)}
+
+    def leg_recovery() -> Dict[str, Any]:
+        nonlocal byte_exact
+        # k8m4/d10 mirrors measure_recovery_storm so the smoke tier
+        # reuses its compiled encode/decode shapes
+        cluster = MiniCluster(n_osds=14)
+        cluster.create_ec_pool("rstorm", k=8, m=4, pg_num=4,
+                               plugin="regenerating",
+                               extra_profile={"d": "10",
+                                              **backend_profile(device)})
+        cl = cluster.client("client.rstorm")
+        rng = np.random.default_rng(seed)
+        bodies = {}
+        for i in range(10):
+            body = rng.integers(0, 256, 4096,
+                                dtype=np.uint8).tobytes()
+            bodies[f"o{i}"] = body
+            assert cl.write_full("rstorm", f"o{i}", body) == 0
+        g_conf.set_val("mgr_control_enable", True)
+        g_conf.set_val("mgr_control_cooldown_ticks", 1)
+        _slo_windows()
+        g_conf.set_val("mgr_slo_oplat_p99_usec", "reply:1")
+        base_active = int(g_conf.get_val("osd_recovery_max_active"))
+        ctl = cluster.mgr.control
+        # phase 1: the burn sustains under client IO, no storm yet
+        for i in range(6):
+            cl.write_full("rstorm", f"pre{i}", b"x" * 4096)
+            cluster.tick(dt=1.0)
+        raised = "TPU_SLO_OPLAT" in cluster.mgr.health_checks
+        quiet_moves = ctl.moves_total        # burn alone: no move
+        # phase 2: an OSD dies mid-burn -> the storm
+        pid = cluster.mon.osdmap.lookup_pg_pool_name("rstorm")
+        victim = next(pg.acting[-1]
+                      for pgid, pg in cluster.primary_pgs()
+                      if pgid[0] == pid and pg.backend is not None)
+        cluster.kill_osd(victim)
+        cluster.mark_osd_down(victim)
+        cluster.mark_osd_out(victim)
+        for i in range(8):
+            cl.write_full("rstorm", f"live{i}", b"x" * 4096)
+            cluster.tick(dt=1.0)
+        storm_moves = [e for e in ctl._ledger
+                       if e["reflex"] == "recovery"]
+        # phase 3: quiesce -> the burn clears -> restore to baseline
+        converge = -1
+        for i in range(tick_budget):
+            cluster.tick(dt=1.0)
+            if "TPU_SLO_OPLAT" not in cluster.mgr.health_checks \
+                    and int(g_conf.get_val("osd_recovery_max_active")) \
+                    == base_active:
+                converge = i + 1
+                break
+        for oid, body in bodies.items():
+            byte_exact &= cl.read("rstorm", oid) == body
+        receipts.extend(list(ctl._ledger)[-6:])
+        _leg_incidents("recovery", cluster)
+        return {"raised": raised,
+                "moves": ctl.moves_total,
+                "quiet_moves_before_storm": quiet_moves,
+                "storm_moves": len(storm_moves),
+                "cleared": converge >= 0,
+                "converge_ticks": converge,
+                "in_bounds": _in_bounds(ctl)}
+
+    def leg_straggler() -> Dict[str, Any]:
+        nonlocal byte_exact
+        g_conf.set_val("ec_mesh_chips", mesh_chips)
+        g_conf.set_val("ec_dispatch_batch_window_us", 10**7)
+        g_conf.set_val("ec_dispatch_batch_max", 64)
+        g_conf.set_val("ec_mesh_skew_sample_every", 1)
+        g_conf.set_val("ec_mesh_skew_threshold", 3.0)
+        g_conf.set_val("ec_mesh_rateless", True)
+        g_conf.rm_val("ec_mesh_rateless_tasks")
+        cluster = MiniCluster(n_osds=4)
+        g_conf.set_val("mgr_control_enable", True)
+        g_conf.set_val("mgr_control_cooldown_ticks", 1)
+        g_conf.set_val("mgr_control_bounds",
+                       f"ec_mesh_rateless_tasks:"
+                       f"{mesh_chips + 1}:{mesh_chips + 4}")
+        # k4m2 x 3-request x 2-stripe x 1KiB chunks mirrors
+        # measure_mesh_skew so the smoke tier reuses its compiles
+        impl = _mesh_codec(4, 2, device)
+        sinfo = stripe_info_t(4, 4 * 1024)
+        want = set(range(6))
+        rng = np.random.default_rng(seed)
+
+        def flush() -> None:
+            nonlocal byte_exact
+            payloads = [rng.integers(0, 256, size=2 * 4 * 1024,
+                                     dtype=np.uint8)
+                        for _ in range(3)]
+            oracles = [eu_encode(sinfo, impl, p, want)
+                       for p in payloads]
+            futs = [g_dispatcher.submit_encode(sinfo, impl, p, want)
+                    for p in payloads]
+            g_dispatcher.flush()
+            for f, oracle in zip(futs, oracles):
+                res = f.result()
+                byte_exact &= sorted(res) == sorted(oracle) and all(
+                    np.asarray(res[i]).tobytes()
+                    == np.asarray(oracle[i]).tobytes()
+                    for i in oracle)
+
+        flush()                            # compile warmup
+        g_chipstat.reset()
+        mesh_size = g_mesh.topology().size
+        auto_width = mesh_size + 2
+        ctl = cluster.mgr.control
+        g_faults.inject("mesh.chip_slowdown", mode="always",
+                        match=f"chip={slow_chip}/", delay_us=delay_us)
+        widened_at, raised = -1, False
+        try:
+            for i in range(16):
+                flush()
+                cluster.tick(dt=1.0)
+                raised |= "TPU_MESH_SKEW" in cluster.mgr.health_checks
+                if int(g_conf.get_val("ec_mesh_rateless_tasks")
+                       or 0) > auto_width:
+                    widened_at = i + 1
+                    break
+        finally:
+            g_faults.clear("mesh.chip_slowdown")
+        peak = int(g_conf.get_val("ec_mesh_rateless_tasks") or 0)
+        converge = -1
+        for i in range(tick_budget):
+            flush()
+            cluster.tick(dt=1.0)
+            width = int(g_conf.get_val("ec_mesh_rateless_tasks") or 0)
+            peak = max(peak, width)
+            if "TPU_MESH_SKEW" not in cluster.mgr.health_checks \
+                    and width < peak:
+                converge = i + 1
+                break
+        widths_ok = all(
+            mesh_size + 1 <= e["to"] <= 2 * mesh_size
+            for e in ctl._ledger
+            if e["knob"] == "ec_mesh_rateless_tasks")
+        receipts.extend(list(ctl._ledger)[-6:])
+        _leg_incidents("straggler", cluster)
+        return {"raised": raised,
+                "moves": ctl.moves_total,
+                "widen_ticks": widened_at,
+                "peak_width": peak,
+                "cleared": converge >= 0,
+                "converge_ticks": converge,
+                "in_bounds": _in_bounds(ctl) and widths_ok}
+
+    try:
+        disabled_moves = leg_disabled_twin()
+        admission = leg_admission()
+        recovery = leg_recovery()
+        straggler = leg_straggler()
+    finally:
+        g_faults.clear()
+        for opt, v in saved.items():
+            g_conf.rm_val(opt) if v is None else g_conf.set_val(opt, v)
+        g_dispatcher.flush()
+        g_mesh.topology()
+        g_chipstat.reset()
+    wall_s = round(max(time.perf_counter() - t_wall0, 1e-3), 3)
+    worst = max(admission["converge_ticks"],
+                recovery["converge_ticks"],
+                straggler["converge_ticks"])
+    v = float(worst if worst > 0 else tick_budget + 1)
+    return make_metric(
+        name, v, "ticks", fenced=True,
+        stats={"n": 1, "median": v, "iqr": 0.0, "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "control": {
+                "disabled_moves": disabled_moves,
+                "byte_exact": byte_exact,
+                "tick_budget": tick_budget,
+                "scenarios": {"admission": admission,
+                              "recovery": recovery,
+                              "straggler": straggler},
+            },
+            "incidents": incident_blocks,
+            "receipts": receipts[-18:],
+            "launches": _launches_since(launches0),
+            "devflow": _devflow_since(flow0, max(len(receipts), 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_s, max(len(receipts), 1)),
+            "wall_s": wall_s,
+        })
+
+
+def measure_composed_chaos(*, seeds: Tuple[int, ...] = (24, 103),
+                           name: str = "composed_chaos",
+                           device="cuda") -> Dict[str, Any]:
+    """The composed-chaos workload (chaos/, docs/CHAOS.md):
+    execute one seeded multi-fault storyline per entry in *seeds* on a
+    fresh ticking MiniCluster under open-loop harness traffic, and
+    record every receipt for bench/regress.py's CHAOS GATE, which pins
+    the universal acceptance as absolute invariants:
+
+    - every client op and every dispatcher oracle stays byte-exact
+      through the whole storyline;
+    - every health check the storyline promises — and every collateral
+      raise — both RAISES and CLEARS with zero operator action;
+    - every raise leaves a FINALIZED incident bundle whose gseq-ordered
+      timeline tells the injected storyline back (or a journaled
+      capture drop when losing the capture was itself the leg);
+    - zero wedges (no storyline exhausts its settle budget) and zero
+      mesh single-device fallbacks.
+
+    The metric value is aggregate completed client ops/s across the
+    seeds — a throughput floor for the whole chaos machinery, with the
+    invariants carried in the ``chaos`` block.  The storylines run on
+    the card; ``device="cpu"`` gives their codecs ``backend=host``.  The
+    ``launches`` block holds K1's and K9x's launch counts.
+    """
+    from ..chaos import compose_scenario, run_scenario
+
+    t0 = time.perf_counter()
+    flow0 = g_devprof.snapshot()
+    launches0 = _launches()
+    stage0 = g_oplat.snapshot()
+    receipts = []
+    total_ops = 0
+    for seed in seeds:
+        r = run_scenario(compose_scenario(int(seed)), device=device)
+        receipts.append(r)
+        total_ops += int(r["ops_completed"])
+    wall_s = round(max(time.perf_counter() - t0, 1e-3), 3)
+    v = round(total_ops / wall_s, 2)
+    return make_metric(
+        name, v, "ops/s", fenced=True,
+        stats={"n": len(receipts), "median": v, "iqr": 0.0,
+               "min": v, "max": v},
+        roofline={"verdict": "unknown", "suspect": False},
+        extra={
+            "chaos": {
+                "seeds": [int(s) for s in seeds],
+                "accepted": all(r["accepted"] for r in receipts),
+                "receipts": receipts,
+            },
+            "launches": _launches_since(launches0),
+            "devflow": _devflow_since(flow0, max(total_ops, 1)),
+            "stage_breakdown": _stage_breakdown_since(
+                stage0, wall_s, max(total_ops, 1)),
+            "wall_s": wall_s,
         })

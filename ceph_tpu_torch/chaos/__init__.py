@@ -1,5 +1,4 @@
-"""The seeded composed-chaos scenario engine; port of ``ceph_tpu/chaos``
-(``run_scenario`` raises: running a storyline is not ported yet).
+"""The seeded composed-chaos scenario engine; port of ``ceph_tpu/chaos``.
 
 Deterministic multi-fault storylines sampled over the cluster's
 primitive inventory (fault sites, topology events, the abusive-client

@@ -31,14 +31,17 @@ This module imports numpy for the settle-phase oracle flushes;
 composing and judging are host work (the fence-count extension in
 tests/test_observability.py pins zero device syncs).
 
-Port of ``ceph_tpu/chaos/engine.py``.  A storyline runs on an 8-chip
-mesh (``BASE_MESH_CHIPS``).  Composing and judging are ported;
-``run_scenario`` raises ``NotImplementedError`` before it touches any
-state: executing a storyline on the mesh is the next item of ROADMAP
-Queue 1 (with the bench's composed-chaos workload).  The settle
-phase's oracle codec is the ``cuda`` plugin; the port has no breakers
-to reset and its receipt's ``mesh_fallbacks`` is 0 (the mesh has no
-fallback).
+Port of ``ceph_tpu/chaos/engine.py``.  A storyline runs on an 8-member
+mesh (``BASE_MESH_CHIPS``).  The storyline's EC pool and the settle
+phase's oracle codec are the ``cuda`` plugin on the card, or
+``backend=host`` when the caller asks for the CPU (``device="cpu"``): a
+codec rides the mesh only on its own platform.  Two things of the JAX
+engine are not here by design: the port has no codec breakers, so there
+is no ``g_breakers.reset()``; and the port's mesh has no single-device
+fallback, so the receipt's ``mesh_fallbacks`` is 0 by construction.
+The ``device_error`` leg arms ``device.encode_batch``, a site the port
+lists but no code checks (it has no fault guard): the leg journals its
+arm and clear and never fires (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -185,7 +188,7 @@ def _compile(spec: ScenarioSpec, pool: str, n_clients: int,
         tick_every=8, events=tuple(events), hooks=tuple(hooks))
 
 
-def _oracle_flush_fn():
+def _oracle_flush_fn(device="cuda"):
     """A synthetic byte-exact flush for the settle phase: every call
     submits payloads through the dispatch/mesh path and compares the
     coding against the pure host oracle — the same per-flush receipt
@@ -193,10 +196,11 @@ def _oracle_flush_fn():
     probe while the health machinery converges."""
     import numpy as np
     from ..dispatch import g_dispatcher
-    from ..ec.cuda_plugin import ErasureCodeCuda
+    from ..ec.cuda_plugin import ErasureCodeCuda, backend_profile
     from ..osd.ecutil import encode as eu_encode, stripe_info_t
     impl = ErasureCodeCuda()
-    impl.init({"k": "4", "m": "2", "technique": "reed_sol_van"})
+    impl.init({"k": "4", "m": "2", "technique": "reed_sol_van",
+               **backend_profile(device)})
     sinfo = stripe_info_t(4, 4 * 1024)
     want = set(range(6))
     rng = np.random.default_rng(20260807)
@@ -351,21 +355,18 @@ def _acceptance(c, spec: ScenarioSpec, res, settle: Dict[str, Any],
 def run_scenario(spec: ScenarioSpec, n_osds: int = 6, k: int = 3,
                  m: int = 2, n_clients: int = 6,
                  ops_per_client: int = 12, rate: float = 3.0,
-                 progress=None) -> Dict[str, Any]:
+                 progress=None, device="cuda") -> Dict[str, Any]:
     """Execute one composed storyline end to end; returns the
     universal-acceptance receipt.  Owns the cluster and every process
-    singleton it touches (conf saved/restored, faults/dispatcher/
-    scoreboard reset after), so scenarios compose into
-    soaks without bleeding state.  Raises ``NotImplementedError``
-    before touching any state: running a storyline on the mesh is not
-    ported yet (ROADMAP Queue 1)."""
-    raise NotImplementedError(
-        "run_scenario: executing a storyline on the mesh is not ported "
-        "yet (ROADMAP Queue 1)")
+    singleton it touches (conf saved/restored, faults/dispatcher/mesh/
+    scoreboard reset after), so scenarios compose into soaks without
+    bleeding state.  The pool's and the oracle's codecs run on the card;
+    ``device="cpu"`` gives them ``backend=host``."""
     from ..cluster import MiniCluster
     from ..dispatch import g_dispatcher
+    from ..ec.cuda_plugin import backend_profile
     from ..fault import g_faults
-    from ..mesh import g_chipstat
+    from ..mesh import g_chipstat, g_mesh
     pc = chaos_perf_counters()
     saved = {n: g_conf.values.get(n) for n in TOUCHED}
     pc.set(l_chaos_active, 1)
@@ -384,12 +385,14 @@ def run_scenario(spec: ScenarioSpec, n_osds: int = 6, k: int = 3,
         g_conf.set_val("mgr_journal_ring_size", 2048)
         g_faults.clear()
         g_dispatcher.flush()
+        g_mesh.topology()
         c = MiniCluster(n_osds=n_osds)
-        c.create_ec_pool("chaos", k=k, m=m, pg_num=8)
+        c.create_ec_pool("chaos", k=k, m=m, pg_num=8,
+                         extra_profile=backend_profile(device))
         g_conf.set_val("mgr_control_enable", True)
         g_conf.set_val("mgr_control_cooldown_ticks", 1)
-        flush = _oracle_flush_fn()
-        flush()                          # compile warmup off the clock
+        flush = _oracle_flush_fn(device)
+        flush()                          # warmup off the clock
         g_chipstat.reset()
         gseq0 = g_journal.last_gseq()
         pc.inc(l_chaos_scenarios)
@@ -418,6 +421,7 @@ def run_scenario(spec: ScenarioSpec, n_osds: int = 6, k: int = 3,
                 g_conf.set_val(name, v)
         g_faults.clear()
         g_dispatcher.flush()
+        g_mesh.topology()
         g_chipstat.reset()
 
 

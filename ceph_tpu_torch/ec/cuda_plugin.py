@@ -10,7 +10,19 @@ that are already on the card, with no host copy.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 from .isa import ErasureCodeIsa
+
+
+def backend_profile(device) -> Dict[str, str]:
+    """The profile keys that put a ``cuda``-plugin codec on ``device``:
+    none on the card (the default backend), ``backend=host`` (the plain
+    versions) on the CPU.  Raises when the card is asked for and this
+    process has none."""
+    from ..ops.gf_matmul import resolve_device
+    return {} if resolve_device(device).type == "cuda" \
+        else {"backend": "host"}
 
 
 class ErasureCodeCuda(ErasureCodeIsa):

@@ -175,11 +175,17 @@ from . import cls_lock  # noqa: E402,F401
 def load_builtin_classes() -> None:
     """Import every in-tree object class (osd_class_load_list='*'):
     the reference OSD dlopens all cls plugins at start, so a client's
-    call works whether or not ITS process imported the owning package.
+    call works whether or not ITS process imported the owning package
+    — essential for cross-process clusters, where the OSD daemon never
+    imports the rbd or journal package on its own.
 
-    The port has only the classes of this module and ``cls_lock``,
-    both registered on import.  The JAX package also loads ``rbd``
-    (``rbd/cls_rbd``), ``fs`` (``cephfs/cls_fs``), ``rgw``
-    (``rgw/cls_rgw``) and ``journal`` (``journal/cls_journal``); they
-    come with those packages (ROADMAP Queue 1, the rest of the runtime),
-    and until then a call to one of their methods answers EOPNOTSUPP."""
+    The port loads ``rbd`` (``rbd/cls_rbd``) and ``journal``
+    (``journal/cls_journal``) beside the classes of this module and
+    ``cls_lock``.  The JAX package also loads ``fs`` (``cephfs/cls_fs``)
+    and ``rgw`` (``rgw/cls_rgw``); they come with those packages (ROADMAP
+    Queue 1, the rest of the runtime), and until then a call to one of
+    their methods answers EOPNOTSUPP."""
+    import importlib
+    for mod in ("ceph_tpu_torch.rbd.cls_rbd",
+                "ceph_tpu_torch.journal.cls_journal"):
+        importlib.import_module(mod)

@@ -102,10 +102,10 @@ m=4's ``create_rule`` (chooseleaf indep, size 12):
    with OSD (7e+3) % 1000 out (the K7a count must not move on them); an
    OSDMap of the (u) map with a replicated pool of 65536 PGs and an EC pool
    of 32768, ``OSDMapMapping().update`` and 10 epochs of ``mark_out`` (both
-   pools must map on the card).  A 2048-x sample of every epoch goes
-   against ``crush_do_rule`` and 1024 PGs per pool against
-   ``pg_to_up_acting_osds``, in a pool of worker processes; epoch 10 goes
-   against the plain versions on all 100000 x;
+   pools must map on the card).  A 2048-x sample of every other epoch
+   (0, 2, ..., 10) goes against ``crush_do_rule`` and 1024 PGs per pool
+   against ``pg_to_up_acting_osds``, in a pool of worker processes; epoch
+   10 goes against the plain versions on all 100000 x;
 5c. K7a over one candidate phase per configuration and K7b per epoch, in
    turns, 10 back to back per sample, and their plain versions; (f) and (g)
    are the host-clock walls of 4c's epochs.
@@ -331,8 +331,9 @@ The process slice (``msg/tcp.py``, ``auth/``, ``compressor/``,
    process over TCP.  (a) writes and reads; (b) two OSDs holding data
    shards SIGKILLed, degraded reads, 8 more writes; (c) both restarted on
    their data directories, ``wait_healthy``, recovery's pushes, reads,
-   then 4 other OSDs SIGKILLed and the 8 late objects read through the
-   restarted disks' recovered shards.
+   then (``--vstart`` only since the rbd slice, for the time limit) 4
+   other OSDs SIGKILLed and the 8 late objects read through the restarted
+   disks' recovered shards.
    Each OSD process opens the card and loads K1 before READY and reports
    both and its own K1 launches (the sum must move in every leg); the
    device memory the 12 processes took is the contexts' size.  ``python3 chip_smoke.py --vstart`` runs 4v
@@ -360,6 +361,31 @@ The mesh slice adds, after 4v (the earlier phases run as they did):
    degraded-read A/Bs, the mesh encode's receipt), with each leg's K1 /
    K9x launches.  ``python3 chip_smoke.py --mesh`` runs 4w alone after
    phases 1-2, running (d)'s workloads in its own process.
+
+The harnesses and rbd slice adds, to 4n and after 4w (the earlier phases
+run as they did):
+
+4n. the bench CLI's line also carries the SLO autotune and composed chaos
+   (seeds 24, 103, 196 and 20260807), ``not_ported`` empty: regress.py's
+   CONTROL and CHAOS gates pass, every storyline accepted, byte-exact and
+   unwedged, the autotune byte-exact with no move from its disabled twin;
+   each workload's wall and K1 / K9x launches are logged and counted.
+4x. a block device on an erasure-coded data pool (``rbd_slice``): a
+   ``MiniCluster`` of 12 OSDs, a replicated ``rbd`` pool (size 3) for the
+   headers and the journal, an ``ecdata`` pool (``cuda`` k=8 m=4, 128
+   PGs), ``rbd create --size 256M --data-pool ecdata --journaling`` at
+   order 22.  (a) fill, 64 writes of 4 MiB; (b) 128 writes of 4 KiB at
+   seeded random offsets, p50 / p99 per op; (c) snapshot, protect, a
+   clone on ``ecdata`` and 16 copyup writes into it, then a sample of
+   stored shards against the native host coder; (d) two OSDs holding
+   data shards killed and marked down, the image, its snapshot and the
+   clone exported against a numpy model; (e) an ``ImageMirror`` replaying
+   the source journal onto a second ``MiniCluster`` (6 OSDs, ``cuda``
+   k=4 m=2, 32 PGs), its export equal to the source.  K1 is counted per
+   leg (once per write in (a)-(c) and per replayed write in (e), at least
+   once per object that lost a data shard in each export of (d)), with
+   each leg's wall and the device's busy share where the profiler sees
+   it.  ``python3 chip_smoke.py --rbd`` runs 4x alone after phases 1-2.
 
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -1194,6 +1220,11 @@ CRUSH_SAMPLE = 4096               # x of 3c's K6 check
 # smoke inside its time limit with the process cluster (4v) added
 CRUSH_EPOCH_SAMPLE = 2048
 CRUSH_EPOCHS = 10
+# the drives' epochs whose sample goes to the host: every other one and the
+# last (0, 2, ..., 10), which keeps the whole smoke inside its time limit
+# with the rbd phase (4x) added; every epoch still runs on the card, with
+# its kernel counts and host_replayed checked
+CRUSH_CHECK_EVERY = 2
 OSDMAP_PG_NUM = {"rep": 65536, "ec": 32768}
 OSDMAP_SAMPLE = 1024              # PGs per pool held against the scalar path
 CHECK_PROCS = 7                   # host checks beside the main process
@@ -1620,6 +1651,8 @@ def crush_drive(configs, dev):
                 raise AssertionError(f"{name}: {fr.host_replayed} x "
                                      f"recomputed on the host, epoch {e}")
             resid.append(fr.residual_fraction)
+            if e % CRUSH_CHECK_EVERY:
+                continue
             got = [[int(v) for v in res[x, :cnt[x]]] for x in sample]
             wl = [int(v) for v in w]
             jobs.append((f"{name} epoch {e}", got, _do_rule_rows,
@@ -1684,6 +1717,8 @@ def osdmap_drive(cw, rules, dev):
         resid_epochs.append({k: fr.residual_fraction for (pid, _, _), (_, fr)
                              in mm._rule_cache.items()
                              for k, p in pools.items() if p == pid})
+        if e % CRUSH_CHECK_EVERY:
+            continue
         blob = pickle.dumps(m)
         for k, pid in pools.items():
             got = [mm.get(pg_t(pid, int(ps))) for ps in samples[k]]
@@ -3391,6 +3426,7 @@ def native_bench_slice() -> dict:
                              f"error={line.get('error')} parity="
                              f"{line.get('decode_parity')}")
     zc_launches = cluster_cli_gates(line)
+    harness = harness_cli_gates(line)
     log("bench-cli crush_remap " + json.dumps(line.get("crush_remap")))
     log(f"bench-cli gate: {len(line['gate']['regressions'])} regressions, "
         f"compared {line['gate']['compared']}, not_ported "
@@ -3404,6 +3440,7 @@ def native_bench_slice() -> dict:
             "metrics": {m["name"]: m["value"] for m in line["metrics"]},
             "crush_remap": line.get("crush_remap"),
             "zero_copy_launches": zc_launches,
+            "harness": harness,
             "mesh_metrics": {m["name"]: m for m in line["metrics"]
                              if m["name"] in MESH_METRICS},
             "elapsed_s": line.get("elapsed_s")}
@@ -3455,6 +3492,54 @@ def cluster_cli_gates(line: dict) -> dict:
     log("bench-cli ec_recovery_storm " + json.dumps(mr["recovery"]))
     return {n: sum(leg[n] for leg in zc["launches"].values())
             for n in res_n}
+
+
+HARNESS_METRICS = ("slo_autotune", "composed_chaos")
+
+
+def harness_cli_gates(line: dict) -> dict:
+    """4n: the bench CLI's harnesses on top of the mesh in ``line`` (the
+    CLI's own process).  Raises unless the line runs every JAX workload
+    (``not_ported`` empty), regress.py's CONTROL and CHAOS gates pass
+    both (in the line's own gate and judged again here), every storyline
+    is accepted, byte-exact and unwedged, and the autotune is byte-exact
+    with no move from its disabled twin.  Returns each workload's wall
+    and K1 / K9x launches."""
+    from ceph_tpu_torch.bench.regress import _chaos_gate, _control_gate
+    got = {m["name"]: m for m in line["metrics"]}
+    missing = [n for n in HARNESS_METRICS if n not in got]
+    if missing or line["not_ported"] != []:
+        raise AssertionError(f"bench CLI: harnesses missing {missing}, "
+                             f"not_ported {line['not_ported']}")
+    ma, mx = (got[n] for n in HARNESS_METRICS)
+    ctrl, chaos = ma["control"], mx["chaos"]
+    fails = _control_gate(ma["name"], ctrl) + _chaos_gate(mx["name"], chaos)
+    fails += [r for r in line["gate"]["regressions"]
+              if r["name"].split(".")[0] in HARNESS_METRICS]
+    bad = [r["seed"] for r in chaos["receipts"]
+           if not (r["accepted"] and r["byte_exact"]) or r["wedged"]]
+    if fails or bad or not chaos["accepted"] or not ctrl["byte_exact"] \
+            or ctrl["disabled_moves"] != 0:
+        raise AssertionError(
+            f"bench CLI harness gates: {fails}, storylines failing {bad}, "
+            f"autotune byte_exact {ctrl['byte_exact']}, disabled moves "
+            f"{ctrl['disabled_moves']}")
+    out = {}
+    for m in (ma, mx):
+        out[m["name"]] = {"wall_s": m["wall_s"], "value": m["value"],
+                          "unit": m["unit"], "launches": m["launches"]}
+    out["slo_autotune"]["scenarios"] = {
+        n: {k: row[k] for k in ("converge_ticks", "moves", "raised",
+                                "cleared", "in_bounds")}
+        for n, row in ctrl["scenarios"].items()}
+    out["composed_chaos"]["storylines"] = [
+        {k: r[k] for k in ("seed", "legs", "accepted", "rounds",
+                           "ops_completed", "settle_ticks",
+                           "journal_events")}
+        for r in chaos["receipts"]]
+    for name, rec in out.items():
+        log(f"bench-cli {name} " + json.dumps(rec))
+    return out
 
 
 # ---- 4o: osdmaptool on the card; 4m: MemStore with resident bodies -------
@@ -4021,10 +4106,12 @@ class OpGate:
         return out
 
 
-def stored_bodies(d, pool_id: int, keys_only: bool = False) -> dict:
-    """(oid, shard) -> stored body bytes of every object of ``pool_id``,
-    read straight from the live OSDs' stores (resident bodies are fetched;
-    with ``keys_only`` nothing is read and the values are None)."""
+def stored_bodies(d, pool_id: int, keys_only: bool = False,
+                  only=None) -> dict:
+    """(oid, shard) -> stored body bytes of every object of ``pool_id``
+    (of the oids in ``only`` where given), read straight from the live
+    OSDs' stores (resident bodies are fetched; with ``keys_only`` nothing
+    is read and the values are None)."""
     out = {}
     for osd in d.osds.values():
         if osd.name in d.network.down:
@@ -4034,6 +4121,8 @@ def stored_bodies(d, pool_id: int, keys_only: bool = False) -> dict:
             if not cid.startswith(f"{pool_id}.") or cid.endswith("_meta"):
                 continue
             for ho in st.list_objects(cid):
+                if only is not None and ho.oid not in only:
+                    continue
                 if ho.shard >= 0:
                     out[(ho.oid, ho.shard)] = None if keys_only \
                         else st.read(cid, ho)
@@ -4059,7 +4148,7 @@ def check_bodies(d, pool_id, expect: dict, what: str,
     """Every stored body of ``expect``'s objects equals its expected
     shard; each object has every shard but those in ``skip_shards``
     (oid -> shards held by OSDs still down).  Returns the bodies held."""
-    got = stored_bodies(d, pool_id)
+    got = stored_bodies(d, pool_id, only=set(expect))
     n = 0
     for oid, shards in expect.items():
         held = {s for (o, s) in got if o == oid}
@@ -5162,7 +5251,7 @@ class WireOps:
 def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
                  obj_bytes: int = OBJ_BYTES, n_obj: int = VSTART_OBJ,
                  n_late: int = VSTART_LATE,
-                 pg_num: int = VSTART_PG_NUM) -> dict:
+                 pg_num: int = VSTART_PG_NUM, proof: bool = True) -> dict:
     """4v: the port's process cluster (``ceph_tpu_torch.vstart``), one mon
     process and ``n_osds`` OSD processes over the TCP messenger with cephx
     on, each OSD on its own ``WALStore`` in a temporary ``data_root``, an
@@ -5177,9 +5266,10 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
         degraded, then ``n_late`` more objects written with the two down;
     (c) one of them restarted on its data directory, then the other, then
         ``wait_healthy``; once recovery's pushes stop moving, every object
-        read; then ``m`` other OSDs SIGKILLed, so that each late object's
-        read needs the restarted disks' recovered shards, and the late
-        objects read again.
+        read; then, with ``proof``, ``m`` other OSDs SIGKILLed, so that
+        each late object's read needs the restarted disks' recovered
+        shards, and the late objects read again (the whole smoke leaves
+        this proof to ``--vstart``, for its time limit).
 
     Every op answers 0 within ``OSD_PATH_DEADLINE_S`` and every read is
     byte-exact.  Each OSD process opens the card and loads K1 before it
@@ -5397,25 +5487,27 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
             if ops.op("read", oid).data != body:
                 raise AssertionError(f"4v (c): read of {oid} differs")
         r = ops.stats("read", (n_obj + n_late) * obj_bytes)
-        # the proof: with m other OSDs gone, every late object's read
-        # needs the k survivors' shards, the two restarted disks' ones
-        # (which only recovery gave them) among them
-        others = [o for o in range(n_osds) if o not in victims][-m:]
-        for o in others:
-            c.kill_osd(o)
-        for o in others:
-            wait_down_up(o, up=False)
-        for oid, body in late.items():
-            if ops.op("read", oid).data != body:
-                raise AssertionError(f"4v (c): {oid} read through the "
-                                     "restarted disks differs")
-        proof = ops.stats("read", n_late * obj_bytes)
+        others, proof_read = [], None
+        if proof:
+            # the proof: with m other OSDs gone, every late object's read
+            # needs the k survivors' shards, the two restarted disks' ones
+            # (which only recovery gave them) among them
+            others = [o for o in range(n_osds) if o not in victims][-m:]
+            for o in others:
+                c.kill_osd(o)
+            for o in others:
+                wait_down_up(o, up=False)
+            for oid, body in late.items():
+                if ops.op("read", oid).data != body:
+                    raise AssertionError(f"4v (c): {oid} read through the "
+                                         "restarted disks differs")
+            proof_read = ops.stats("read", n_late * obj_bytes)
         n1, _ = k1_sum()
         need(n1 - n0 > 0, f"(c) recovery launched K1 {n1 - n0} times")
         leg("c_restart_recover", first_up_s=first_up_s,
             healthy_s=healthy_s, recovered_s=recovered_s,
             recovery_pushes=pushes, read=r, killed_for_proof=others,
-            proof_read=proof, k1=n1 - n0)
+            proof_read=proof_read, k1=n1 - n0)
         k1_leg["c"] = n1 - n0
     finally:
         c.close()
@@ -5835,6 +5927,313 @@ def mesh_alone(dev) -> None:
 
 
 
+# ---- 4x: a block device on an erasure-coded data pool -------------------------
+RBD_ORDER = 22                    # rbd's default object size, 4 MiB
+RBD_OBJECTS = 64                  # a 256 MiB image
+RBD_REP_PG_NUM = 32               # the replicated pool of headers, journals
+RBD_RAND_WRITES = 128             # rbd bench --io-type write --io-size 4K
+RBD_RAND_IO = 4096                #   --io-pattern rand
+RBD_CLONE_WRITES = 16             # writes into the clone (copyups)
+RBD_MIRROR_OSDS = 6               # the mirror's destination cluster
+RBD_MIRROR_K, RBD_MIRROR_M = 4, 2
+RBD_MIRROR_PG_NUM = 32
+RBD_CHECK_OBJECTS = 8             # objects whose stored shards are checked
+RBD_TRACE_WRITES = 16             # the traced sample: 4 KiB writes
+RBD_TRACE_OBJECTS = 4             #   and whole-object rewrites
+
+
+def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
+              pg_num: int = OSD_PATH_PG_NUM,
+              rep_pg_num: int = RBD_REP_PG_NUM,
+              rand_writes: int = RBD_RAND_WRITES,
+              rand_io: int = RBD_RAND_IO,
+              clone_writes: int = RBD_CLONE_WRITES,
+              mirror_pg_num: int = RBD_MIRROR_PG_NUM,
+              check_objects: int = RBD_CHECK_OBJECTS,
+              trace_writes: int = RBD_TRACE_WRITES,
+              trace_objects: int = RBD_TRACE_OBJECTS) -> dict:
+    """4x: a block device whose data lives on an erasure-coded pool, as a
+    user makes one with ``rbd create --size 256M --data-pool ecdata
+    --journaling``: a ``MiniCluster`` of 12 OSDs, one per host; a
+    replicated pool ``rbd`` (size 3) for the headers and the journal; an
+    ``ecdata`` pool, ``cuda`` plugin k=8 m=4, ``pg_num`` PGs; an image of
+    ``n_obj`` objects of ``2**order`` bytes.  Legs, the counts set to 0
+    just before each and read just after:
+
+    (a) fill the image, one write per object: K1 once per write;
+    (b) ``rand_writes`` writes of ``rand_io`` bytes at seeded random
+        offsets (``rbd bench --io-type write --io-pattern rand``); each
+        rewrites its object through ECBackend's read-modify-write, so K1
+        once per write; p50 and p99 per op;
+    (c) ``snap create`` and ``protect``, a clone whose data also lives on
+        ``ecdata``, then ``clone_writes`` writes into the clone (each a
+        copyup of its parent object into the EC pool): K1 per write;
+    (d) two OSDs holding data shards of the first object (and no two
+        copies of one object of the replicated pool) killed and marked
+        down, then the image, its snapshot and the clone exported:
+        K1 decodes each object that lost a data shard; every export
+        equal to a numpy model of the image;
+    (e) an ``ImageMirror`` replays the source journal onto a second
+        ``MiniCluster`` (6 OSDs, a k=4 m=2 ``cuda`` data pool of
+        ``mirror_pg_num`` PGs): the destination's export equals the
+        source; K1 once per replayed write.
+
+    After (b) a traced sample (``trace_writes`` more 4 KiB writes and
+    ``trace_objects`` whole-object rewrites under ``LegTrace``) gives the
+    device's busy share, if the profiler sees it; the timed legs run
+    untraced.  After (c) the stored shards of ``check_objects`` objects
+    equal the native host coder's.  Each leg records its wall and K1
+    launches.  On the
+    CPU (a rehearsal at small sizes) the codecs take ``backend=host`` and
+    the launch counts are not checked."""
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.ops import gf_pallas
+    from ceph_tpu_torch.rbd import Image, ImageMirror, RBD
+    on_card = dev.type == "cuda"
+    extra = {} if on_card else {"backend": "host"}
+    obj = 1 << order
+    size = n_obj * obj
+    counters = [gf_pallas.launches]
+    out = {"legs": {}, "config": {
+        "osds": OSD_PATH_OSDS, "pg_num": pg_num, "rep_pg_num": rep_pg_num,
+        "k": K, "m": M, "plugin": "cuda", "extra_profile": extra,
+        "order": order, "objects": n_obj, "image_bytes": size,
+        "rand_writes": rand_writes, "rand_io": rand_io,
+        "clone_writes": clone_writes, "mirror_osds": RBD_MIRROR_OSDS,
+        "mirror_k": RBD_MIRROR_K, "mirror_m": RBD_MIRROR_M,
+        "mirror_pg_num": mirror_pg_num}}
+    total = {"gf_bit_matmul": 0}
+    t_slice = time.perf_counter()
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4x: {what}")
+
+    def counted(name, drive, traced=False, **rec):
+        """Run ``drive`` with K1's count at 0 and record the leg; a
+        ``traced`` leg runs under ``LegTrace`` (the profiler's cost is
+        in its wall, so the timed legs run untraced)."""
+        gf_pallas.launches.reset()
+        t0 = time.perf_counter()
+        if traced:
+            with LegTrace(dev, counters) as tr:
+                extra_rec = drive() or {}
+            rec.update({k: v for k, v in tr.reading().items() if k in (
+                "device_busy_share", "kernel_share", "device_busy_ms",
+                "kernel_ms", "timed_device_call_share")})
+        else:
+            extra_rec = drive() or {}
+        wall = time.perf_counter() - t0
+        n = gf_pallas.launches.n
+        total["gf_bit_matmul"] += n
+        leg = {"wall_s": wall, "k1_launches": n, **rec, **extra_rec}
+        out["legs"][name] = leg
+        log(f"4x {name}: " + json.dumps(leg, default=str))
+        return leg
+
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "ec_mesh_chips", "osd_op_num_threads",
+                 "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    rng = np.random.default_rng(SEED + 7)
+    model = bytearray(size)
+    matrix = create_erasure_code({"plugin": "cuda", "k": str(K),
+                                  "m": str(M), "backend": "host"}
+                                 ).codec.matrix
+
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=OSD_PATH_OSDS)
+    c.create_replicated_pool("rbd", size=3, pg_num=rep_pg_num)
+    data_pid = c.create_ec_pool("ecdata", k=K, m=M, pg_num=pg_num,
+                                plugin="cuda", extra_profile=extra)
+    cl = c.client("client.rbd")
+    rbd = RBD(cl)
+    rbd.create("rbd", "vm", size, order, data_pool="ecdata",
+               journaling=True)
+    img = Image(cl, "rbd", "vm")
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4x: MiniCluster of {OSD_PATH_OSDS} OSDs, pools rbd "
+        f"({rep_pg_num} PGs) and ecdata ({pg_num} PGs), image of "
+        f"{size >> 20} MiB up in {out['boot_s']:.1f} s")
+
+    def write(image, off, data, mirror_model=True):
+        if image.write(off, data) != len(data):
+            raise AssertionError(f"4x: short write at {off}")
+        if mirror_model:
+            model[off:off + len(data)] = data
+
+    # -- (a) fill ----------------------------------------------------------------
+    def fill():
+        for i in range(n_obj):
+            write(img, i * obj, rng.integers(0, 256, obj,
+                                             dtype=np.uint8).tobytes())
+    leg = counted("a_fill", fill, writes=n_obj)
+    leg["GiBps"] = size / leg["wall_s"] / 2**30
+    need(leg["k1_launches"] == n_obj,
+         f"(a) K1 launches {leg['k1_launches']} for {n_obj} writes")
+
+    # -- (b) random small writes ---------------------------------------------------
+    offs = rng.integers(0, size // rand_io, rand_writes) * rand_io
+    lat = []
+
+    def rand():
+        for off in offs:
+            t = time.perf_counter()
+            write(img, int(off), rng.integers(0, 256, rand_io,
+                                              dtype=np.uint8).tobytes())
+            lat.append(time.perf_counter() - t)
+        return {"p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                "ops_per_s": len(lat) / sum(lat)}
+    leg = counted("b_rand_4k", rand, writes=rand_writes)
+    need(leg["k1_launches"] == rand_writes,
+         f"(b) K1 launches {leg['k1_launches']} for {rand_writes} writes")
+    # the device's share of such writes, from a traced sample of them and
+    # of whole-object rewrites
+    sample_offs = rng.integers(0, size // rand_io, trace_writes) * rand_io
+
+    def sample():
+        for off in sample_offs:
+            write(img, int(off), rng.integers(0, 256, rand_io,
+                                              dtype=np.uint8).tobytes())
+        for i in range(trace_objects):
+            write(img, i * obj, rng.integers(0, 256, obj,
+                                             dtype=np.uint8).tobytes())
+    leg = counted("t_traced_sample", sample, traced=True,
+                  writes=trace_writes + trace_objects)
+    need(leg["k1_launches"] == trace_writes + trace_objects,
+         f"(t) K1 launches {leg['k1_launches']} for "
+         f"{trace_writes + trace_objects} writes")
+
+    # -- (c) snapshot, clone, copyups into the EC pool --------------------------
+    snap_model = bytes(model)
+    child_model = bytearray(model)
+
+    def clone():
+        img.snap_create("s1")
+        img.snap_protect("s1")
+        rbd.clone("rbd", "vm", "s1", "rbd", "child", data_pool="ecdata")
+        child = Image(cl, "rbd", "child")
+        for objno in rng.choice(n_obj, clone_writes, replace=False):
+            off = int(objno) * obj + int(rng.integers(0, obj // rand_io)) \
+                * rand_io
+            data = rng.integers(0, 256, rand_io, dtype=np.uint8).tobytes()
+            write(child, off, data, mirror_model=False)
+            child_model[off:off + len(data)] = data
+        return {"parent": "vm@s1"}
+    leg = counted("c_snap_clone", clone, writes=clone_writes)
+    need(leg["k1_launches"] == clone_writes,
+         f"(c) K1 launches {leg['k1_launches']} for {clone_writes} "
+         "copyup writes")
+    # the stored shards of a sample of objects, against the native coder
+    sample = sorted(int(i) for i in rng.choice(n_obj, min(check_objects,
+                                                          n_obj),
+                                               replace=False))
+    expect = {img._obj(i): native_shards(
+        matrix, K, CHUNK, bytes(model[i * obj:(i + 1) * obj]))
+        for i in sample}
+    t0 = time.perf_counter()
+    held = check_bodies(c, data_pid, expect, "4x (c)")
+    if held != len(sample) * (K + M):
+        raise AssertionError(f"4x (c): {held} bodies of {len(sample)} "
+                             "objects")
+    out["shards_checked"] = held
+    out["shard_check_s"] = time.perf_counter() - t0
+
+    # -- (d) two OSDs down: degraded exports -----------------------------------
+    # two OSDs that hold data shards of the first object, picked so that
+    # every object of the replicated pool (headers, the directory, the
+    # journal) keeps two of its three copies, its min_size: the journal
+    # stays writable for (e)'s mirror, as the reference requires of a
+    # PG that takes writes
+    rep_pid = c.mon.osdmap.lookup_pg_pool_name("rbd")
+    rep_sets = [set(acting_of(c, cl, "rbd", oid)) for oid in sorted({
+        ho.oid for osd in c.osds.values()
+        for cid in osd.store.list_collections()
+        if cid.startswith(f"{rep_pid}.") and not cid.endswith("_meta")
+        for ho in osd.store.list_objects(cid)})]
+    data = acting_of(c, cl, "ecdata", img._obj(0))[1:K]
+    victims = next([a, b] for i, a in enumerate(data) for b in data[i + 1:]
+                   if not any({a, b} <= held for held in rep_sets))
+    lost = {i for i in range(n_obj)
+            if set(acting_of(c, cl, "ecdata", img._obj(i))[:K])
+            & set(victims)}
+    t0 = time.perf_counter()
+    for v in victims:
+        c.kill_osd(v)
+        c.mark_osd_down(v)
+    out["mark_down_s"] = time.perf_counter() - t0
+    exports = {}
+
+    def export():
+        views = {"vm": Image(cl, "rbd", "vm"),
+                 "vm@s1": Image(cl, "rbd", "vm", snapshot="s1"),
+                 "child": Image(cl, "rbd", "child")}
+        for name, view in views.items():
+            exports[name] = view.read(0, size)
+        want = {"vm": bytes(model), "vm@s1": snap_model,
+                "child": bytes(child_model)}
+        for name in views:
+            if exports[name] != want[name]:
+                raise AssertionError(f"4x (d): export of {name} differs "
+                                     "from the model")
+        return {"exports": sorted(views)}
+    leg = counted("d_degraded_export", export, victims=victims,
+                  objects_missing_a_data_shard=len(lost),
+                  mark_down_s=out["mark_down_s"])
+    leg["GiBps"] = 3 * size / leg["wall_s"] / 2**30
+    need(leg["k1_launches"] >= len(lost) > 0,
+         f"(d) K1 launches {leg['k1_launches']} for {len(lost)} objects "
+         "with a lost data shard per export")
+
+    # -- (e) the mirror: replay the journal onto a second cluster ---------------
+    t0 = time.perf_counter()
+    dst = MiniCluster(n_osds=RBD_MIRROR_OSDS)
+    dst.create_replicated_pool("rbd", size=3, pg_num=8)
+    dst.create_ec_pool("ecdata", k=RBD_MIRROR_K, m=RBD_MIRROR_M,
+                       pg_num=mirror_pg_num, plugin="cuda",
+                       extra_profile=extra)
+    dcl = dst.client("client.mirror")
+    out["mirror_boot_s"] = time.perf_counter() - t0
+    replayed = []
+
+    def mirror():
+        mi = ImageMirror(cl, "rbd", "vm", dcl, "rbd",
+                         dst_data_pool="ecdata")
+        replayed.append(mi.run_once())
+        got = Image(dcl, "rbd", "vm").read(0, size)
+        if got != bytes(model):
+            raise AssertionError("4x (e): the mirror's export differs "
+                                 "from the source")
+        return {"events_replayed": replayed[0]}
+    leg = counted("e_mirror", mirror)
+    journaled = n_obj + rand_writes + trace_writes + trace_objects
+    need(leg["k1_launches"] == journaled,
+         f"(e) K1 launches {leg['k1_launches']} for {journaled} replayed "
+         "writes")
+    for cluster in (c, dst):
+        for osd in cluster.osds.values():
+            osd.shutdown()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4x: launches " + json.dumps(total) + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def rbd_alone(dev) -> None:
+    """``--rbd``: 4x alone after phases 1-2, its record written to
+    ``chiprun_out/rbd.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = rbd_slice(dev)
+    with open(os.path.join("chiprun_out", "rbd.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5907,11 +6306,12 @@ def main() -> int:
                         ("--osd-path", osd_path_alone),
                         ("--cluster", cluster_alone),
                         ("--vstart", vstart_alone),
-                        ("--mesh", mesh_alone)):
+                        ("--mesh", mesh_alone),
+                        ("--rbd", rbd_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
-                    "--cluster", "--vstart", "--mesh"):
+                    "--cluster", "--vstart", "--mesh", "--rbd"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -6243,7 +6643,7 @@ def main() -> int:
     # -- 4v. the process cluster: a client's writes, degraded reads and a
     # recovery through daemons that each run K1 in their own process,
     # after the earlier slices' phases, which run as they did before it --
-    vs = vstart_slice(dev)
+    vs = vstart_slice(dev, proof=False)
     results["vstart"] = vs
     phase_done("4v process cluster")
 
@@ -6256,6 +6656,17 @@ def main() -> int:
     mesh_n, mesh_cli = mesh["launches"], mesh["cli_launches"]
     k9x = mesh["k9x"][2]         # the (4, 2) mesh's shard axis
     phase_done("4w mesh")
+
+    # -- 4x. a block device on an erasure-coded data pool: fill, random
+    # small writes, a clone's copyups, degraded exports and a mirror's
+    # replay, after the earlier slices' phases, which run as they did -----
+    rbd_rec = rbd_slice(dev)
+    results["rbd"] = rbd_rec
+    # the bench CLI's harnesses on the mesh (4n's line)
+    harness = results["native_bench"]["harness"]
+    harness_n = {n: sum(w["launches"][n] for w in harness.values())
+                 for n in ("gf_bit_matmul", "mesh_xor")}
+    phase_done("4x rbd")
 
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
@@ -6281,7 +6692,9 @@ def main() -> int:
                      + path_n["gf_bit_matmul"] + cl_n["gf_bit_matmul"]
                      + cli_zc["gf_bit_matmul"]
                      + vs["launches"]["gf_bit_matmul"]
-                     + mesh_n["gf_bit_matmul"] + mesh_cli["gf_bit_matmul"]),
+                     + mesh_n["gf_bit_matmul"] + mesh_cli["gf_bit_matmul"]
+                     + rbd_rec["launches"]["gf_bit_matmul"]
+                     + harness_n["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -6411,7 +6824,8 @@ def main() -> int:
         "name": "mesh_xor", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/mesh_xor.cu",
         "replaces": "ceph_tpu/parallel/ec.py:255",
-        "launches": mesh_n["mesh_xor"] + mesh_cli["mesh_xor"],
+        "launches": mesh_n["mesh_xor"] + mesh_cli["mesh_xor"]
+        + harness_n["mesh_xor"],
         "max_abs_err": max(t["max_abs_err"] for t in mesh["k9x"].values()),
         "ms": k9x["ms"], "plain_ms": k9x["plain_ms"],
         "bound_ms": k9x["bound_ms"], "bound_by": k9x["bound_by"],

@@ -32,6 +32,8 @@ from ceph_tpu_torch.gf.matrices import gf_gen_rs_matrix
 from ceph_tpu_torch.ops import gf_pallas
 from ceph_tpu_torch.tools import ec_benchmark as port_ecb
 
+from torch_daemon_twin import one_thread  # noqa: F401 (a fixture)
+
 MATRIX = gf_gen_rs_matrix(12, 8)
 SMALL = dict(target_seconds=0.1, repeats=2, warmup=1)
 
@@ -185,11 +187,11 @@ def test_load_trajectory_equals_jax(tmp_path):
         (jregress.DEFAULT_TOLERANCE, jregress.DEVFLOW_FLOORS)
 
 
-def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
+def test_bench_cli_smoke_prints_one_schema_valid_line(capsys, one_thread):
     """``python -m ceph_tpu_torch.bench --smoke`` in this process: one
     JSON line on stdout, every metric schema-valid and fenced, the mesh
-    workloads and the three cluster workloads run, the two workloads left
-    to port named under ``not_ported``."""
+    workloads, the three cluster workloads and the two harnesses on top
+    of the mesh run, and ``not_ported`` empty."""
     rc = bench_cli.main(["--smoke", "--gate", "warn"])
     out = capsys.readouterr().out
     lines = [ln for ln in out.splitlines() if ln.strip()]
@@ -206,14 +208,14 @@ def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
                      "ec_mesh_single_fenced", "ec_mesh_skew",
                      "ec_mesh_straggler", "ec_encode_host_native",
                      "traffic_harness_smoke", "ec_write_zero_copy",
-                     "ec_recovery_storm", "ec_degraded_read"]
+                     "ec_recovery_storm", "ec_degraded_read",
+                     "slo_autotune", "composed_chaos"]
     for m in line["metrics"]:
         validate_metric(m)
         assert m["fenced"] and not m["suspect"]
     assert line["decode_parity"] is True
     assert line["metrics"][4]["identical"] is True
-    assert line["not_ported"] == list(bench_cli.NOT_PORTED) == [
-        "measure_composed_chaos", "measure_slo_autotune"]
+    assert line["not_ported"] == list(bench_cli.NOT_PORTED) == []
     mesh = {m["name"]: m for m in line["metrics"]}
     assert mesh["ec_mesh_fenced"]["identical"] is True
     assert mesh["ec_mesh_fenced"]["mesh_chips"] == 8
@@ -221,13 +223,22 @@ def test_bench_cli_smoke_prints_one_schema_valid_line(capsys):
     for name in ("ec_mesh_straggler", "ec_degraded_read"):
         assert mesh[name]["straggler"]["byte_identical"] is True
         assert mesh[name]["straggler"]["single_device_fallbacks"] == 0
+    # the harnesses on top of the mesh, judged absolutely by regress.py's
+    # CONTROL and CHAOS gates below
+    ctrl = mesh["slo_autotune"]["control"]
+    assert ctrl["disabled_moves"] == 0 and ctrl["byte_exact"] is True
+    chaos = mesh["composed_chaos"]["chaos"]
+    assert chaos["seeds"] == [24] and chaos["accepted"] is True
     # no TPU-era or CPU round carries a comparable fenced reading; the
-    # mesh workloads' SKEW and STRAGGLER gates judge wall-clock delays
-    # against the members' service times on a CPU that other test
-    # workers share, so they are gated on the card (chip_smoke.py 4w (d))
+    # mesh workloads' SKEW and STRAGGLER gates, and the CONTROL gate's
+    # straggler scenario, judge wall-clock delays against the members'
+    # service times on a CPU that other test workers share, so they are
+    # gated on the card (chip_smoke.py 4w (d) and 4n)
     timed = ("ec_mesh_skew", "ec_mesh_straggler", "ec_degraded_read")
     assert [r for r in line["gate"]["regressions"]
-            if r["name"].split(".")[0] not in timed] == []
+            if r["name"].split(".")[0] not in timed
+            and not r["name"].startswith(
+                "slo_autotune.control.straggler.")] == []
     assert line["gate"]["platform"] == "cpu"
     for key in ("perf", "perf_histograms", "oplat", "devprof",
                 "elapsed_s"):

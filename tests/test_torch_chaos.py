@@ -3,15 +3,28 @@
 Composing is host code: the same seed (and leg set) gives equal specs in
 both packages, the engine compiles a spec into equal traffic shapes, and
 the ``chaos compose`` / ``chaos dump`` admin-socket panes agree.  Running
-a storyline needs the 8-chip mesh (``BASE_MESH_CHIPS``), so the port's
-``run_scenario`` raises ``NotImplementedError`` at its mesh switch and
-restores every option it set (ROADMAP Queue 3).
+a storyline: the pinned seeds 24 and 103 and the two forced-leg storylines
+of ``test_chaos_composer.py`` run on both packages (JAX on its 8 virtual
+devices, the port on 8 CPU members with ``device="cpu"``, torch on one
+thread).  The receipts hold equal invariants: legs, acceptance,
+byte-exactness, wedges, the expected checks raised, cleared and bundled,
+every raise resolved, the storyline told, ops completed, zero mesh
+fallbacks; storylines without a straggler leg also equal harness rounds.
+The scoreboard probes every flush on the wall clock (a straggler leg's
+30 ms delay, or a collateral raise when the host stalls), so settle
+ticks, journal events and incident bundles are held to the settle budget
+and to every bundle resolved in each package, not compared.  Every
+option the engine sets is restored.
+The ``device_error`` leg's site is checked by the JAX fault guard and by
+nothing in the port (ROADMAP Queue 3).
 """
+import numpy as np
 import pytest
 
 from ceph_tpu.chaos import compose_scenario as jax_compose
 from ceph_tpu.chaos import engine as jax_engine
 from ceph_tpu.chaos import leg_names as jax_legs
+from ceph_tpu.chaos import run_scenario as jax_run_scenario
 from ceph_tpu.cluster import MiniCluster as JaxCluster
 
 from ceph_tpu_torch.chaos import (BASE_MESH_CHIPS, compose_scenario,
@@ -21,7 +34,7 @@ from ceph_tpu_torch.chaos.engine import TOUCHED, chaos_perf_counters
 from ceph_tpu_torch.cluster import MiniCluster as PortCluster
 from ceph_tpu_torch.common.config import g_conf
 
-from torch_daemon_twin import clean  # noqa: F401
+from torch_daemon_twin import clean, one_thread, reset_both  # noqa: F401
 
 
 def test_leg_catalog_equal():
@@ -83,16 +96,98 @@ def test_asok_panes_equal(clean):
     assert pd["counters"].keys() == jd["counters"].keys()
 
 
-def test_run_scenario_raises_until_the_mesh(clean):
-    """Queue 3, by design: the storyline's 8-chip mesh is not ported."""
+# the invariants of a receipt; the rest (settle ticks, journal events,
+# incident bundles) follows the wall-clock scoreboard too
+INVARIANTS = ("seed", "legs", "accepted", "byte_exact", "wedged", "checks",
+              "all_raises_resolved", "storyline_told", "ops_completed",
+              "mesh_fallbacks")
+WALL_LEGS = {"chip_straggler", "degraded_read_straggler"}
+STORYLINES = {
+    "seed24": (24, None),
+    "seed103": (103, None),
+    "storm_straggler_abusive": (20260807, ("abusive_client",
+                                           "chip_straggler",
+                                           "recovery_storm")),
+    "degraded_read_under_straggler": (28, ("chip_fail",
+                                           "degraded_read_straggler",
+                                           "shard_eio")),
+}
+
+
+@pytest.fixture
+def members(one_thread):
+    """8 CPU mesh members; the count before is restored after (other test
+    files of the worker set theirs when they are imported)."""
+    from ceph_tpu_torch.mesh import (members_per_device,
+                                     set_members_per_device)
+    before = members_per_device()
+    set_members_per_device(8)
+    yield
+    set_members_per_device(before)
+
+
+@pytest.mark.parametrize("name", sorted(STORYLINES))
+def test_storyline_receipts_equal(name, clean, members):
+    seed, legs = STORYLINES[name]
     g_conf.set_val("ec_dispatch_batch_max", 7)
     before = {n: g_conf.values.get(n) for n in TOUCHED}
     pc = chaos_perf_counters()
     n0 = pc.dump()["scenarios"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_scenario(compose_scenario(1616))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_seed(3, legs=("recovery_storm",))
+    spec = compose_scenario(seed, legs=legs)
+    assert spec.dump() == jax_compose(seed, legs=legs).dump()
+    j = jax_run_scenario(jax_compose(seed, legs=legs))
+    reset_both()
+    g_conf.set_val("ec_dispatch_batch_max", 7)
+    p = run_scenario(spec, device="cpu")
     assert {n: g_conf.values.get(n) for n in TOUCHED} == before
-    dump = pc.dump()
-    assert dump["scenarios"] == n0 and dump["active"] == 0
+    assert pc.dump()["scenarios"] == n0 + 1
+    assert pc.dump()["active"] == 0
+    assert p.keys() == j.keys()
+    for key in INVARIANTS:
+        assert p[key] == j[key], key
+    assert p["accepted"] and p["byte_exact"] and not p["wedged"]
+    assert p["mesh_fallbacks"] == 0
+    if not WALL_LEGS & set(spec.legs):
+        assert p["rounds"] == j["rounds"]
+    budget = int(g_conf.get_val("chaos_settle_ticks_max"))
+    for r in (p, j):
+        assert 0 < r["settle_ticks"] <= budget
+        assert r["journal_events"] > 0
+        assert all(b["state"] == "resolved"
+                   for b in r["incidents"]["bundles"])
+
+
+def test_run_seed_composes_and_runs(clean, members):
+    """``run_seed`` is ``run_scenario(compose_scenario(seed, legs))``."""
+    r = run_seed(3, legs=("recovery_storm",), device="cpu")
+    reset_both()
+    again = run_scenario(compose_scenario(3, legs=("recovery_storm",)),
+                         device="cpu")
+    assert r == again and r["legs"] == ["recovery_storm"]
+    assert r["accepted"]
+
+
+def test_device_error_site_is_silent_in_the_port(clean):
+    """Queue 3, by design: the ``device_error`` leg arms
+    ``device.encode_batch``.  The JAX plugin checks that site inside its
+    fault guard (its retries and host fallback absorb the injected
+    errors); the port has no guard, so no code checks it and the armed
+    fault never fires.  The coding is equal either way."""
+    from ceph_tpu.ec.tpu_plugin import ErasureCodeTpu
+    from ceph_tpu.fault import g_faults as jax_faults
+    from ceph_tpu_torch.ec.cuda_plugin import ErasureCodeCuda
+    from ceph_tpu_torch.fault import g_faults
+    prof = {"k": "4", "m": "2", "technique": "reed_sol_van"}
+    jimpl, pimpl = ErasureCodeTpu(), ErasureCodeCuda()
+    jimpl.init(dict(prof))
+    pimpl.init({**prof, "backend": "host"})
+    data = np.random.default_rng(7).integers(0, 256, (3, 4, 1024),
+                                             dtype=np.uint8)
+    for faults in (g_faults, jax_faults):
+        faults.inject("device.encode_batch", mode="nth", n=1)
+    j, p = jimpl.encode_batch(data), pimpl.encode_batch(data)
+    np.testing.assert_array_equal(p, j)
+    jspec = jax_faults.armed("device.encode_batch")
+    pspec = g_faults.armed("device.encode_batch")
+    assert jspec.checks >= 1 and jspec.fires >= 1
+    assert pspec.checks == 0 and pspec.fires == 0

@@ -857,3 +857,90 @@ def test_xor_reduce_non_cpu_tensor_never_takes_plain(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel"):
         mesh_xor.xor_reduce(torch.zeros((2, 4), dtype=torch.uint8,
                                         device="meta"))
+
+
+# ---- the harnesses on the mesh, journal/, rbd/ and the rbd tools -------------
+
+RBD_SLICE_FILES = sorted(
+    [str(p.relative_to(PKG)) for d in ("journal", "rbd")
+     for p in (PKG / d).glob("*.py")]
+    + [f"tools/{t}.py" for t in ("rbd_optfmt", "rbd_specs", "rbd_shell",
+                                 "rbd_cli")])
+
+
+def test_walk_sees_the_rbd_slice():
+    """The package walk reaches ``journal/``, ``rbd/`` and the four rbd
+    tools under the JAX package's module names, and the bench CLI runs
+    every JAX workload."""
+    mods = _modules()
+    for m in ("journal", "journal.journaler", "journal.cls_journal", "rbd",
+              "rbd.cls_rbd", "rbd.image", "rbd.mirror", "tools.rbd_optfmt",
+              "tools.rbd_specs", "tools.rbd_shell", "tools.rbd_cli"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert len(RBD_SLICE_FILES) == 11
+    from ceph_tpu_torch.bench import __main__ as bench_cli
+    from ceph_tpu_torch.bench import workloads
+    assert bench_cli.NOT_PORTED == ()
+    assert callable(workloads.measure_slo_autotune)
+    assert callable(workloads.measure_composed_chaos)
+
+
+@pytest.mark.parametrize("path", RBD_SLICE_FILES)
+def test_rbd_slice_imports_no_jax_and_holds_no_catch_all(path):
+    """Nothing of ``journal/``, ``rbd/`` or the rbd tools imports ``jax``
+    or ``ceph_tpu``, or catches ``Exception`` or everything."""
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] not in ("jax", "ceph_tpu"), path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in ("jax", "ceph_tpu"), path
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            assert not _catch_alls(fn), (path, fn.name)
+
+
+def test_harnesses_hold_no_catch_all_and_no_guard():
+    """``run_scenario``, ``run_seed`` and the two harness workloads catch
+    nothing (their ``finally`` restores state and lets a failure out),
+    name no breaker, and the storyline's codecs follow the caller's
+    device."""
+    for path, fn in (("chaos/engine.py", "run_scenario"),
+                     ("chaos/engine.py", "run_seed"),
+                     ("chaos/engine.py", "_oracle_flush_fn"),
+                     ("bench/workloads.py", "measure_slo_autotune"),
+                     ("bench/workloads.py", "measure_composed_chaos")):
+        f = _function(path, fn)
+        assert not _catch_alls(f), (path, fn)
+        names = {n.id for n in ast.walk(f) if isinstance(n, ast.Name)}
+        names |= {a.name for n in ast.walk(f)
+                  if isinstance(n, ast.ImportFrom) for a in n.names}
+        assert not names & {"g_breakers", "ErasureCodeTpu",
+                            "run_device_call"}, (path, fn)
+    from ceph_tpu_torch.ec.cuda_plugin import backend_profile
+    assert backend_profile("cpu") == {"backend": "host"}
+    if torch.cuda.is_available():
+        assert backend_profile("cuda") == {}
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            backend_profile("cuda")
+
+
+def test_harnesses_need_the_card_by_default():
+    """The storyline and the autotune ask for the card unless the caller
+    passes ``device="cpu"``; without one they raise, and every option
+    they set is restored."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.bench import workloads
+    from ceph_tpu_torch.chaos import run_seed
+    from ceph_tpu_torch.chaos.engine import TOUCHED
+    from ceph_tpu_torch.common.config import g_conf
+    before = {n: g_conf.values.get(n) for n in TOUCHED}
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_seed(24)
+    assert {n: g_conf.values.get(n) for n in TOUCHED} == before
+    with pytest.raises(RuntimeError, match="cuda"):
+        workloads.measure_composed_chaos(seeds=(24,))
+    assert {n: g_conf.values.get(n) for n in TOUCHED} == before

@@ -2,10 +2,11 @@
 sets, the snap mapper, object classes (``hello``, ``numops``, the lock
 class) and the cache tier, alone and through both packages' daemons.
 
-The port loads only the object classes it has; the JAX package also
-loads ``rbd``, ``fs``, ``rgw`` and ``journal``.  A call to one of those
-answers EOPNOTSUPP on the port (ROADMAP Queue 3) and runs on the JAX
-package: ``test_unported_classes_answer_eopnotsupp`` pins both sides.
+The port loads the object classes it has (``rbd`` and ``journal``
+since the rbd slice); the JAX package also loads ``fs`` and ``rgw``.  A
+call to one of those answers EOPNOTSUPP on the port (ROADMAP Queue 3)
+and runs on the JAX package: ``test_unported_classes_answer_eopnotsupp``
+pins both sides, ``test_rbd_class_answers_as_jax`` the ported ``rbd``.
 """
 import numpy as np
 import pytest
@@ -87,22 +88,42 @@ def test_object_classes_and_locks_match_jax(clean):
 
 
 def test_unported_classes_answer_eopnotsupp(clean):
-    """``rbd.create`` then ``rbd.get_image`` on an image header: the JAX
-    OSD runs cls_rbd and answers 0 with the header; the port's answers
-    EOPNOTSUPP (-95) to both until ``rbd/`` is ported."""
+    """``fs.mkfs`` then ``fs.lookup`` on a directory object: the JAX OSD
+    runs cls_fs and answers 0; the port's answers EOPNOTSUPP (-95) to
+    both until ``cephfs/`` is ported."""
+    import json
+    res = {}
+    for pkg in (JAX, PORT):
+        d, cl = _boot(pkg)
+        res[pkg] = [cl.exec("rep", "fs.dir.1", "fs", "mkfs", b""),
+                    cl.exec("rep", "fs.dir.1", "fs", "lookup",
+                            json.dumps({"name": "x"}).encode())]
+        d.shutdown()
+    assert res[PORT] == [(-95, b""), (-95, b"")]
+    assert res[JAX][0][0] == 0
+    assert res[JAX][1] == (-2, b"")
+
+
+def test_rbd_class_answers_as_jax(clean):
+    """``rbd.create`` then ``rbd.get_image`` on an image header: both
+    OSDs run cls_rbd and answer 0 with the same header."""
     import json
     req = json.dumps({"size": 1 << 20, "object_prefix": "rbd_data.x"})
     res = {}
     for pkg in (JAX, PORT):
         d, cl = _boot(pkg)
-        res[pkg] = [cl.exec("rep", "rbd_header.x", "rbd", "create",
-                            req.encode()),
-                    cl.exec("rep", "rbd_header.x", "rbd", "get_image")]
+        res[pkg] = ([cl.exec("rep", "rbd_header.x", "rbd", "create",
+                             req.encode()),
+                     cl.exec("rep", "rbd_header.x", "rbd", "get_image"),
+                     cl.exec("rep", "rbd_header.x", "rbd", "create",
+                             req.encode())],
+                    store_state(d))
         d.shutdown()
-    assert res[PORT] == [(-95, b""), (-95, b"")]
-    assert res[JAX][0] == (0, b"")
-    assert res[JAX][1][0] == 0
-    assert json.loads(res[JAX][1][1])["size"] == 1 << 20
+    assert res[PORT][0] == res[JAX][0]
+    assert res[PORT][0][0] == (0, b"")
+    assert json.loads(res[PORT][0][1][1])["size"] == 1 << 20
+    assert res[PORT][0][2][0] < 0
+    assert_same_state(res[JAX][1], res[PORT][1])
 
 
 def _agent(d, now):

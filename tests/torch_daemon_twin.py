@@ -34,7 +34,7 @@ PLUGIN = {JAX: {"plugin": "tpu"},
           PORT: {"plugin": "cuda", "backend": "host"}}
 
 
-def reset_both() -> None:
+def reset_both(collect: bool = True) -> None:
     """Both packages at their defaults: dispatchers drained, every
     option unset, no fault armed, both event journals and chip
     scoreboards empty, both meshes down and the JAX breakers empty.
@@ -45,8 +45,10 @@ def reset_both() -> None:
     worker would put its ``osd_down`` events in one side only.  For the
     same reason the garbage of earlier tests is collected first: the
     device-shard budgets count every resident shard alive in the process
-    (``test_device_crc.py`` leaves 89 in reference cycles)."""
-    gc.collect()
+    (``test_device_crc.py`` leaves 89 in reference cycles); a caller
+    whose clusters hold no resident shard passes ``collect=False``."""
+    if collect:
+        gc.collect()
     g_dispatcher.flush()
     jax_dispatcher.flush()
     g_faults.clear()
@@ -70,6 +72,21 @@ def clean():
     reset_both()
     yield
     reset_both()
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread, as each daemon of the process cluster
+    runs it (``vstart._daemon_start``).  The mesh's CPU members then serve
+    a flush in well under a millisecond even while other test workers
+    load every core, so a member slowed by 30 ms stands out to the
+    scoreboard as it does on the card; with torch's default pool a member
+    waits on threads that other processes hold."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def set_both(name, value) -> None:

@@ -1,0 +1,143 @@
+"""Runs a JAX-package test case on both packages and compares what they
+stored (the rbd, journal and rbd tool twin tests).
+
+``port_module(mod)`` is the JAX test module ``mod`` with every
+``ceph_tpu`` import turned into ``ceph_tpu_torch``: the same cases, the
+same inputs, on the port.  ``run_both(mod, name, tmp_path, capsys)`` runs
+the case ``name`` (its module fixtures, ``tmp_path`` and ``capsys``
+supplied) once on each package with:
+
+- ``uuid.uuid4`` drawn from one seeded sequence, restarted for each
+  package, so image ids and lock cookies agree;
+- the port's EC pools given ``backend=host`` (its codecs' default
+  ``cuda`` backend asks for the card; the JAX pools run ``tpu`` or
+  ``isa`` on its CPU);
+- every ``MiniCluster`` the case builds recorded, so that afterwards
+  each cluster's stores (bodies, xattrs, omaps of every object on every
+  OSD) can be compared with its twin's.
+
+It returns ``(jax_run, port_run)``, each with the case's captured
+stdout/stderr and the clusters' store states in creation order.
+"""
+import inspect
+import random
+import re
+import types
+import uuid
+
+import pytest
+
+from torch_daemon_twin import reset_both, store_state
+
+JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
+UUID_SEED = 20260807
+
+
+def port_module(mod):
+    """``mod``'s source with the JAX package's imports made the port's."""
+    src = re.sub(r"\bceph_tpu\b", PORT, inspect.getsource(mod))
+    port = types.ModuleType(mod.__name__ + "_port")
+    port.__file__ = mod.__file__
+    exec(compile(src, mod.__file__, "exec"), port.__dict__)
+    return port
+
+
+def seeded_uuid4():
+    rng = random.Random(UUID_SEED)
+    return lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
+
+
+class Run:
+    def __init__(self, pkg):
+        self.pkg = pkg
+        self.clusters = []
+        self.out = ""
+        self.err = ""
+
+    def states(self):
+        return [store_state(c) for c in self.clusters]
+
+
+def _patch(mp, pkg, run):
+    from importlib import import_module
+    cluster_cls = import_module(pkg + ".cluster").MiniCluster
+    init = cluster_cls.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        run.clusters.append(self)
+
+    mp.setattr(cluster_cls, "__init__", recording_init)
+    if pkg == PORT:
+        create_ec_pool = cluster_cls.create_ec_pool
+
+        def host_ec_pool(self, *a, extra_profile=None, **kw):
+            return create_ec_pool(
+                self, *a, extra_profile={**(extra_profile or {}),
+                                         "backend": "host"}, **kw)
+
+        mp.setattr(cluster_cls, "create_ec_pool", host_ec_pool)
+    mp.setattr(uuid, "uuid4", seeded_uuid4())
+
+
+def _call(mod, name, tmp_path, capsys):
+    fn = getattr(mod, name)
+    kwargs, gens = {}, []
+    for arg in inspect.signature(fn).parameters:
+        if arg == "tmp_path":
+            kwargs[arg] = tmp_path
+        elif arg == "capsys":
+            kwargs[arg] = capsys
+        else:
+            value = getattr(mod, arg)._get_wrapped_function()()
+            if inspect.isgenerator(value):
+                gens.append(value)
+                value = next(value)
+            kwargs[arg] = value
+    try:
+        fn(**kwargs)
+    finally:
+        for g in gens:
+            next(g, None)
+
+
+def run_one(mod, name, pkg, tmp_path, capsys):
+    """The case ``name`` of ``mod`` (already the ``pkg`` package's)."""
+    run = Run(pkg)
+    reset_both(collect=False)
+    d = tmp_path / pkg
+    d.mkdir()
+    capsys.readouterr()
+    with pytest.MonkeyPatch.context() as mp:
+        _patch(mp, pkg, run)
+        try:
+            _call(mod, name, d, capsys)
+        finally:
+            cap = capsys.readouterr()
+            run.out, run.err = cap.out, cap.err
+    reset_both(collect=False)
+    return run
+
+
+def run_both(mod, name, tmp_path, capsys, port=None):
+    """``mod``'s case ``name`` on the JAX package, then on the port
+    (``port`` is ``port_module(mod)`` when the caller holds one)."""
+    j = run_one(mod, name, JAX, tmp_path, capsys)
+    p = run_one(port or port_module(mod), name, PORT, tmp_path, capsys)
+    return j, p
+
+
+def assert_same_runs(j, p):
+    """Equal output and, cluster by cluster, equal stores."""
+    assert p.out.replace(str(PORT), JAX) == j.out
+    assert p.err.replace(str(PORT), JAX) == j.err
+    assert len(p.clusters) == len(j.clusters)
+    for a, b in zip(j.states(), p.states()):
+        assert a.keys() == b.keys()
+        for key in a:
+            assert a[key] == b[key], key
+
+
+def case_names(mod):
+    return [n for n, v in vars(mod).items()
+            if n.startswith("test_") and callable(v)]
