@@ -19,8 +19,8 @@ its pool's erasure code itself, on the card unless it is started with
 must then say ``backend=host``.  With ``--device cuda`` the OSD opens the
 card and loads K1's library before it reports READY, and
 ``ProcessCluster`` builds K1 once in the parent before it spawns any
-daemon.  The MDS path waits for the port's ``mds/`` and ``cephfs/``
-(ROADMAP Queue 1, the rest of the runtime) and raises.
+daemon.  An MDS process (``mds``, ``ProcessCluster(n_mds=...)``) codes
+nothing and never opens the card.
 """
 from __future__ import annotations
 
@@ -35,8 +35,6 @@ from typing import Dict, List, Optional, Tuple
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-MDS_NOT_PORTED = ("the MDS path waits for the port's mds/ and cephfs/ "
-                  "(ROADMAP Queue 1, the rest of the runtime)")
 DEVICES = ("cuda", "cpu")
 
 
@@ -245,8 +243,222 @@ def osd_main(args) -> None:
 
 
 def mds_main(args) -> None:
-    """MDS daemon: not ported (:data:`MDS_NOT_PORTED`)."""
-    raise NotImplementedError(MDS_NOT_PORTED)
+    """MDS daemon: metadata authority over the wire (mds/server.py).
+    Creates the fs pools through mon wire commands on first boot; a
+    rebooted daemon finds them and REPLAYS its journal.  It codes
+    nothing, so it never touches CUDA: the file data's erasure code runs
+    in the OSD processes, on their ``--device``."""
+    _daemon_start()
+    from .client.mon_client import MonClient
+    from .client.rados import RadosClient
+    from .msg.tcp import TcpNetwork
+
+    directory = json.loads(args.directory)
+    auth = None
+    if args.keyring:
+        from .msg.tcp import TcpAuth
+        auth = TcpAuth(args.name, args.keyring)
+    net = TcpNetwork(("127.0.0.1", args.port),
+                     {k: tuple(v) for k, v in directory.items()},
+                     auth=auth, entity=args.name)
+    mon_names = [m for m in (args.mon_names or "mon").split(",") if m]
+    # the FULL roster: an mds must keep reading the fsmap (its
+    # promotion/fencing signal) across mon failures, hunting like the
+    # reference MonClient
+    rados = RadosClient(net, MonClient(net, mon_names[0],
+                                       mon_names=mon_names),
+                        args.name)
+    # wait for a map with every osd up before touching pools
+    deadline = time.monotonic() + 120.0
+    while True:
+        net.pump(quiesce=0.05, deadline=0.3)
+        rados.mon.send_full_map(args.name)
+        net.pump(quiesce=0.05, deadline=0.3)
+        m = rados.osdmap
+        if m.max_osd >= args.n_osds and \
+                all(m.is_up(o) for o in range(args.n_osds)):
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError("mds never saw a healthy map")
+        time.sleep(0.2)
+    for pool in (args.metadata_pool, args.data_pool):
+        try:
+            rados.mon_command("create_replicated_pool", name=pool,
+                              size=min(3, args.n_osds), pg_num=8)
+        except (ValueError, IOError):
+            pass                    # exists (reboot) — reuse it
+    from .cephfs.cls_fs import ROOT_INO, dir_oid
+    from .mds import MDSDaemon
+    # the fresh pools' PGs keep settling for a while after creation:
+    # wait until the metadata pool actually ANSWERS (ENOENT or data —
+    # either means servable).  Freshness is decided AFTER promotion:
+    # another mds may create the fs while we stand by.
+    deadline = time.monotonic() + 120.0
+    while True:
+        try:
+            rados.stat(args.metadata_pool, dir_oid(ROOT_INO))
+            break
+        except IOError as e:
+            if getattr(e, "errno", None) == 2:
+                break               # pool serves, no fs yet
+            if time.monotonic() > deadline:
+                raise RuntimeError("fs pools never became servable")
+            net.pump(quiesce=0.05, deadline=0.3)
+            time.sleep(0.3)
+    # ---- fsmap membership: beacon as standby until the MDSMonitor
+    # names us active (first joiner activates immediately; later ones
+    # stand by and take over on the active's beacon-grace failover) ----
+    from .msg.messages import MMDSBeacon
+
+    def beacon(state: str) -> None:
+        for m in mon_names:
+            net.send(args.name, m, MMDSBeacon(name=args.name,
+                                              state=state))
+
+    def fs_state():
+        """(my_rank or None, rank->name) from the replicated fsmap."""
+        try:
+            st = rados.mon_command("fs_status")
+        except (IOError, ValueError):
+            return None, {}
+        if not st:
+            return None, {}
+        ranks = {int(r): n for r, n in
+                 (st.get("ranks") or {}).items()}
+        e = (st.get("mds") or {}).get(args.name)
+        if e and e.get("state") == "active" \
+                and e.get("rank") is not None:
+            return int(e["rank"]), ranks
+        return None, ranks
+
+    beacon("standby")
+    print("READY", flush=True)
+    last_beacon = 0.0
+    my_rank = None
+    while my_rank is None:
+        my_rank, _ranks = fs_state()
+        if my_rank is not None:
+            break
+        net.pump(quiesce=0.05, deadline=0.3)
+        if time.monotonic() - last_beacon > 1.0:
+            beacon("standby")
+            last_beacon = time.monotonic()
+        time.sleep(0.2)
+
+    # promoted (or first): initialize and serve.  Probe freshness NOW —
+    # if another mds was active before us, IT created the fs and we
+    # must open + REPLAY, not mkfs.  Transient errors retry (a stale
+    # False would journal.open() a journal that never existed).
+    # Rank 0 is the fs creator; a promoted rank > 0 WAITS for the fs
+    # (rank 0's mkfs) and never creates it.
+    fresh = None
+    deadline = time.monotonic() + 120.0
+    last_slide = 0.0
+
+    def keepalive() -> None:
+        # EVERY promoted daemon (rank 0 doing mkfs included) must
+        # keep beaconing while it initializes — a silent active is
+        # grace-failed by the mon and its rank reseated under it,
+        # which on a slow host means dual mkfs writers
+        nonlocal last_beacon
+        if time.monotonic() - last_beacon > 1.0:
+            beacon("active")
+            last_beacon = time.monotonic()
+
+    while fresh is None:
+        keepalive()
+        try:
+            rados.stat(args.metadata_pool, dir_oid(ROOT_INO))
+            fresh = False
+        except IOError as e:
+            if getattr(e, "errno", None) == 2:
+                if my_rank == 0:
+                    fresh = True
+                    continue
+                # a promoted rank > 0 must outwait a SLOW rank 0, not
+                # just a dead one: while the fsmap still shows a
+                # rank-0 incumbent its mkfs is in progress somewhere,
+                # so the deadline keeps sliding (loaded-host runs
+                # exceeded a fixed 120 s before rank 0 finished).
+                # The status poll rides the same 1 s cadence as the
+                # beacons — the slide needs no finer granularity.
+                if time.monotonic() - last_slide > 1.0:
+                    last_slide = time.monotonic()
+                    _r, ranks = fs_state()
+                    if 0 in ranks:
+                        deadline = max(deadline, last_slide + 120.0)
+                if time.monotonic() > deadline:
+                    raise RuntimeError("rank 0 never created the fs")
+                else:
+                    net.pump(quiesce=0.05, deadline=0.3)
+                    time.sleep(0.3)
+            elif time.monotonic() > deadline:
+                raise
+            else:
+                net.pump(quiesce=0.05, deadline=0.3)
+                time.sleep(0.3)
+    mds = None
+    while mds is None:
+        keepalive()
+        try:
+            mds = MDSDaemon(net, rados, args.name,
+                            metadata_pool=args.metadata_pool,
+                            data_pool=args.data_pool, mkfs=fresh,
+                            rank=my_rank)
+        except IOError:
+            # some PG of the fresh pools still settling; mkfs/journal
+            # creation is idempotent, so just try again
+            if time.monotonic() > deadline:
+                raise
+            net.pump(quiesce=0.05, deadline=0.3)
+            time.sleep(0.5)
+    # seed the rank map BEFORE serving — with an empty map a freshly
+    # promoted rank treats other ranks' subtrees as its own and
+    # answers ENOENT where it must FORWARD, so a transient fs_status
+    # failure here cannot be shrugged off; a SEPARATE loop from the
+    # construction retry so an IOError mid-seed cannot skip it
+    seeded = False
+    while not seeded:
+        keepalive()
+        try:
+            _r, ranks0 = fs_state()
+            if ranks0:
+                mds.set_mds_map(ranks0)
+                seeded = True
+                continue
+        except IOError:
+            pass
+        if time.monotonic() > deadline:
+            raise RuntimeError("fsmap never readable before serving")
+        net.pump(quiesce=0.05, deadline=0.3)
+        time.sleep(0.3)
+    last_beacon = 0.0
+    last_fence_check = time.monotonic()
+    while True:
+        net.pump(quiesce=0.02, deadline=0.3)
+        mds.process()
+        now = time.monotonic()
+        if now - last_beacon > 1.0:
+            mds.beacon(mon_names)
+            last_beacon = now
+        if now - last_fence_check > 2.0:
+            last_fence_check = now
+            rank_now, ranks = fs_state()
+            if ranks:
+                mds.set_mds_map(ranks)
+            # FENCED whenever a REAL fsmap read no longer shows us
+            # holding our rank — reassigned (beacon-grace failover),
+            # demoted (max_mds shrink), or dropped.  Two writers on
+            # one rank journal would corrupt it — suicide and let the
+            # harness restart us as a standby (MDSDaemon::respawn).
+            # An empty ranks dict is a transient mon read failure,
+            # never a fence signal.
+            if ranks and ranks.get(my_rank) != args.name:
+                print(f"fenced: rank {my_rank} is now "
+                      f"{ranks.get(my_rank) or 'unheld'}; exiting",
+                      file=sys.stderr, flush=True)
+                os._exit(0)
+        mds.tick(now)
 
 
 # ---- harness ---------------------------------------------------------------
@@ -283,9 +495,8 @@ class ProcessCluster:
                  n_mons: int = 1,
                  mon_grace: float = 4.0,
                  n_mds: int = 0,
+                 mds_grace: float = 5.0,
                  device: str = "cuda"):
-        if n_mds:
-            raise NotImplementedError(MDS_NOT_PORTED)
         if device not in DEVICES:
             raise ValueError(f"device {device!r} is neither cuda nor cpu")
         if device == "cuda":
@@ -300,6 +511,8 @@ class ProcessCluster:
         self.n_osds = n_osds
         self.n_mons = n_mons
         self.mon_grace = mon_grace
+        self.n_mds = n_mds
+        self.mds_grace = mds_grace
         # single-mon clusters keep the historical name "mon"
         self.mon_names = (["mon"] if n_mons == 1
                           else [f"mon.{r}" for r in range(n_mons)])
@@ -317,6 +530,8 @@ class ProcessCluster:
                 kr.create(m)
             for i in range(n_osds):
                 kr.create(f"osd.{i}")
+            for i in range(n_mds):
+                kr.create(f"mds.{i}")
             for name in client_names:
                 kr.create(name)
             self.keyring_path = os.path.join(self._tmpdir, "keyring")
@@ -330,11 +545,12 @@ class ProcessCluster:
         # dies instantly with EADDRINUSE, so ONE respawn with fresh
         # ports absorbs the collision without masking slow failures
         for attempt in (0, 1):
-            ports = _free_ports(n_osds + n_mons + 1)
+            ports = _free_ports(n_osds + n_mons + n_mds + 1)
             self.mon_ports = ports[:n_mons]
             self.mon_port = self.mon_ports[0]
             self.client_port = ports[n_mons]
             self.osd_ports = ports[n_mons + 1:n_mons + 1 + n_osds]
+            self.mds_ports = ports[n_mons + 1 + n_osds:]
             directory: Dict[str, Tuple[str, int]] = {}
             for r, m in enumerate(self.mon_names):
                 directory[m] = ("127.0.0.1", self.mon_ports[r])
@@ -342,6 +558,8 @@ class ProcessCluster:
                 directory[name] = ("127.0.0.1", self.client_port)
             for i in range(n_osds):
                 directory[f"osd.{i}"] = ("127.0.0.1", self.osd_ports[i])
+            for i in range(n_mds):
+                directory[f"mds.{i}"] = ("127.0.0.1", self.mds_ports[i])
             self.directory = directory
             dir_json = json.dumps({k: list(v)
                                    for k, v in directory.items()})
@@ -407,6 +625,12 @@ class ProcessCluster:
             self._spawn_osd(i)
         for i in range(n_osds):
             self._await_ready(f"osd.{i}")
+        for i in range(self.n_mds):
+            self._spawn_mds(i)
+        for i in range(self.n_mds):
+            # the mds waits for a healthy map + creates/opens the fs
+            # pools before READY, which can take a while
+            self._await_ready(f"mds.{i}", timeout=240.0)
         from .msg.tcp import TcpNetwork
         cl_auth = None
         if self.keyring_path:
@@ -414,6 +638,32 @@ class ProcessCluster:
             cl_auth = TcpAuth(self.client_names[0], self.keyring_path)
         self.network = TcpNetwork(("127.0.0.1", self.client_port),
                                   self.directory, auth=cl_auth)
+
+    def _spawn_mds(self, i: int) -> None:
+        a = self._osd_args
+        self.procs[f"mds.{i}"] = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.vstart", "mds",
+             "--name", f"mds.{i}", "--port", str(self.mds_ports[i]),
+             "--directory", a["dir_json"],
+             "--mon-names", ",".join(self.mon_names),
+             "--n-osds", str(self.n_osds),
+             *a["keyring_args"]],
+            stdout=subprocess.PIPE, text=True, cwd=REPO, env=a["env"])
+
+    def kill_mds(self, i: int = 0) -> None:
+        """kill -9 the mds daemon (the MDS failover drill)."""
+        p = self.procs[f"mds.{i}"]
+        p.send_signal(signal.SIGKILL)
+        p.wait()
+
+    def restart_mds(self, i: int = 0) -> None:
+        """Fresh mds process on the same port: it finds the existing
+        pools and REPLAYS the MDS journal."""
+        old = self.procs.get(f"mds.{i}")
+        if old is not None and old.poll() is None:
+            raise RuntimeError(f"mds.{i} is still running")
+        self._spawn_mds(i)
+        self._await_ready(f"mds.{i}", timeout=240.0)
 
     def _await_ready(self, name: str, timeout: float = 120.0) -> None:
         import select
@@ -450,6 +700,7 @@ class ProcessCluster:
              "--name", name, "--rank", str(rank),
              "--peers", a["peers_of"][name],
              "--mon-grace", str(self.mon_grace),
+             "--mds-grace", str(self.mds_grace),
              "--down-out-interval", str(a["down_out_interval"]),
              "--pool", json.dumps(pool) if (pool and with_pool)
              else "",

@@ -102,12 +102,13 @@ m=4's ``create_rule`` (chooseleaf indep, size 12):
    with OSD (7e+3) % 1000 out (the K7a count must not move on them); an
    OSDMap of the (u) map with a replicated pool of 65536 PGs and an EC pool
    of 32768, ``OSDMapMapping().update`` and 10 epochs of ``mark_out`` (both
-   pools must map on the card).  A 2048-x sample of every other epoch
-   (0, 2, ..., 10) goes against ``crush_do_rule`` and 1024 PGs per pool
+   pools must map on the card).  A 2048-x sample of every fifth epoch
+   (0, 5, 10) goes against ``crush_do_rule`` and 1024 PGs per pool
    against ``pg_to_up_acting_osds``, in a pool of worker processes; epoch
    10 goes against the plain versions on all 100000 x;
 5c. K7a over one candidate phase per configuration and K7b per epoch, in
-   turns, 10 back to back per sample, and their plain versions; (f) and (g)
+   turns, 10 back to back per sample, and their plain versions (one
+   sample each since the cephfs slice, for the time limit); (f) and (g)
    are the host-clock walls of 4c's epochs.
 
 The whole-rule slice adds K6 (``crush_rule``, the whole rule for each x with
@@ -165,7 +166,7 @@ other OSDs at 0x8000):
    text, ``decode_crushmap``, ``LegacyFastRule(...).map_batch`` of 100000 x
    per rule and epoch (K8 must launch every time, residual_fraction 0.0);
    ``crushtool -i L.bin --test --show-mappings`` (x 0..1023, its own
-   process) prints K8's rows; a 2000-x sample per rule and epoch equals the
+   process) prints K8's rows; a 1000-x sample per rule and epoch equals the
    host ``crush_do_rule`` and K8's one-thread walk (``_Thread``,
    ``tests/test_torch_crush_legacy_kernel.py``) in a pool of workers;
 5l. K8 per rule and epoch over 100000 x from a CUDA graph of 3 launches,
@@ -265,7 +266,10 @@ The dispatch and native-library slice adds, after 4b:
    its own process, whose one JSON line must be schema-valid with every
    metric fenced and not suspect, ``decode_parity`` and the pipeline's
    ``identical`` true and no error (the line goes to
-   ``chiprun_out/bench_line.json``).
+   ``chiprun_out/bench_line.json``).  Since the cephfs slice 4n runs
+   first after the build, on a host the host-bound checks have not yet
+   loaded: its mesh workloads' wall-clock gates (4w (d)) read the host's
+   jitter.
 
 The placement and store slice (``osdmap/upmap.py``, ``osdmap/balancer.py``,
 ``tools/osdmaptool.py``, ``os_store/memstore.py`` and the modules under
@@ -302,8 +306,10 @@ The OSD data path slice (``common/work_queue.py``, ``osd/ec_backend.py``,
 4p. a client's writes and reads through the port's daemons: one monitor
    and 12 OSDs (one per host) over the in-process messenger, assembled by
    ``Daemons`` as the JAX ``MiniCluster`` assembles them without its
-   manager, and a ``RadosClient``; k=8 m=4 ``plugin=cuda`` pools of 32
-   PGs (``crush-failure-domain=host``), the 64 objects of 4 MiB made from
+   manager, and a ``RadosClient``; k=8 m=4 ``plugin=cuda`` pools of 128
+   PGs (32 in the whole smoke since the cephfs slice, as in 4q and 4x,
+   for its time limit; ``crush-failure-domain=host``), the 64 objects of
+   4 MiB made from
    the seed.  Legs (a) write, reads, ranged read, rmw; (b) two OSDs down,
    degraded reads; (c) one downed OSD's disk replaced, recovery; (d)
    residency on: K5 writes, K4-verified reads, a rotted body, deep scrub;
@@ -373,9 +379,10 @@ run as they did):
 4x. a block device on an erasure-coded data pool (``rbd_slice``): a
    ``MiniCluster`` of 12 OSDs, a replicated ``rbd`` pool (size 3) for the
    headers and the journal, an ``ecdata`` pool (``cuda`` k=8 m=4, 128
-   PGs), ``rbd create --size 256M --data-pool ecdata --journaling`` at
+   PGs, 32 in the whole smoke), ``rbd create --size 256M --data-pool ecdata --journaling`` at
    order 22.  (a) fill, 64 writes of 4 MiB; (b) 128 writes of 4 KiB at
-   seeded random offsets, p50 / p99 per op; (c) snapshot, protect, a
+   seeded random offsets (64 in the whole smoke since the cephfs slice,
+   for the time limit), p50 / p99 per op; (c) snapshot, protect, a
    clone on ``ecdata`` and 16 copyup writes into it, then a sample of
    stored shards against the native host coder; (d) two OSDs holding
    data shards killed and marked down, the image, its snapshot and the
@@ -387,9 +394,32 @@ run as they did):
    each leg's wall and the device's busy share where the profiler sees
    it.  ``python3 chip_smoke.py --rbd`` runs 4x alone after phases 1-2.
 
+The cephfs slice (``cephfs/``, ``mds/``) adds, after 4x (the earlier
+phases run as they did):
+
+4y. a filesystem whose file data lives on an erasure-coded pool
+   (``cephfs_slice``): a ``MiniCluster`` of 12 OSDs, a replicated
+   ``fsmeta`` pool (size 3, 32 PGs), an ``fsdata`` pool (``cuda`` k=8 m=4,
+   stripe unit 4096, 64 PGs), ``MDSDaemon(mkfs=True)`` and two
+   ``RemoteCephFS`` clients.  (a) A buffers 32 files of 4 MiB under the
+   BUFFER cap, B reads each (the revoke round makes A flush first),
+   byte-exact; (b) 256 files of 4 KiB in 16 directories created, written
+   and stat'ed, p50 / p99 per file; (c) a snapshot of one directory, a
+   file in it overwritten, the snapshot's view equal to the old bytes;
+   (d) two OSDs holding data shards killed and marked down, every file
+   read back equal to a numpy model; (e) the MDS dropped and a fresh
+   ``MDSDaemon(mkfs=False)`` replaying the journal, the namespace and the
+   bytes equal.  K1 is counted per leg (it must move in (a), (b) and
+   (d), and some object must have lost a data shard in (d)), with each
+   leg's wall and, from a traced sample, the device's busy share where
+   the profiler sees it.  ``python3 chip_smoke.py --cephfs`` runs 4y alone
+   after phases 1-2.
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
-Full results also go to ``chiprun_out/chip_smoke.json``.
+Full results also go to ``chiprun_out/chip_smoke.json``, and every line
+logged, stamped with the seconds since the start, to
+``chiprun_out/chip_smoke.log``.
 """
 from __future__ import annotations
 
@@ -424,8 +454,14 @@ REPS = 10                         # back-to-back launches per kernel sample
 SEED = 20261016
 
 
+LOG_FILE = []                     # main()'s log file, stamped, if any
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for path, t0 in LOG_FILE:
+        with open(path, "a") as f:
+            f.write(f"{time.perf_counter() - t0:8.1f} {msg}\n")
 
 
 def cuda_ms(fn, runs: int = RUNS, warmup: int = 2) -> float:
@@ -1220,11 +1256,11 @@ CRUSH_SAMPLE = 4096               # x of 3c's K6 check
 # smoke inside its time limit with the process cluster (4v) added
 CRUSH_EPOCH_SAMPLE = 2048
 CRUSH_EPOCHS = 10
-# the drives' epochs whose sample goes to the host: every other one and the
-# last (0, 2, ..., 10), which keeps the whole smoke inside its time limit
-# with the rbd phase (4x) added; every epoch still runs on the card, with
-# its kernel counts and host_replayed checked
-CRUSH_CHECK_EVERY = 2
+# the drives' epochs whose sample goes to the host: every fifth one and the
+# last (0, 5, 10), which keeps the whole smoke inside its time limit with
+# the rbd and cephfs phases (4x, 4y) added; every epoch still runs on the
+# card, with its kernel counts and host_replayed checked
+CRUSH_CHECK_EVERY = 5
 OSDMAP_PG_NUM = {"rep": 65536, "ec": 32768}
 OSDMAP_SAMPLE = 1024              # PGs per pool held against the scalar path
 CHECK_PROCS = 7                   # host checks beside the main process
@@ -1893,7 +1929,7 @@ def crush_times(drive_rules, dev, wide_ops=0):
             lambda: [cf.crush_descend(*a) for a in calls], alt_run],
             reps=REPS)
         k7a_plain = cuda_ms(lambda: [cf.crush_descend_plain(*a)
-                                     for a in calls], runs=3, warmup=1)
+                                     for a in calls], runs=1, warmup=0)
         wd = torch.from_numpy(w.view(np.int32)).to(dev)
         cand, leaf, risk0, valid, xl = fr._cand
         k7b_host_ms = turns_ms([lambda: fr.resolve_packed(wd)], reps=REPS)[0]
@@ -1933,14 +1969,14 @@ def crush_times(drive_rules, dev, wide_ops=0):
         k6_plain_all_ms = (time.perf_counter() - t_plain) * 1e3
         fidx = idx[:n_flagged].long()
         k6_plain_flag_ms = cuda_ms(lambda: ck.crush_rule_plain(
-            fr.program, xd[fidx], wd), runs=3, warmup=1)
+            fr.program, xd[fidx], wd), runs=1, warmup=0)
         draws_all = int(k6_draws.sum())
         draws_flag = int(k6_draws[fidx].sum())
         max_items_flag = int(k6_draws[fidx].max()) if n_flagged else 0
         del work, packed
         k7b_plain = cuda_ms(lambda: cf.crush_resolve_plain(
             fr.spec, cand, leaf, xl, valid, risk0, wd, fr.parents,
-            fr.result_max, 0), runs=3, warmup=1)
+            fr.result_max, 0), runs=1, warmup=0)
         ops = draws * OPS_PER_DRAW + wide_draws * wide_ops
         rows = CRUSH_X * (fr.result_max + 1) * 4
         lane_bytes = sum(t.numel() * t.element_size()
@@ -2344,7 +2380,8 @@ def k8_parent_turns(parent_dir, dev) -> dict:
 
 LEGACY_SHAPE = (5, 10, 20)        # (L): racks, hosts per rack, OSDs per host
 LEGACY_CHECK_X = 4096             # x of each rule and epoch held against plain
-LEGACY_SAMPLE = 2000              # x of each rule and epoch held against the host
+LEGACY_SAMPLE = 1000              # x of each rule and epoch held against the host
+                                  # (2000 until the cephfs slice: the time limit)
 LEGACY_EPOCHS = 10                # epochs marking 2 more OSDs out each
 # (L)'s rules: Ceph's default replicated rule (size 3), and a chained rule
 # placing 2 copies in each of 2 racks (size 4)
@@ -2586,7 +2623,7 @@ def legacy_drive(dev):
     ``decode_crushmap``, then ``LegacyFastRule(...).map_batch`` over all
     100000 x for L1 and L2 in every epoch (the K8 count reset just before,
     read after; residual_fraction 0.0 every time).  Returns the rows of a
-    2000-x sample per rule and epoch as host jobs (``crush_do_rule`` and
+    1000-x sample per rule and epoch as host jobs (``crush_do_rule`` and
     K8's transcription), the walls, the rules and the map's path."""
     from ceph_tpu_torch.crush.binfmt import decode_crushmap
     from ceph_tpu_torch.ops import crush_legacy as cl
@@ -2675,7 +2712,7 @@ def legacy_tester(drive):
 def legacy_times(drive, checks, items, dev):
     """5l: K8 per rule and epoch over 100000 x, replayed from a CUDA graph
     of 3 launches (the kernel's own time); its instruction bound: the items
-    its transcription hashes per x over the 2000-x sample, scaled to
+    its transcription hashes per x over the 1000-x sample, scaled to
     100000 x, times OPS_PER_DRAW at the card's instruction rate; the
     plain version's wall on its 4096 x (3l) and the map_batch walls
     (4l)."""
@@ -4079,6 +4116,7 @@ def memstore_slice(objs, dev) -> dict:
 # -- 4p. the OSD data path ---------------------------------------------------
 OSD_PATH_OSDS = 12                # one per host, crush-failure-domain=host
 OSD_PATH_PG_NUM = 128             # Ceph's ~100 PGs per OSD
+SMOKE_PG_NUM = 32                 # 4p's, 4q's and 4x's in the whole smoke
 OSD_PATH_SMALL = 64 << 10         # (e)'s writes
 OSD_PATH_DEADLINE_S = 60.0        # the most any one op may take
 REGEN_PROFILE = {"plugin": "regenerating", "k": "8", "m": "4", "d": "10"}
@@ -5932,6 +5970,7 @@ RBD_ORDER = 22                    # rbd's default object size, 4 MiB
 RBD_OBJECTS = 64                  # a 256 MiB image
 RBD_REP_PG_NUM = 32               # the replicated pool of headers, journals
 RBD_RAND_WRITES = 128             # rbd bench --io-type write --io-size 4K
+RBD_SMOKE_RAND_WRITES = 64        #   (the whole smoke's, for its time limit)
 RBD_RAND_IO = 4096                #   --io-pattern rand
 RBD_CLONE_WRITES = 16             # writes into the clone (copyups)
 RBD_MIRROR_OSDS = 6               # the mirror's destination cluster
@@ -5940,6 +5979,36 @@ RBD_MIRROR_PG_NUM = 32
 RBD_CHECK_OBJECTS = 8             # objects whose stored shards are checked
 RBD_TRACE_WRITES = 16             # the traced sample: 4 KiB writes
 RBD_TRACE_OBJECTS = 4             #   and whole-object rewrites
+
+
+def k1_legs(phase: str, dev, out: dict, total: dict):
+    """``counted(name, drive, traced=False, **rec)`` of a phase: runs
+    ``drive`` with K1's count set to 0 just before and read just after,
+    adds the count to ``total`` and records the leg (its wall, K1
+    launches, ``rec`` and what ``drive`` returns) in ``out["legs"]``.  A
+    ``traced`` leg runs under ``LegTrace`` and adds its busy shares; the
+    profiler's cost is in its wall, so the timed legs run untraced."""
+    from ceph_tpu_torch.ops import gf_pallas
+
+    def counted(name, drive, traced=False, **rec):
+        gf_pallas.launches.reset()
+        t0 = time.perf_counter()
+        if traced:
+            with LegTrace(dev, [gf_pallas.launches]) as tr:
+                extra_rec = drive() or {}
+            rec.update({k: v for k, v in tr.reading().items() if k in (
+                "device_busy_share", "kernel_share", "device_busy_ms",
+                "kernel_ms", "timed_device_call_share")})
+        else:
+            extra_rec = drive() or {}
+        wall = time.perf_counter() - t0
+        n = gf_pallas.launches.n
+        total["gf_bit_matmul"] += n
+        leg = {"wall_s": wall, "k1_launches": n, **rec, **extra_rec}
+        out["legs"][name] = leg
+        log(f"{phase} {name}: " + json.dumps(leg, default=str))
+        return leg
+    return counted
 
 
 def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
@@ -5990,13 +6059,11 @@ def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
     from ceph_tpu_torch.common.config import g_conf
     from ceph_tpu_torch.dispatch import g_dispatcher
     from ceph_tpu_torch.ec import create_erasure_code
-    from ceph_tpu_torch.ops import gf_pallas
     from ceph_tpu_torch.rbd import Image, ImageMirror, RBD
     on_card = dev.type == "cuda"
     extra = {} if on_card else {"backend": "host"}
     obj = 1 << order
     size = n_obj * obj
-    counters = [gf_pallas.launches]
     out = {"legs": {}, "config": {
         "osds": OSD_PATH_OSDS, "pg_num": pg_num, "rep_pg_num": rep_pg_num,
         "k": K, "m": M, "plugin": "cuda", "extra_profile": extra,
@@ -6012,27 +6079,7 @@ def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
         if on_card and not cond:
             raise AssertionError(f"4x: {what}")
 
-    def counted(name, drive, traced=False, **rec):
-        """Run ``drive`` with K1's count at 0 and record the leg; a
-        ``traced`` leg runs under ``LegTrace`` (the profiler's cost is
-        in its wall, so the timed legs run untraced)."""
-        gf_pallas.launches.reset()
-        t0 = time.perf_counter()
-        if traced:
-            with LegTrace(dev, counters) as tr:
-                extra_rec = drive() or {}
-            rec.update({k: v for k, v in tr.reading().items() if k in (
-                "device_busy_share", "kernel_share", "device_busy_ms",
-                "kernel_ms", "timed_device_call_share")})
-        else:
-            extra_rec = drive() or {}
-        wall = time.perf_counter() - t0
-        n = gf_pallas.launches.n
-        total["gf_bit_matmul"] += n
-        leg = {"wall_s": wall, "k1_launches": n, **rec, **extra_rec}
-        out["legs"][name] = leg
-        log(f"4x {name}: " + json.dumps(leg, default=str))
-        return leg
+    counted = k1_legs("4x", dev, out, total)
 
     g_dispatcher.flush()
     for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
@@ -6234,11 +6281,307 @@ def rbd_alone(dev) -> None:
         json.dump(out, f, indent=1, default=str)
 
 
+CEPHFS_META_PG_NUM = 32           # the metadata pool (replicated, size 3)
+CEPHFS_DATA_PG_NUM = 64           # the data pool (cuda k=8 m=4)
+CEPHFS_BIG_FILES = 32             # (a) files of one 4 MiB object each
+CEPHFS_BIG_BYTES = 4 << 20        #   (cephfs's default layout, order 22)
+CEPHFS_SMALL_FILES = 256          # (b) small files
+CEPHFS_SMALL_BYTES = 4096
+CEPHFS_DIRS = 16                  #   spread over these directories
+CEPHFS_TRACE_BIG = 2              # the traced sample: 4 MiB files
+CEPHFS_TRACE_SMALL = 16           #   and 4 KiB files
+
+
+def fs_walk(fs, path: str = "/") -> dict:
+    """The namespace under ``path`` as ``RemoteCephFS`` lists it:
+    path -> inode."""
+    out = {}
+    for name, inode in sorted(fs.listdir(path).items()):
+        sub = path.rstrip("/") + "/" + name
+        out[sub] = inode
+        if inode.get("type") == "dir":
+            out.update(fs_walk(fs, sub))
+    return out
+
+
+def fs_names(inodes: dict) -> dict:
+    """path -> (type, ino, size): what a replay must give back."""
+    return {p: (i.get("type"), i.get("ino"), i.get("size", 0))
+            for p, i in inodes.items()}
+
+
+def cephfs_slice(dev, big_files: int = CEPHFS_BIG_FILES,
+                 big_bytes: int = CEPHFS_BIG_BYTES,
+                 small_files: int = CEPHFS_SMALL_FILES,
+                 small_bytes: int = CEPHFS_SMALL_BYTES,
+                 dirs: int = CEPHFS_DIRS,
+                 meta_pg_num: int = CEPHFS_META_PG_NUM,
+                 data_pg_num: int = CEPHFS_DATA_PG_NUM,
+                 trace_big: int = CEPHFS_TRACE_BIG,
+                 trace_small: int = CEPHFS_TRACE_SMALL) -> dict:
+    """4y: a filesystem whose file data lives on an erasure-coded pool,
+    as a user makes one with ``ceph osd pool create fsdata erasure`` and
+    ``ceph fs new``: a ``MiniCluster`` of 12 OSDs, one per host; a
+    replicated ``fsmeta`` pool (size 3, ``meta_pg_num`` PGs) for the
+    directories, the InoTable and the MDS journal; an ``fsdata`` pool,
+    ``cuda`` plugin k=8 m=4, stripe unit 4096, ``data_pg_num`` PGs; an
+    ``MDSDaemon`` that makes the filesystem, and two ``RemoteCephFS``
+    clients A and B, each driving the MDS and its peer from its blocked
+    requests.  Legs, K1's count set to 0 just before each and read just
+    after:
+
+    (a) A opens ``big_files`` files for writing under the BUFFER cap and
+        buffers ``big_bytes`` into each; B opens and reads each, which
+        makes the MDS revoke A's caps, and A's flush writes the object
+        (K1 once per object) before B's read is granted; byte-exact;
+    (b) ``small_files`` files of ``small_bytes`` in ``dirs`` directories:
+        create, write and stat each, p50 / p99 per file; K1 once per
+        file;
+    (c) ``snap_create`` on one directory, a file in it overwritten, and
+        the snapshot's view reads the old bytes, the head the new;
+    (d) two OSDs holding data shards of the first file (and no two
+        copies of any PG of ``fsmeta``) killed and marked down; every
+        file read back equal to a numpy model: K1 decodes each object
+        that lost a data shard;
+    (e) the MDS dropped and a fresh ``MDSDaemon(mkfs=False)`` replays the
+        journal; a new client's walk of the namespace equals what it was,
+        and every file's bytes, read from the data pool through the
+        replayed inodes, equal the model.
+
+    After (b) a traced sample (``trace_big`` buffered 4 MiB files read by
+    B and ``trace_small`` small files, under ``LegTrace``) gives the
+    device's busy share, if the profiler sees it; the timed legs run
+    untraced.  The phase fails if K1's count stays 0 in (a), (b) or (d),
+    if no object lost a data shard in (d), or if any read differs.  On
+    the CPU (a rehearsal at small sizes) the codec takes
+    ``backend=host`` and the launch counts are not checked."""
+    from ceph_tpu_torch.cephfs.cls_fs import file_oid
+    from ceph_tpu_torch.cephfs.mds_client import RemoteCephFS
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.mds import MDSDaemon
+    from ceph_tpu_torch.msg.messages import CEPH_CAP_FILE_BUFFER
+    from ceph_tpu_torch.osdmap import ceph_stable_mod, pg_t
+    on_card = dev.type == "cuda"
+    extra = {} if on_card else {"backend": "host"}
+    out = {"legs": {}, "config": {
+        "osds": OSD_PATH_OSDS, "meta_pg_num": meta_pg_num,
+        "data_pg_num": data_pg_num, "k": K, "m": M, "plugin": "cuda",
+        "stripe_unit": CHUNK, "extra_profile": extra,
+        "big_files": big_files, "big_bytes": big_bytes,
+        "small_files": small_files, "small_bytes": small_bytes,
+        "dirs": dirs}}
+    total = {"gf_bit_matmul": 0}
+    t_slice = time.perf_counter()
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4y: {what}")
+
+    def same(got, want, what):
+        if got != want:
+            raise AssertionError(f"4y: {what} differs from the model")
+
+    counted = k1_legs("4y", dev, out, total)
+
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "ec_mesh_chips", "osd_op_num_threads",
+                 "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    rng = np.random.default_rng(SEED + 8)
+
+    def body(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=OSD_PATH_OSDS)
+    meta_pid = c.create_replicated_pool("fsmeta", size=3,
+                                        pg_num=meta_pg_num)
+    data_pid = c.create_ec_pool("fsdata", k=K, m=M, pg_num=data_pg_num,
+                                plugin="cuda", extra_profile=extra)
+    srv = {"mds": MDSDaemon(c.network, c.client("client.mds"), "mds.0",
+                            mkfs=True)}
+    fa = RemoteCephFS(c.client("client.a"))
+    fb = RemoteCephFS(c.client("client.b"))
+    # cooperative scheduling, as the MDS's own tests run it: a blocked
+    # client drives the MDS and its peer
+    fa._drive = lambda: (srv["mds"].process(), fb.process())
+    fb._drive = lambda: (srv["mds"].process(), fa.process())
+    fa.mkdir("/big")
+    fa.mkdir("/small")
+    for j in range(dirs):
+        fa.mkdir(f"/small/d{j:02d}")
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4y: MiniCluster of {OSD_PATH_OSDS} OSDs, pools fsmeta "
+        f"({meta_pg_num} PGs) and fsdata ({data_pg_num} PGs), the MDS and "
+        f"{dirs + 2} directories up in {out['boot_s']:.1f} s")
+    model = {}
+
+    def buffered(paths):
+        """A buffers each file under the BUFFER cap; B reads each, which
+        revokes A's caps and makes A flush first."""
+        handles = []
+        for path in paths:
+            fh = fa.open(path, "w")
+            if not fh.caps & CEPH_CAP_FILE_BUFFER:
+                raise AssertionError(f"4y: {path} opened without BUFFER")
+            model[path] = body(big_bytes)
+            fh.write(model[path], 0)
+            handles.append(fh)
+        for path in paths:
+            same(fb.read(path), model[path], f"B's read of {path}")
+        revoked = sum(fh.caps == 0 for fh in handles)
+        if revoked != len(handles):
+            raise AssertionError(f"4y: {revoked} of {len(handles)} "
+                                 "buffered handles revoked")
+        for fh in handles:
+            fh.close()
+        return {"revoked": revoked}
+
+    def small(paths):
+        lat = []
+        for path in paths:
+            model[path] = body(small_bytes)
+            t = time.perf_counter()
+            fa.create(path)
+            fa.write(path, model[path], 0)
+            size = fa.stat(path)["size"]
+            lat.append(time.perf_counter() - t)
+            if size != small_bytes:
+                raise AssertionError(f"4y: {path} stat size {size}")
+        return lat
+
+    # -- (a) buffered 4 MiB files, B's reads revoke A's caps ---------------------
+    big = [f"/big/f{i:03d}" for i in range(big_files)]
+    leg = counted("a_buffered_revoke", lambda: buffered(big),
+                  files=big_files)
+    leg["GiBps"] = big_files * big_bytes / leg["wall_s"] / 2**30
+    need(leg["k1_launches"] >= big_files,
+         f"(a) K1 launches {leg['k1_launches']} for {big_files} files")
+
+    # -- (b) small files: create, write, stat ------------------------------------
+    smalls = [f"/small/d{i % dirs:02d}/f{i:04d}" for i in range(small_files)]
+
+    def leg_b():
+        lat = small(smalls)
+        return {"p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                "files_per_s": len(lat) / sum(lat)}
+    leg = counted("b_small_files", leg_b, files=small_files)
+    need(leg["k1_launches"] >= small_files,
+         f"(b) K1 launches {leg['k1_launches']} for {small_files} files")
+    # the device's share of such work, from a traced sample of both kinds
+    t_big = [f"/big/t{i:03d}" for i in range(trace_big)]
+    t_small = [f"/small/d00/t{i:04d}" for i in range(trace_small)]
+
+    def sample():
+        buffered(t_big)
+        small(t_small)
+    leg = counted("t_traced_sample", sample, traced=True,
+                  files=trace_big + trace_small)
+    need(leg["k1_launches"] >= trace_big + trace_small,
+         f"(t) K1 launches {leg['k1_launches']} for "
+         f"{trace_big + trace_small} files")
+
+    # -- (c) a subtree's snapshot, then an overwrite -----------------------------
+    snap_dir, snap_file = "/small/d01", smalls[1]
+
+    def leg_c():
+        old = model[snap_file]
+        snap = fa.snap_create(snap_dir, "s1")
+        model[snap_file] = body(small_bytes)
+        fa.write(snap_file, model[snap_file], 0)
+        view = fa.snapshot(snap_dir, "s1")
+        same(view.read(snap_file.rsplit("/", 1)[1]), old,
+             f"the snapshot's view of {snap_file}")
+        same(fb.read(snap_file), model[snap_file], f"the head {snap_file}")
+        return {"snap": snap}
+    counted("c_snapshot", leg_c)
+
+    # -- (d) two OSDs down: every file read back ---------------------------------
+    # the acting sets of every PG of both pools, by the monitor's map
+    m = c.mon.osdmap
+    meta_sets, data_sets = ([[int(o) for o in m.pg_to_up_acting_osds(
+        pg_t(pid, ps))[2]] for ps in range(n)] for pid, n in (
+            (meta_pid, meta_pg_num), (data_pid, data_pg_num)))
+
+    def data_acting(oid):
+        pool = m.get_pg_pool(data_pid)
+        ps = ceph_stable_mod(m.map_to_pg(data_pid, oid).ps, pool.pg_num,
+                             pool.pg_num_mask)
+        return data_sets[ps]
+
+    namespace = fs_names(fs_walk(fb))
+    objects = [file_oid(namespace[p][1], 0) for p in sorted(model)]
+    data = data_acting(file_oid(namespace[big[0]][1], 0))[1:K]
+    victims = next([a, b] for i, a in enumerate(data) for b in data[i + 1:]
+                   if not any({a, b} <= set(held) for held in meta_sets))
+    lost = sum(1 for oid in objects
+               if set(data_acting(oid)[:K]) & set(victims))
+    if not lost:
+        raise AssertionError("4y (d): no object lost a data shard")
+    t0 = time.perf_counter()
+    for v in victims:
+        c.kill_osd(v)
+        c.mark_osd_down(v)
+    out["mark_down_s"] = time.perf_counter() - t0
+
+    def leg_d():
+        for path in sorted(model):
+            same(fb.read(path), model[path], f"degraded read of {path}")
+    leg = counted("d_degraded_reads", leg_d, victims=victims,
+                  files=len(model), objects_missing_a_data_shard=lost,
+                  mark_down_s=out["mark_down_s"])
+    leg["GiBps"] = sum(map(len, model.values())) / leg["wall_s"] / 2**30
+    need(leg["k1_launches"] >= lost,
+         f"(d) K1 launches {leg['k1_launches']} for {lost} objects with "
+         "a lost data shard")
+
+    # -- (e) a fresh MDS replays the journal ---------------------------------------
+    def leg_e():
+        srv["mds"] = MDSDaemon(c.network, c.client("client.mds2"), "mds.0")
+        fe = RemoteCephFS(c.client("client.e"))
+        fe._drive = lambda: srv["mds"].process()
+        inodes = fs_walk(fe)
+        if fs_names(inodes) != namespace:
+            raise AssertionError("4y (e): the replayed namespace differs")
+        for path in sorted(model):
+            inode = inodes[path]
+            same(fe._read_data(inode, 0, None, inode["size"]), model[path],
+                 f"the replayed inode's bytes of {path}")
+        return {"entries": len(namespace)}
+    counted("e_mds_replay", leg_e)
+    for osd in c.osds.values():
+        osd.shutdown()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4y: launches " + json.dumps(total) + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def cephfs_alone(dev) -> None:
+    """``--cephfs``: 4y alone after phases 1-2, its record written to
+    ``chiprun_out/cephfs.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = cephfs_slice(dev)
+    with open(os.path.join("chiprun_out", "cephfs.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # every line logged, stamped with the seconds since here, also goes to
+    # chiprun_out/chip_smoke.log: the output's end alone is cut short
+    os.makedirs("chiprun_out", exist_ok=True)
+    log_path = os.path.join("chiprun_out", "chip_smoke.log")
+    open(log_path, "w").close()
+    LOG_FILE.append((log_path, time.perf_counter()))
     from ceph_tpu_torch import arch
     from ceph_tpu_torch.ec import create_erasure_code
     from ceph_tpu_torch.gf.matrices import (gf_gen_cauchy1_matrix,
@@ -6307,11 +6650,13 @@ def main() -> int:
                         ("--cluster", cluster_alone),
                         ("--vstart", vstart_alone),
                         ("--mesh", mesh_alone),
-                        ("--rbd", rbd_alone)):
+                        ("--rbd", rbd_alone),
+                        ("--cephfs", cephfs_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
-                    "--cluster", "--vstart", "--mesh", "--rbd"):
+                    "--cluster", "--vstart", "--mesh", "--rbd",
+                    "--cephfs"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -6322,6 +6667,12 @@ def main() -> int:
         return 0
 
     phase_done("2 build")
+
+    # -- 4n. the native host library and the bench CLI in its own process,
+    # first after the build: its mesh workloads' wall-clock gates (4w (d))
+    # read the host's jitter, which the host-bound checks below raise -------
+    results["native_bench"] = native_bench_slice()
+    phase_done("4n native + bench CLI")
 
     # -- 3. kernel against its plain version ----------------------------------
     gen = torch.Generator(device=dev)
@@ -6609,10 +6960,6 @@ def main() -> int:
     results["dispatch"] = dispatch
     phase_done("4d dispatch")
 
-    # -- 4n. the native host library and the bench CLI in its own process ----
-    results["native_bench"] = native_bench_slice()
-    phase_done("4n native + bench CLI")
-
     # -- 4o. osdmaptool on the card, 4m. MemStore with resident bodies, after
     # the earlier slices' phases, which run as they did before them ---------
     tool = osdmaptool_slice(dev)
@@ -6626,7 +6973,7 @@ def main() -> int:
     # monitor, the OSDs, their PGs and ECBackend, after the earlier
     # slices' phases, which run as they did before it --------------------
     del objs
-    osd_path = osd_path_slice(dev)
+    osd_path = osd_path_slice(dev, pg_num=SMOKE_PG_NUM)
     results["osd_path"] = osd_path
     path_n = osd_path["launches"]
     phase_done("4p OSD data path")
@@ -6634,7 +6981,7 @@ def main() -> int:
     # -- 4q. MiniCluster: a user's writes, a traffic run and degraded reads
     # through the monitor, the OSDs and the mgr, then psim on 4o's map,
     # after the earlier slices' phases, which run as they did before it --
-    cluster = cluster_slice(dev)
+    cluster = cluster_slice(dev, pg_num=SMOKE_PG_NUM)
     results["cluster"] = cluster
     cl_n = cluster["launches"]
     cli_zc = results["native_bench"]["zero_copy_launches"]
@@ -6660,13 +7007,22 @@ def main() -> int:
     # -- 4x. a block device on an erasure-coded data pool: fill, random
     # small writes, a clone's copyups, degraded exports and a mirror's
     # replay, after the earlier slices' phases, which run as they did -----
-    rbd_rec = rbd_slice(dev)
+    rbd_rec = rbd_slice(dev, pg_num=SMOKE_PG_NUM,
+                        rand_writes=RBD_SMOKE_RAND_WRITES)
     results["rbd"] = rbd_rec
     # the bench CLI's harnesses on the mesh (4n's line)
     harness = results["native_bench"]["harness"]
     harness_n = {n: sum(w["launches"][n] for w in harness.values())
                  for n in ("gf_bit_matmul", "mesh_xor")}
     phase_done("4x rbd")
+
+    # -- 4y. a filesystem on an erasure-coded data pool: buffered writes
+    # flushed by a caps revoke, small files, a subtree snapshot, degraded
+    # reads and an MDS journal replay, after the earlier slices' phases,
+    # which run as they did ------------------------------------------------------
+    fs_rec = cephfs_slice(dev)
+    results["cephfs"] = fs_rec
+    phase_done("4y cephfs")
 
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
@@ -6694,7 +7050,8 @@ def main() -> int:
                      + vs["launches"]["gf_bit_matmul"]
                      + mesh_n["gf_bit_matmul"] + mesh_cli["gf_bit_matmul"]
                      + rbd_rec["launches"]["gf_bit_matmul"]
-                     + harness_n["gf_bit_matmul"]),
+                     + harness_n["gf_bit_matmul"]
+                     + fs_rec["launches"]["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],

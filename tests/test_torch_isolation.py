@@ -755,19 +755,6 @@ def test_process_cluster_on_cuda_without_card_raises(monkeypatch):
         vstart._open_device("cuda")
 
 
-def test_vstart_mds_path_raises():
-    """The MDS path waits for the port's ``mds/`` and ``cephfs/``: the
-    cluster with an MDS, its daemon main and the ``mds`` subcommand all
-    raise before anything starts."""
-    from ceph_tpu_torch import vstart
-    with pytest.raises(NotImplementedError, match="mds/ and cephfs/"):
-        vstart.ProcessCluster(n_osds=3, n_mds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        vstart.main(["mds", "--port", "1", "--directory", "{}",
-                     "--n-osds", "3"])
-    assert not hasattr(vstart.ProcessCluster, "kill_mds")
-
-
 def test_vstart_daemons_hold_no_catch_all():
     """Opening the card and the daemon mains catch nothing: a missing
     card or a failed build ends the OSD process before READY."""
@@ -899,6 +886,73 @@ def test_rbd_slice_imports_no_jax_and_holds_no_catch_all(path):
     for fn in ast.walk(tree):
         if isinstance(fn, ast.FunctionDef):
             assert not _catch_alls(fn), (path, fn.name)
+
+
+# ---- the cephfs slice -------------------------------------------------------
+
+CEPHFS_SLICE_FILES = sorted(
+    [str(p.relative_to(PKG)) for d in ("cephfs", "mds")
+     for p in (PKG / d).glob("*.py")] + ["tools/cephfs_cli.py"])
+
+
+def test_walk_sees_the_cephfs_slice():
+    """The package walk reaches ``cephfs/``, ``mds/`` and ``cephfs_cli``
+    under the JAX package's module names, and the OSD loads ``fs``."""
+    mods = _modules()
+    for m in ("cephfs", "cephfs.client", "cephfs.cls_fs",
+              "cephfs.mds_client", "mds", "mds.server", "tools.cephfs_cli"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert len(CEPHFS_SLICE_FILES) == 7
+    from ceph_tpu_torch.osd.cls import load_builtin_classes, lookup
+    load_builtin_classes()
+    assert lookup("fs", "mkfs") is not None
+    assert lookup("rgw", "bucket_list") is None
+
+
+def _reroutes(handler):
+    """A catch-all handler that does not end by re-raising what it
+    caught."""
+    last = handler.body[-1]
+    return not (isinstance(last, ast.Raise) and last.exc is None)
+
+
+@pytest.mark.parametrize("path", CEPHFS_SLICE_FILES)
+def test_cephfs_slice_imports_no_jax_and_holds_no_catch_all(path):
+    """Nothing of ``cephfs/``, ``mds/`` or ``cephfs_cli`` imports ``jax``
+    or ``ceph_tpu``, or catches ``Exception`` or everything and carries
+    on: the one catch-all (``RemoteCephFS.write`` releasing its caps on
+    any error) re-raises, and the handlers inside it catch ``IOError``."""
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] not in ("jax", "ceph_tpu"), path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in ("jax", "ceph_tpu"), path
+    handlers = {h.lineno: h for h in ast.walk(tree)
+                if isinstance(h, ast.ExceptHandler)}
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for line in _catch_alls(fn):
+                assert not _reroutes(handlers[line]), (path, fn.name, line)
+    if path == "cephfs/mds_client.py":
+        write = _function(path, "write", cls="RemoteCephFS")
+        assert len(_catch_alls(write)) == 1
+
+
+def test_vstart_mds_path_holds_no_catch_all_and_no_card():
+    """The MDS process and its harness methods catch nothing broadly
+    and never open the card: ``mds_main`` starts like every daemon
+    (``_daemon_start``) and codes nothing."""
+    for fn in ("mds_main", "_spawn_mds", "kill_mds", "restart_mds"):
+        f = _function("vstart.py", fn)
+        assert not _catch_alls(f), fn
+    main = _function("vstart.py", "mds_main")
+    called = {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+              and isinstance(n.func, ast.Name)}
+    assert "_daemon_start" in called and "_open_device" not in called
+    names = {n.attr for n in ast.walk(main) if isinstance(n, ast.Attribute)}
+    assert "cuda" not in names
 
 
 def test_harnesses_hold_no_catch_all_and_no_guard():

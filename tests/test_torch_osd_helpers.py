@@ -3,10 +3,11 @@ sets, the snap mapper, object classes (``hello``, ``numops``, the lock
 class) and the cache tier, alone and through both packages' daemons.
 
 The port loads the object classes it has (``rbd`` and ``journal``
-since the rbd slice); the JAX package also loads ``fs`` and ``rgw``.  A
-call to one of those answers EOPNOTSUPP on the port (ROADMAP Queue 3)
-and runs on the JAX package: ``test_unported_classes_answer_eopnotsupp``
-pins both sides, ``test_rbd_class_answers_as_jax`` the ported ``rbd``.
+since the rbd slice, ``fs`` since the cephfs slice); the JAX package also
+loads ``rgw``.  A call to one of its methods answers EOPNOTSUPP on the
+port (ROADMAP Queue 3) and runs on the JAX package:
+``test_unported_classes_answer_eopnotsupp`` pins both sides beside the
+ported ``fs``, ``test_rbd_class_answers_as_jax`` the ported ``rbd``.
 """
 import numpy as np
 import pytest
@@ -88,20 +89,30 @@ def test_object_classes_and_locks_match_jax(clean):
 
 
 def test_unported_classes_answer_eopnotsupp(clean):
-    """``fs.mkfs`` then ``fs.lookup`` on a directory object: the JAX OSD
-    runs cls_fs and answers 0; the port's answers EOPNOTSUPP (-95) to
-    both until ``cephfs/`` is ported."""
+    """``fs.mkfs``, ``fs.lookup`` and ``fs.mkfs`` again on a directory
+    object: both OSDs run cls_fs and answer 0, -ENOENT, -EEXIST, and
+    store the same object.  ``rgw.bucket_prepare_op`` on a bucket index:
+    the JAX OSD runs cls_rgw and answers 0; the port's answers
+    EOPNOTSUPP (-95) until ``rgw/`` is ported."""
     import json
     res = {}
     for pkg in (JAX, PORT):
         d, cl = _boot(pkg)
-        res[pkg] = [cl.exec("rep", "fs.dir.1", "fs", "mkfs", b""),
-                    cl.exec("rep", "fs.dir.1", "fs", "lookup",
-                            json.dumps({"name": "x"}).encode())]
+        fs = [cl.exec("rep", "fs.dir.1", "fs", "mkfs", b""),
+              cl.exec("rep", "fs.dir.1", "fs", "lookup",
+                      json.dumps({"name": "x"}).encode()),
+              cl.exec("rep", "fs.dir.1", "fs", "mkfs", b"")]
+        rgw = cl.exec("rep", "idx.b", "rgw", "bucket_prepare_op",
+                      json.dumps({"tag": "t", "name": "o",
+                                  "op": "put"}).encode())
+        res[pkg] = (fs, rgw, {k: v for k, v in store_state(d).items()
+                              if k[2] == "fs.dir.1"})
         d.shutdown()
-    assert res[PORT] == [(-95, b""), (-95, b"")]
-    assert res[JAX][0][0] == 0
-    assert res[JAX][1] == (-2, b"")
+    assert res[PORT][0] == res[JAX][0] == [(0, b""), (-2, b""),
+                                           (-17, b"")]
+    assert res[PORT][2] and res[PORT][2] == res[JAX][2]
+    assert res[PORT][1] == (-95, b"")
+    assert res[JAX][1][0] == 0
 
 
 def test_rbd_class_answers_as_jax(clean):

@@ -9,6 +9,11 @@ supplied) once on each package with:
 
 - ``uuid.uuid4`` drawn from one seeded sequence, restarted for each
   package, so image ids and lock cookies agree;
+- ``secrets.randbits`` drawn from another, so the clients' request id
+  bases (which the MDS journals) agree;
+- ``time.time`` read by the filesystem (``cephfs/`` and ``mds/``) from
+  one fake clock, restarted for each package, so the mtimes and snapshot
+  stamps it stores agree; every other caller reads the real clock;
 - the port's EC pools given ``backend=host`` (its codecs' default
   ``cuda`` backend asks for the card; the JAX pools run ``tpu`` or
   ``isa`` on its CPU);
@@ -22,6 +27,9 @@ stdout/stderr and the clusters' store states in creation order.
 import inspect
 import random
 import re
+import secrets
+import sys
+import time
 import types
 import uuid
 
@@ -31,11 +39,19 @@ from torch_daemon_twin import reset_both, store_state
 
 JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
 UUID_SEED = 20260807
+FS_CLOCK_START = 1786000000.0      # the fake clock's first second
+FS_CLOCK_STEP = 0.001
 
 
-def port_module(mod):
-    """``mod``'s source with the JAX package's imports made the port's."""
-    src = re.sub(r"\bceph_tpu\b", PORT, inspect.getsource(mod))
+def port_module(mod, without=()):
+    """``mod``'s source with the JAX package's imports made the port's.
+    The import lines of the JAX subpackages named in ``without`` (not
+    ported yet) are left out, and with them the cases that use them."""
+    src = inspect.getsource(mod)
+    for sub in without:
+        src = re.sub(rf"^from ceph_tpu\.{sub}\b.*\n", "", src,
+                     flags=re.M)
+    src = re.sub(r"\bceph_tpu\b", PORT, src)
     port = types.ModuleType(mod.__name__ + "_port")
     port.__file__ = mod.__file__
     exec(compile(src, mod.__file__, "exec"), port.__dict__)
@@ -45,6 +61,24 @@ def port_module(mod):
 def seeded_uuid4():
     rng = random.Random(UUID_SEED)
     return lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
+
+
+def seeded_randbits():
+    return random.Random(UUID_SEED + 1).getrandbits
+
+
+def fs_clock(real=time.time):
+    """``time.time`` that gives the filesystem's modules one step of a
+    fake clock per call, and any other caller the real time."""
+    now = [FS_CLOCK_START]
+
+    def clock():
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if caller.split(".")[1:2] in (["cephfs"], ["mds"]):
+            now[0] += FS_CLOCK_STEP
+            return now[0]
+        return real()
+    return clock
 
 
 class Run:
@@ -78,6 +112,8 @@ def _patch(mp, pkg, run):
 
         mp.setattr(cluster_cls, "create_ec_pool", host_ec_pool)
     mp.setattr(uuid, "uuid4", seeded_uuid4())
+    mp.setattr(secrets, "randbits", seeded_randbits())
+    mp.setattr(time, "time", fs_clock())
 
 
 def _call(mod, name, tmp_path, capsys):
