@@ -25,13 +25,13 @@ the mesh members (``g_mesh.decode_stacked``).
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, Sequence, Set
 
 import numpy as np
 import torch
 
 from ..common.kernel_trace import g_kernel_timer
+from ..common.lockdep import DebugLock
 from .base import ErasureCode
 from .rs_codec import MatrixRSCodec, plan_decode
 
@@ -87,7 +87,7 @@ class ErasureCodeMatrixRS(ErasureCode):
         self._device = None  # lazy DeviceRSBackend
         # the dispatcher runs flushes from whichever submitter thread
         # flushes, so two threads may ask for the backend at once
-        self._device_lock = threading.Lock()
+        self._device_lock = DebugLock("matrix_plugin::device")
 
     # -- sizing -------------------------------------------------------------
     def get_chunk_count(self) -> int:

@@ -9,9 +9,9 @@ in Ceph), ``isa``, ``cuda``, ``shec``, ``lrc``, ``regenerating`` and
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict
 
+from ..common.lockdep import DebugLock
 from .interface import ErasureCodeInterface, ErasureCodeProfile
 
 # version handshake analog of __erasure_code_version (ErasureCodePlugin.h:24-27)
@@ -34,7 +34,7 @@ class ErasureCodePlugin:
 
 class ErasureCodePluginRegistry:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = DebugLock("ec_registry::plugins")
         self._plugins: Dict[str, ErasureCodePlugin] = {}
 
     def add(self, name: str, plugin: ErasureCodePlugin) -> None:

@@ -16,12 +16,12 @@ ErasureCodeIsaTableCache (LRU under mutex, ErasureCodeIsaTableCache.h:48).
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..common.lockdep import DebugLock
 from ..gf.tables import MUL_TABLE
 from ..gf.matrices import gf_invert_matrix
 
@@ -84,7 +84,7 @@ class MatrixRSCodec:
         self.coding_rows = self.matrix[k:, :]
         self._decode_cache: "OrderedDict[Tuple[int, ...], np.ndarray]" = \
             OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = DebugLock("rs_codec::decode_cache")
 
     # -- field/layout primitives (override points) ---------------------------
     def _matvec(self, rows: np.ndarray, data: np.ndarray) -> np.ndarray:

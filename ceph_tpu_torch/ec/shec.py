@@ -21,13 +21,13 @@ package, ``decode_chunks`` and the re-encode of erased parities in
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from ..common.lockdep import DebugLock
 from ..gf.matrices import gf_invert_matrix, jerasure_reed_sol_van_matrix
 from ..gf.tables import expand_to_bitmatrix, gf_mul_scalar
 from .base import ErasureCode
@@ -110,7 +110,7 @@ class ErasureCodeShec(ErasureCode):
 
     _table_cache: Dict[Tuple, np.ndarray] = {}
     _decode_cache: Dict[Tuple, Tuple] = {}
-    _cache_lock = threading.Lock()
+    _cache_lock = DebugLock("shec::table_cache")
 
     def __init__(self):
         super().__init__()

@@ -23,17 +23,18 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..common.lockdep import DebugLock
+
 BATCH_AXIS = "batch"
 MEMBERS_ENV = "CEPH_TPU_TORCH_MESH_MEMBERS"
 
-_lock = threading.Lock()
+_lock = DebugLock("mesh_topology::members")
 _members_per_device: Optional[int] = None
 # (platform, members per device) -> members, so a rebuilt mesh keeps its
 # members' streams

@@ -27,6 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 from ..arch import find_nvcc
+from ..common.lockdep import DebugLock
 from ..trace.devprof import g_devprof
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ceph_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = DebugLock("build::libs")
 _libs: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register/spill report) of each build, by name
 build_logs: Dict[str, str] = {}
@@ -91,16 +92,22 @@ def build_all() -> Dict[str, Path]:
     return {n: f.result() for n, f in futs.items()}
 
 
+def typed(lib: ctypes.CDLL, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """``lib`` with each C function's (argtypes, restype) set from
+    ``signatures``."""
+    for fn, (argtypes, restype) in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = restype
+    return lib
+
+
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps
     each C function to (argtypes, restype), set once on first load."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, (argtypes, restype) in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = restype
-            _libs[name] = lib
+            lib = _libs[name] = typed(ctypes.CDLL(str(build(name))),
+                                      signatures)
         return lib

@@ -25,12 +25,13 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-from ._build import BUILD_DIR
+from ..common.lockdep import DebugLock
+from ._build import BUILD_DIR, typed
 
 CSRC_HOST = Path(__file__).resolve().parent.parent / "csrc_host"
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared"]
 
-_lock = threading.Lock()
+_lock = DebugLock("build_host::libs")
 _libs: Dict[str, ctypes.CDLL] = {}
 # seconds each g++ run of this process took, by library name
 build_seconds: Dict[str, float] = {}
@@ -99,10 +100,6 @@ def load(name: str, sources: Sequence[str],
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name, sources)))
-            for fn, (argtypes, restype) in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = restype
-            _libs[name] = lib
+            lib = _libs[name] = typed(ctypes.CDLL(str(build(name, sources))),
+                                      signatures)
         return lib

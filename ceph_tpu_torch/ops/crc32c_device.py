@@ -37,12 +37,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..common.lockdep import DebugLock
 from ..trace.devprof import g_devprof
 from ..utils.crc32c import _TABLE
 from . import _build
@@ -172,7 +172,7 @@ def _run_bytes(n: int, length: int) -> int:
 
 
 _dev_cache: Dict[tuple, torch.Tensor] = {}
-_dev_lock = threading.Lock()
+_dev_lock = DebugLock("crc32c_device::tables")
 
 
 def _on_device(key: tuple, device: torch.device, make) -> torch.Tensor:

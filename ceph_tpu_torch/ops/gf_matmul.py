@@ -28,7 +28,6 @@ int8 matrix alone).
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Sequence, Tuple, Union
 
@@ -36,6 +35,7 @@ import numpy as np
 import torch
 
 from ..common.kernel_trace import g_kernel_timer
+from ..common.lockdep import DebugLock
 from ..ec.rs_codec import DECODE_CACHE_ENTRIES
 from ..gf.bitmatrix import element_bitmatrix
 from ..gf.matrices import gf_invert_matrix
@@ -150,7 +150,7 @@ class DeviceRSBackend:
         # ErasureCodeIsaTableCache's 2516-entry LRU)
         self._decode_bits_cache: "OrderedDict[tuple, BitMatrix]" = \
             OrderedDict()
-        self._cache_lock = threading.Lock()
+        self._cache_lock = DebugLock("gf_matmul::decode_bits_cache")
 
     # -- encode -------------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:

@@ -32,13 +32,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import threading
 
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..common.lockdep import DebugLock
 from . import _build
 
 _SIGNATURES = {
@@ -76,7 +76,7 @@ class LaunchCounter:
 
     def __init__(self):
         self.n = 0
-        self._lock = threading.Lock()
+        self._lock = DebugLock("gf_pallas::launch_counter")
 
     def add(self, k: int = 1) -> None:
         with self._lock:

@@ -177,16 +177,15 @@ def load_builtin_classes() -> None:
     the reference OSD dlopens all cls plugins at start, so a client's
     call works whether or not ITS process imported the owning package
     — essential for cross-process clusters, where the OSD daemon never
-    imports the rbd, cephfs or journal package on its own.
+    imports the rbd, cephfs, rgw or journal package on its own.
 
-    The port loads ``rbd`` (``rbd/cls_rbd``), ``fs`` (``cephfs/cls_fs``)
-    and ``journal`` (``journal/cls_journal``) beside the classes of this
-    module and ``cls_lock``.  The JAX package also loads ``rgw``
-    (``rgw/cls_rgw``); it comes with ``rgw/`` (ROADMAP Queue 1, the rest
-    of the runtime), and until then a call to one of its methods answers
-    EOPNOTSUPP."""
+    The port loads ``rbd`` (``rbd/cls_rbd``), ``fs`` (``cephfs/cls_fs``),
+    ``rgw`` (``rgw/cls_rgw``) and ``journal`` (``journal/cls_journal``)
+    beside the classes of this module and ``cls_lock``, as the JAX
+    package does."""
     import importlib
     for mod in ("ceph_tpu_torch.rbd.cls_rbd",
                 "ceph_tpu_torch.cephfs.cls_fs",
+                "ceph_tpu_torch.rgw.cls_rgw",
                 "ceph_tpu_torch.journal.cls_journal"):
         importlib.import_module(mod)

@@ -65,6 +65,7 @@ def _open_device(device: str) -> None:
     from .ops.gf_matmul import resolve_device
     dev = resolve_device(device)
     torch.zeros(1, device=dev)
+    # lint: allow[no-untracked-sync] one-shot: the new context is ready
     torch.cuda.synchronize(dev)
     _build.load("gf_bit_matmul", gf_pallas._SIGNATURES)
 

@@ -415,6 +415,28 @@ phases run as they did):
    the profiler sees it.  ``python3 chip_smoke.py --cephfs`` runs 4y alone
    after phases 1-2.
 
+The rgw slice (``rgw/``, ``radosgw-admin``) adds, after 4y (the earlier
+phases run as they did):
+
+4z. an S3 object store whose data lives on an erasure-coded pool
+   (``rgw_slice``): a ``MiniCluster`` of 12 OSDs, a replicated
+   ``rgwmeta`` pool (size 3, 32 PGs), an ``rgwdata`` pool (``cuda`` k=8
+   m=4, stripe unit 4096, 32 PGs), ``RGWLite`` behind ``S3Frontend``
+   under ``serve()`` on localhost, and a user made by ``radosgw-admin
+   user create`` whose keys sign every request (AWS v4).  (a) 16 PUTs of
+   16 MiB (4 chunks each) and their GETs, byte-exact, ETag = md5; (b) 128
+   PUTs of 4 KiB, p50 / p99 per PUT; (c) a multipart upload of 3 parts of
+   8 MiB, completed, its GET the concatenation; (d) versioning on (b)'s
+   bucket, 8 keys overwritten, a noncurrent-after-3-days lifecycle pass
+   four days on and ``gc``: the data pool holds exactly the model's live
+   chunks; (e) two OSDs holding data shards killed and marked down, every
+   live object's GET equal to a numpy model.  K1 is counted per leg (it
+   must move in (a), (b), (c) and (e), and some chunk must have lost a
+   data shard in (e)); any request that should succeed and gets a reply
+   outside 2xx fails the phase.  Each leg's wall and, from a traced
+   sample, the device's busy share where the profiler sees it.
+   ``python3 chip_smoke.py --rgw`` runs 4z alone after phases 1-2.
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
 Full results also go to ``chiprun_out/chip_smoke.json``, and every line
@@ -6571,6 +6593,357 @@ def cephfs_alone(dev) -> None:
         json.dump(out, f, indent=1, default=str)
 
 
+RGW_META_PG_NUM = 32              # the gateway's metadata pool (size 3)
+RGW_DATA_PG_NUM = 32              # the data pool (cuda k=8 m=4), 4x's cut
+RGW_BIG_OBJECTS = 16              # (a) PUTs of 16 MiB, 4 chunks each
+RGW_BIG_BYTES = 16 << 20
+RGW_SMALL_OBJECTS = 128           # (b) PUTs of 4 KiB
+RGW_SMALL_BYTES = 4096
+RGW_PARTS = 3                     # (c) a multipart upload of 8 MiB parts
+RGW_PART_BYTES = 8 << 20
+RGW_OVERWRITES = 8                # (d) keys overwritten once versioned
+RGW_TRACE_BIG = 2                 # the traced sample: 16 MiB PUTs
+RGW_TRACE_SMALL = 16              #   and 4 KiB PUTs
+
+
+class S3Client:
+    """A storage user's S3 client: path-style requests over HTTP to
+    ``127.0.0.1:port``, each signed with AWS signature v4 by the user's
+    keys.  ``req`` raises on any reply outside 2xx unless ``ok`` is
+    false."""
+
+    def __init__(self, port: int, access_key: str, secret_key: str):
+        self.port = port
+        self.keys = (access_key, secret_key)
+
+    def req(self, method, path, body=b"", query=None, ok=True):
+        import http.client
+        from urllib.parse import urlencode
+
+        from ceph_tpu_torch.rgw.http import sign_v4
+        query = dict(query or {})
+        hdrs = {"Host": f"127.0.0.1:{self.port}"}
+        hdrs["Authorization"] = sign_v4(*self.keys, method, path, hdrs,
+                                        query, body)
+        url = path + ("?" + urlencode(query) if query else "")
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=300)
+        try:
+            conn.request(method, url, body, hdrs)
+            r = conn.getresponse()
+            out = r.read()
+        finally:
+            conn.close()
+        if ok and not 200 <= r.status < 300:
+            raise AssertionError(f"4z: {method} {url} answered {r.status}: "
+                                 f"{out[:300]!r}")
+        return r.status, dict(r.getheaders()), out
+
+
+def rgw_slice(dev, big_objects: int = RGW_BIG_OBJECTS,
+              big_bytes: int = RGW_BIG_BYTES,
+              small_objects: int = RGW_SMALL_OBJECTS,
+              small_bytes: int = RGW_SMALL_BYTES,
+              parts: int = RGW_PARTS, part_bytes: int = RGW_PART_BYTES,
+              overwrites: int = RGW_OVERWRITES,
+              meta_pg_num: int = RGW_META_PG_NUM,
+              data_pg_num: int = RGW_DATA_PG_NUM,
+              trace_big: int = RGW_TRACE_BIG,
+              trace_small: int = RGW_TRACE_SMALL) -> dict:
+    """4z: an S3 object store whose data lives on an erasure-coded pool,
+    as a user deploys radosgw with an EC data pool: a ``MiniCluster`` of
+    12 OSDs, one per host; a replicated ``rgwmeta`` pool (size 3,
+    ``meta_pg_num`` PGs) for users, buckets and bucket indexes; an
+    ``rgwdata`` pool, ``cuda`` plugin k=8 m=4, stripe unit 4096,
+    ``data_pg_num`` PGs; ``RGWLite`` behind ``S3Frontend`` under
+    ``serve()`` on localhost, and a user made by ``radosgw-admin user
+    create`` whose keys sign every request (AWS v4).  Legs, K1's count
+    set to 0 just before each and read just after:
+
+    (a) ``big_objects`` PUTs of ``big_bytes`` (4 MiB chunks, K1 once per
+        chunk), each GET back byte-exact with its ETag the md5;
+    (b) ``small_objects`` PUTs of ``small_bytes``, p50 / p99 per PUT;
+    (c) a multipart upload of ``parts`` parts of ``part_bytes`` (one
+        object each), completed (the stitched object re-written in
+        chunks); its GET equals the concatenation;
+    (d) versioning enabled on (b)'s bucket and ``overwrites`` keys
+        overwritten; a lifecycle rule (noncurrent after 3 days),
+        ``lc_process`` four days on and ``gc``: the data pool then holds
+        exactly the model's live chunks;
+    (e) two OSDs holding data shards killed and marked down; every live
+        object's GET equals a numpy model: K1 decodes each chunk that
+        lost a data shard.
+
+    After (b) a traced sample (``trace_big`` big and ``trace_small``
+    small PUTs, under ``LegTrace``) gives the device's busy share, if the
+    profiler sees it; the timed legs run untraced.  The phase fails if
+    K1's count stays 0 in (a), (b), (c) or (e), if no chunk lost a data
+    shard in (e), if any GET differs, or if any request that should
+    succeed gets a reply outside 2xx (a failed K1 build or launch under
+    a PUT reaches the client as a 500).  On the CPU (a rehearsal at small
+    sizes) the codec takes ``backend=host`` and the launch counts are
+    not checked."""
+    import contextlib
+    import hashlib
+    import io
+
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.osdmap import ceph_stable_mod, pg_t
+    from ceph_tpu_torch.rgw import RGWLite, S3Frontend, serve
+    from ceph_tpu_torch.rgw.gateway import CHUNK as RGW_CHUNK
+    from ceph_tpu_torch.tools import rgw_admin
+    on_card = dev.type == "cuda"
+    extra = {} if on_card else {"backend": "host"}
+    out = {"legs": {}, "config": {
+        "osds": OSD_PATH_OSDS, "meta_pg_num": meta_pg_num,
+        "data_pg_num": data_pg_num, "k": K, "m": M, "plugin": "cuda",
+        "stripe_unit": CHUNK, "extra_profile": extra,
+        "big_objects": big_objects, "big_bytes": big_bytes,
+        "small_objects": small_objects, "small_bytes": small_bytes,
+        "parts": parts, "part_bytes": part_bytes,
+        "overwrites": overwrites}}
+    total = {"gf_bit_matmul": 0}
+    t_slice = time.perf_counter()
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4z: {what}")
+
+    def same(got, want, what):
+        if got != want:
+            raise AssertionError(f"4z: {what} differs from the model")
+
+    counted = k1_legs("4z", dev, out, total)
+
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "ec_mesh_chips", "osd_op_num_threads",
+                 "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    rng = np.random.default_rng(SEED + 9)
+
+    def body(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=OSD_PATH_OSDS)
+    meta_pid = c.create_replicated_pool("rgwmeta", size=3,
+                                        pg_num=meta_pg_num)
+    data_pid = c.create_ec_pool("rgwdata", k=K, m=M, pg_num=data_pg_num,
+                                plugin="cuda", extra_profile=extra)
+    cl = c.client("client.rgw")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = rgw_admin.run(c, cl, ["user", "create", "--uid", "s3user",
+                                   "--display-name", "S3 User"])
+    if rc != 0:
+        raise AssertionError(f"4z: radosgw-admin user create exited {rc}")
+    user = json.loads(buf.getvalue())
+    g = RGWLite(cl, "rgwmeta", "rgwdata")
+    srv, port = serve(S3Frontend(g))
+    s3 = S3Client(port, user["access_key"], user["secret_key"])
+    for b in ("big", "small", "mp", "trace"):
+        s3.req("PUT", f"/{b}")
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4z: MiniCluster of {OSD_PATH_OSDS} OSDs, pools rgwmeta "
+        f"({meta_pg_num} PGs) and rgwdata ({data_pg_num} PGs), the S3 "
+        f"frontend on port {port}, a user and 4 buckets up in "
+        f"{out['boot_s']:.1f} s")
+    # bucket/key -> the object's bytes; (bucket, key) -> its version id
+    model, vids = {}, {}
+    try:
+        def put(bucket, key, data):
+            model[(bucket, key)] = data
+            _st, hdrs, _ = s3.req("PUT", f"/{bucket}/{key}", data)
+            vids[(bucket, key)] = hdrs.get("x-amz-version-id")
+            return hdrs
+
+        def get(bucket, key, what):
+            _st, hdrs, got = s3.req("GET", f"/{bucket}/{key}")
+            want = model[(bucket, key)]
+            same(got, want, what)
+            if hdrs.get("ETag") != f'"{hashlib.md5(want).hexdigest()}"':
+                raise AssertionError(f"4z: {what}'s ETag {hdrs.get('ETag')}")
+
+        # -- (a) big objects, 4 chunks each ---------------------------------
+        bigs = [f"obj{i:03d}" for i in range(big_objects)]
+
+        def leg_a():
+            for key in bigs:
+                hdrs = put("big", key, body(big_bytes))
+                etag = hashlib.md5(model[("big", key)]).hexdigest()
+                if hdrs.get("ETag") != f'"{etag}"':
+                    raise AssertionError(f"4z: PUT big/{key}'s ETag")
+            for key in bigs:
+                get("big", key, f"GET big/{key}")
+        chunks_a = big_objects * -(-big_bytes // RGW_CHUNK)
+        leg = counted("a_big_puts", leg_a, objects=big_objects,
+                      chunks=chunks_a)
+        leg["GiBps"] = 2 * big_objects * big_bytes / leg["wall_s"] / 2**30
+        need(leg["k1_launches"] >= chunks_a,
+             f"(a) K1 launches {leg['k1_launches']} for {chunks_a} chunks")
+
+        # -- (b) small objects ------------------------------------------------
+        smalls = [f"d{i % 16:02d}/o{i:04d}" for i in range(small_objects)]
+
+        def leg_b():
+            lat = []
+            for key in smalls:
+                t = time.perf_counter()
+                put("small", key, body(small_bytes))
+                lat.append(time.perf_counter() - t)
+            return {"p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                    "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                    "puts_per_s": len(lat) / sum(lat)}
+        leg = counted("b_small_puts", leg_b, objects=small_objects)
+        need(leg["k1_launches"] >= small_objects,
+             f"(b) K1 launches {leg['k1_launches']} for {small_objects} "
+             "PUTs")
+        # the device's share of such work, from a traced sample of both
+        # kinds
+        t_keys = ([(f"t{i:03d}", big_bytes) for i in range(trace_big)]
+                  + [(f"s{i:03d}", small_bytes) for i in range(trace_small)])
+
+        def sample():
+            for key, n in t_keys:
+                put("trace", key, body(n))
+        t_chunks = (trace_big * -(-big_bytes // RGW_CHUNK) + trace_small)
+        leg = counted("t_traced_sample", sample, traced=True,
+                      objects=len(t_keys))
+        need(leg["k1_launches"] >= t_chunks,
+             f"(t) K1 launches {leg['k1_launches']} for {t_chunks} chunks")
+
+        # -- (c) a multipart upload ------------------------------------------
+        def leg_c():
+            root = s3.req("POST", "/mp/joined", query={"uploads": ""})[2]
+            upload_id = re.search(rb"<UploadId>([^<]+)</UploadId>",
+                                  root).group(1).decode()
+            datas, etags = [], []
+            for n in range(1, parts + 1):
+                datas.append(body(part_bytes))
+                hdrs = s3.req("PUT", "/mp/joined", datas[-1], query={
+                    "uploadId": upload_id, "partNumber": str(n)})[1]
+                etags.append(hdrs["ETag"])
+            manifest = "<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag>"
+                "</Part>" for n, e in enumerate(etags, 1)) + \
+                "</CompleteMultipartUpload>"
+            s3.req("POST", "/mp/joined", manifest.encode(),
+                   query={"uploadId": upload_id})
+            model[("mp", "joined")] = b"".join(datas)
+            vids[("mp", "joined")] = None
+            get("mp", "joined", "GET of the completed upload")
+            return {"upload_id": upload_id}
+        chunks_c = parts + -(-parts * part_bytes // RGW_CHUNK)
+        leg = counted("c_multipart", leg_c, parts=parts,
+                      part_bytes=part_bytes, chunks=chunks_c)
+        need(leg["k1_launches"] >= chunks_c,
+             f"(c) K1 launches {leg['k1_launches']} for {chunks_c} "
+             "objects")
+
+        # -- (d) versioning, overwrites, lifecycle and gc --------------------
+        def live_chunks():
+            """The data pool's objects the model's live versions hold."""
+            oids = set()
+            for (bucket, key), data in model.items():
+                base = f"{g.get_bucket(bucket)['id']}_o_{key}"
+                if vids[(bucket, key)]:
+                    base += f"#v#{vids[(bucket, key)]}"
+                n = max(1, -(-len(data) // RGW_CHUNK))
+                oids.update([base] + [base.replace("_o_", "_c_", 1)
+                                      + f".{i}" for i in range(1, n)])
+            return oids
+
+        def leg_d():
+            s3.req("PUT", "/small", b"<VersioningConfiguration><Status>"
+                   b"Enabled</Status></VersioningConfiguration>",
+                   query={"versioning": ""})
+            for key in smalls[:overwrites]:
+                put("small", key, body(small_bytes))
+                if not vids[("small", key)]:
+                    raise AssertionError(f"4z: small/{key} has no version")
+            g.put_bucket_lifecycle("small", [{
+                "id": "noncurrent", "prefix": "", "status": "Enabled",
+                "noncurrent_days": 3}])
+            lc = g.lc_process(now=time.time() + 4 * 86400)
+            if lc["small"]["noncurrent_removed"] != overwrites:
+                raise AssertionError(f"4z: lifecycle removed {lc['small']}")
+            report = g.gc(repair=True)
+            stored = set(cl.list_objects("rgwdata"))
+            want = live_chunks()
+            if stored != want:
+                raise AssertionError(
+                    f"4z: rgwdata holds {len(stored)} objects, the model "
+                    f"{len(want)}: {sorted(stored ^ want)[:8]}")
+            for key in smalls[:overwrites]:
+                get("small", key, f"GET small/{key} after the lifecycle")
+            return {"lifecycle": lc["small"], "gc": {
+                k: len(v) for k, v in report.items()},
+                "data_objects": len(stored)}
+        counted("d_versioning_lifecycle_gc", leg_d, overwrites=overwrites)
+
+        # -- (e) two OSDs down: every live object read back ------------------
+        m = c.mon.osdmap
+        meta_sets, data_sets = ([[int(o) for o in m.pg_to_up_acting_osds(
+            pg_t(pid, ps))[2]] for ps in range(n)] for pid, n in (
+                (meta_pid, meta_pg_num), (data_pid, data_pg_num)))
+
+        def data_acting(oid):
+            pool = m.get_pg_pool(data_pid)
+            ps = ceph_stable_mod(m.map_to_pg(data_pid, oid).ps,
+                                 pool.pg_num, pool.pg_num_mask)
+            return data_sets[ps]
+
+        chunks = sorted(live_chunks())
+        first = f"{g.get_bucket('big')['id']}_o_{bigs[0]}"
+        data = data_acting(first)[1:K]
+        victims = next([a, b] for i, a in enumerate(data)
+                       for b in data[i + 1:]
+                       if not any({a, b} <= set(held) for held in meta_sets))
+        lost = sum(1 for oid in chunks
+                   if set(data_acting(oid)[:K]) & set(victims))
+        if not lost:
+            raise AssertionError("4z (e): no chunk lost a data shard")
+        t0 = time.perf_counter()
+        for v in victims:
+            c.kill_osd(v)
+            c.mark_osd_down(v)
+        out["mark_down_s"] = time.perf_counter() - t0
+
+        def leg_e():
+            for bucket, key in sorted(model):
+                get(bucket, key, f"degraded GET {bucket}/{key}")
+        leg = counted("e_degraded_gets", leg_e, victims=victims,
+                      objects=len(model), chunks=len(chunks),
+                      chunks_missing_a_data_shard=lost,
+                      mark_down_s=out["mark_down_s"])
+        leg["GiBps"] = sum(map(len, model.values())) / leg["wall_s"] / 2**30
+        need(leg["k1_launches"] >= lost,
+             f"(e) K1 launches {leg['k1_launches']} for {lost} chunks with "
+             "a lost data shard")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for osd in c.osds.values():
+            osd.shutdown()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4z: launches " + json.dumps(total) + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def rgw_alone(dev) -> None:
+    """``--rgw``: 4z alone after phases 1-2, its record written to
+    ``chiprun_out/rgw.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = rgw_slice(dev)
+    with open(os.path.join("chiprun_out", "rgw.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6651,12 +7024,13 @@ def main() -> int:
                         ("--vstart", vstart_alone),
                         ("--mesh", mesh_alone),
                         ("--rbd", rbd_alone),
-                        ("--cephfs", cephfs_alone)):
+                        ("--cephfs", cephfs_alone),
+                        ("--rgw", rgw_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
                     "--cluster", "--vstart", "--mesh", "--rbd",
-                    "--cephfs"):
+                    "--cephfs", "--rgw"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -7024,6 +7398,14 @@ def main() -> int:
     results["cephfs"] = fs_rec
     phase_done("4y cephfs")
 
+    # -- 4z. an S3 object store on an erasure-coded data pool: big and small
+    # PUTs over HTTP, a multipart upload, versioning with a lifecycle pass
+    # and gc, and degraded GETs, after the earlier slices' phases, which
+    # run as they did -------------------------------------------------------
+    rgw_rec = rgw_slice(dev)
+    results["rgw"] = rgw_rec
+    phase_done("4z rgw")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -7051,7 +7433,8 @@ def main() -> int:
                      + mesh_n["gf_bit_matmul"] + mesh_cli["gf_bit_matmul"]
                      + rbd_rec["launches"]["gf_bit_matmul"]
                      + harness_n["gf_bit_matmul"]
-                     + fs_rec["launches"]["gf_bit_matmul"]),
+                     + fs_rec["launches"]["gf_bit_matmul"]
+                     + rgw_rec["launches"]["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],

@@ -14,7 +14,8 @@ inodes, the InoTable, the snapshot table, file data, the MDS journal)
 on every OSD.  The port's EC data pool runs ``backend=host``.
 
 The cases of ``test_fsck_gc.py`` that drive ``rgw/`` (``RGWLite`` and
-``rgw_admin``) wait for the port's ``rgw/``.  Beside the twins: each
+``rgw_admin``) run on the port's ``rgw/``, its keys and ids seeded and
+its clock faked as in ``test_torch_rgw.py``.  Beside the twins: each
 method of the ``fs`` object class fed the same seeded requests on both
 packages' OSDs, and each ``cephfs_cli`` verb's output.
 """
@@ -37,8 +38,7 @@ from torch_rbd_twin import (assert_same_runs, case_names, port_module,
 MODULES = {m.__name__: m for m in (test_cephfs, test_cephfs_hardlinks,
                                    test_cephfs_quota,
                                    test_cephfs_snapshots, test_fsck_gc)}
-PORTS = {name: port_module(m, without=("rgw",))
-         for name, m in MODULES.items()}
+PORTS = {name: port_module(m) for name, m in MODULES.items()}
 
 
 def _uses_rgw(fn):
@@ -49,8 +49,7 @@ def _uses_rgw(fn):
 RGW_CASES = [c for c in case_names(test_fsck_gc)
              if _uses_rgw(getattr(test_fsck_gc, c))]
 CASES = [(mod, case) for mod, m in MODULES.items()
-         for case in case_names(m)
-         if not (m is test_fsck_gc and case in RGW_CASES)]
+         for case in case_names(m)]
 
 
 @pytest.mark.parametrize("mod,name", CASES,
@@ -63,16 +62,18 @@ def test_cephfs_case_equal(mod, name, tmp_path, capsys):
 
 
 def test_twins_run_the_ports_filesystem():
-    """The twin modules hold the port's classes, and only the cases that
-    need ``rgw/`` are left out."""
+    """The twin modules hold the port's classes, and the cases that need
+    ``rgw/`` run on the port's gateway among the twins."""
     import ceph_tpu_torch.cephfs as pfs
     assert PORTS["test_cephfs"].CephFS is pfs.CephFS
     assert PORTS["test_cephfs_quota"].MDSDaemon.__module__ == \
         "ceph_tpu_torch.mds.server"
-    assert not hasattr(PORTS["test_fsck_gc"], "RGWLite")
+    import ceph_tpu_torch.rgw as prgw
+    assert PORTS["test_fsck_gc"].RGWLite is prgw.RGWLite
     assert RGW_CASES == ["test_rgw_gc",
                          "test_gc_collects_deleted_bucket_debris",
                          "test_cli_verbs"]
+    assert {("test_fsck_gc", c) for c in RGW_CASES} <= set(CASES)
 
 
 # ---- the fs object class -----------------------------------------------

@@ -897,7 +897,8 @@ CEPHFS_SLICE_FILES = sorted(
 
 def test_walk_sees_the_cephfs_slice():
     """The package walk reaches ``cephfs/``, ``mds/`` and ``cephfs_cli``
-    under the JAX package's module names, and the OSD loads ``fs``."""
+    under the JAX package's module names, and the OSD loads ``fs`` (and,
+    since the rgw slice, ``rgw``)."""
     mods = _modules()
     for m in ("cephfs", "cephfs.client", "cephfs.cls_fs",
               "cephfs.mds_client", "mds", "mds.server", "tools.cephfs_cli"):
@@ -906,7 +907,7 @@ def test_walk_sees_the_cephfs_slice():
     from ceph_tpu_torch.osd.cls import load_builtin_classes, lookup
     load_builtin_classes()
     assert lookup("fs", "mkfs") is not None
-    assert lookup("rgw", "bucket_list") is None
+    assert lookup("rgw", "bucket_list") is not None
 
 
 def _reroutes(handler):
@@ -998,3 +999,91 @@ def test_harnesses_need_the_card_by_default():
     with pytest.raises(RuntimeError, match="cuda"):
         workloads.measure_composed_chaos(seeds=(24,))
     assert {n: g_conf.values.get(n) for n in TOUCHED} == before
+
+
+# ---- the rgw slice and the analyzer ----------------------------------------
+
+RGW_SLICE_FILES = sorted(
+    [str(p.relative_to(PKG)) for d in ("rgw", "analysis")
+     for p in (PKG / d).glob("*.py")]
+    + ["tools/rgw_admin.py", "tools/rgw_admin_usage.py"])
+
+
+def test_walk_sees_the_rgw_slice():
+    """The package walk reaches ``rgw/``, ``analysis/`` and the two
+    ``radosgw-admin`` modules under the JAX package's module names, and
+    the port now has every JAX module but the three left out by design."""
+    mods = _modules()
+    for m in ("rgw", "rgw.acl_xml", "rgw.cls_rgw", "rgw.gateway",
+              "rgw.http", "tools.rgw_admin", "tools.rgw_admin_usage",
+              "analysis", "analysis.core", "analysis.rules",
+              "analysis.__main__"):
+        assert f"ceph_tpu_torch.{m}" in mods
+    assert len(RGW_SLICE_FILES) == 11
+    assert (PKG / "analysis" / "wire_manifest.json").is_file()
+    jax_pkg = REPO / "ceph_tpu"
+    missing = sorted(str(p.relative_to(jax_pkg)) for p in
+                     jax_pkg.rglob("*.py")
+                     if not (PKG / p.relative_to(jax_pkg)).is_file())
+    assert missing == ["ec/tpu_plugin.py", "fault/breaker.py",
+                       "fault/guard.py"]
+
+
+def _reply_status(node):
+    """The status of the reply a handler returns: ``_err(500, ...)`` or
+    a ``(500, ...)`` tuple."""
+    if not isinstance(node, ast.Return):
+        return None
+    v = node.value
+    if isinstance(v, ast.Call) and v.args:
+        v = v.args[0]
+    elif isinstance(v, ast.Tuple):
+        v = v.elts[0]
+    return v.value if isinstance(v, ast.Constant) else None
+
+
+@pytest.mark.parametrize("path", RGW_SLICE_FILES)
+def test_rgw_slice_imports_no_jax_and_holds_no_catch_all(path):
+    """Nothing of ``rgw/``, ``analysis/`` or ``radosgw-admin`` imports
+    ``jax`` or ``ceph_tpu``, or catches ``Exception`` or everything and
+    carries on, but for the reference's three sites: ``put_object``
+    cancels its index op and re-raises (as ``RemoteCephFS.write``
+    does), and the S3 and Swift handlers each turn any other error
+    into a 5xx reply (a handler thread must always reply), which
+    reroutes no work."""
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] not in ("jax", "ceph_tpu"), path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in ("jax", "ceph_tpu"), path
+    handlers = {h.lineno: h for h in ast.walk(tree)
+                if isinstance(h, ast.ExceptHandler)}
+    replies = []
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for line in _catch_alls(fn):
+                h = handlers[line]
+                if _reroutes(h):
+                    assert path == "rgw/http.py", (path, fn.name, line)
+                    assert len(h.body) == 1, (fn.name, line)
+                    replies.append((fn.name, _reply_status(h.body[0])))
+    if path == "rgw/http.py":
+        assert sorted(replies) == [("handle", 500), ("handle", 500)]
+    if path == "rgw/gateway.py":
+        put = _function(path, "put_object", cls="RGWLite")
+        assert len(_catch_alls(put)) == 1
+
+
+def test_rgw_cuda_data_pool_without_card_raises():
+    """Nothing in ``rgw/`` chooses a device: a ``cuda`` EC data pool
+    with no card raises when its codec is made, before any gateway
+    write, as rbd's and cephfs's data pools do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from ceph_tpu_torch.cluster import MiniCluster
+    c = MiniCluster(n_osds=3)
+    c.create_replicated_pool("rgwmeta", size=2, pg_num=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        c.create_ec_pool("rgwdata", k=2, m=1, plugin="isa", pg_num=8)

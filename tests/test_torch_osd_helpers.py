@@ -2,12 +2,11 @@
 sets, the snap mapper, object classes (``hello``, ``numops``, the lock
 class) and the cache tier, alone and through both packages' daemons.
 
-The port loads the object classes it has (``rbd`` and ``journal``
-since the rbd slice, ``fs`` since the cephfs slice); the JAX package also
-loads ``rgw``.  A call to one of its methods answers EOPNOTSUPP on the
-port (ROADMAP Queue 3) and runs on the JAX package:
-``test_unported_classes_answer_eopnotsupp`` pins both sides beside the
-ported ``fs``, ``test_rbd_class_answers_as_jax`` the ported ``rbd``.
+The port loads every object class the JAX package loads (``rbd`` and
+``journal`` since the rbd slice, ``fs`` since the cephfs slice, ``rgw``
+since the rgw slice): ``test_fs_and_rgw_classes_answer_as_jax`` pins
+``fs`` and ``rgw`` on both sides, ``test_rbd_class_answers_as_jax`` the
+ported ``rbd``.
 """
 import numpy as np
 import pytest
@@ -88,12 +87,12 @@ def test_object_classes_and_locks_match_jax(clean):
     assert_same_state(out[JAX][3], out[PORT][3])
 
 
-def test_unported_classes_answer_eopnotsupp(clean):
+def test_fs_and_rgw_classes_answer_as_jax(clean):
     """``fs.mkfs``, ``fs.lookup`` and ``fs.mkfs`` again on a directory
     object: both OSDs run cls_fs and answer 0, -ENOENT, -EEXIST, and
     store the same object.  ``rgw.bucket_prepare_op`` on a bucket index:
-    the JAX OSD runs cls_rgw and answers 0; the port's answers
-    EOPNOTSUPP (-95) until ``rgw/`` is ported."""
+    both OSDs run cls_rgw, answer 0 and store the same index object
+    with its pending marker."""
     import json
     res = {}
     for pkg in (JAX, PORT):
@@ -105,14 +104,16 @@ def test_unported_classes_answer_eopnotsupp(clean):
         rgw = cl.exec("rep", "idx.b", "rgw", "bucket_prepare_op",
                       json.dumps({"tag": "t", "name": "o",
                                   "op": "put"}).encode())
-        res[pkg] = (fs, rgw, {k: v for k, v in store_state(d).items()
-                              if k[2] == "fs.dir.1"})
+        state = store_state(d)
+        res[pkg] = (fs, rgw,
+                    {k: v for k, v in state.items() if k[2] == "fs.dir.1"},
+                    {k: v for k, v in state.items() if k[2] == "idx.b"})
         d.shutdown()
     assert res[PORT][0] == res[JAX][0] == [(0, b""), (-2, b""),
                                            (-17, b"")]
     assert res[PORT][2] and res[PORT][2] == res[JAX][2]
-    assert res[PORT][1] == (-95, b"")
-    assert res[JAX][1][0] == 0
+    assert res[PORT][1] == res[JAX][1] == (0, b"")
+    assert res[PORT][3] and res[PORT][3] == res[JAX][3]
 
 
 def test_rbd_class_answers_as_jax(clean):

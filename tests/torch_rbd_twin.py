@@ -11,9 +11,16 @@ supplied) once on each package with:
   package, so image ids and lock cookies agree;
 - ``secrets.randbits`` drawn from another, so the clients' request id
   bases (which the MDS journals) agree;
+- ``secrets.token_hex`` drawn from a third, so the gateway's keys,
+  bucket ids, index tags, version ids and upload ids agree;
 - ``time.time`` read by the filesystem (``cephfs/`` and ``mds/``) from
   one fake clock, restarted for each package, so the mtimes and snapshot
-  stamps it stores agree; every other caller reads the real clock;
+  stamps it stores agree; ``time.time`` read by the gateway (``rgw/``)
+  and by the case itself from another, which starts at the real time
+  read once when ``run_both`` begins, so the bucket and object mtimes
+  agree and stay on the case's own clock (its lifecycle cases age
+  objects from its own ``time.time()``); every other caller reads the
+  real clock;
 - the port's EC pools given ``backend=host`` (its codecs' default
   ``cuda`` backend asks for the card; the JAX pools run ``tpu`` or
   ``isa`` on its CPU);
@@ -67,16 +74,31 @@ def seeded_randbits():
     return random.Random(UUID_SEED + 1).getrandbits
 
 
-def fs_clock(real=time.time):
+def seeded_token_hex():
+    rng = random.Random(UUID_SEED + 2)
+
+    def token_hex(nbytes=32):
+        return rng.getrandbits(8 * nbytes).to_bytes(nbytes, "little").hex()
+    return token_hex
+
+
+def fs_clock(real=time.time, rgw_start=None, case=()):
     """``time.time`` that gives the filesystem's modules one step of a
-    fake clock per call, and any other caller the real time."""
+    fake clock per call, the gateway's modules and the modules named in
+    ``case`` one step of another that starts at ``rgw_start`` (when
+    given), and any other caller the real time."""
     now = [FS_CLOCK_START]
+    rgw_now = [rgw_start]
 
     def clock():
         caller = sys._getframe(1).f_globals.get("__name__", "")
-        if caller.split(".")[1:2] in (["cephfs"], ["mds"]):
+        sub = caller.split(".")[1:2]
+        if sub in (["cephfs"], ["mds"]):
             now[0] += FS_CLOCK_STEP
             return now[0]
+        if rgw_start is not None and (sub == ["rgw"] or caller in case):
+            rgw_now[0] += FS_CLOCK_STEP
+            return rgw_now[0]
         return real()
     return clock
 
@@ -92,7 +114,7 @@ class Run:
         return [store_state(c) for c in self.clusters]
 
 
-def _patch(mp, pkg, run):
+def _patch(mp, pkg, run, rgw_start=None, case=()):
     from importlib import import_module
     cluster_cls = import_module(pkg + ".cluster").MiniCluster
     init = cluster_cls.__init__
@@ -113,7 +135,8 @@ def _patch(mp, pkg, run):
         mp.setattr(cluster_cls, "create_ec_pool", host_ec_pool)
     mp.setattr(uuid, "uuid4", seeded_uuid4())
     mp.setattr(secrets, "randbits", seeded_randbits())
-    mp.setattr(time, "time", fs_clock())
+    mp.setattr(secrets, "token_hex", seeded_token_hex())
+    mp.setattr(time, "time", fs_clock(rgw_start=rgw_start, case=case))
 
 
 def _call(mod, name, tmp_path, capsys):
@@ -137,15 +160,19 @@ def _call(mod, name, tmp_path, capsys):
             next(g, None)
 
 
-def run_one(mod, name, pkg, tmp_path, capsys):
-    """The case ``name`` of ``mod`` (already the ``pkg`` package's)."""
+def run_one(mod, name, pkg, tmp_path, capsys, rgw_start=None):
+    """The case ``name`` of ``mod`` (already the ``pkg`` package's); the
+    gateway's and the case's clock starts at ``rgw_start`` (default:
+    now)."""
     run = Run(pkg)
     reset_both(collect=False)
     d = tmp_path / pkg
     d.mkdir()
     capsys.readouterr()
+    if rgw_start is None:
+        rgw_start = time.time()
     with pytest.MonkeyPatch.context() as mp:
-        _patch(mp, pkg, run)
+        _patch(mp, pkg, run, rgw_start, case=(mod.__name__,))
         try:
             _call(mod, name, d, capsys)
         finally:
@@ -158,8 +185,10 @@ def run_one(mod, name, pkg, tmp_path, capsys):
 def run_both(mod, name, tmp_path, capsys, port=None):
     """``mod``'s case ``name`` on the JAX package, then on the port
     (``port`` is ``port_module(mod)`` when the caller holds one)."""
-    j = run_one(mod, name, JAX, tmp_path, capsys)
-    p = run_one(port or port_module(mod), name, PORT, tmp_path, capsys)
+    start = time.time()
+    j = run_one(mod, name, JAX, tmp_path, capsys, start)
+    p = run_one(port or port_module(mod), name, PORT, tmp_path, capsys,
+                start)
     return j, p
 
 
