@@ -7,7 +7,9 @@ acting primary), sends an MOSDOp to that OSD, and resends after a map
 refresh when the target was wrong or silent — the Objecter's
 recalc-on-every-epoch behavior.
 
-The port's own copy of ``ceph_tpu/client/rados.py``.
+The port's own copy of ``ceph_tpu/client/rados.py``, except that an op's
+CRUSH answer comes through ``crush_memo`` (the map's answers by its
+content), where the JAX client runs CRUSH on every op.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from ..msg.messages import (
 )
 from ..msg.kv import pack_kv as _pack_kv, pack_keys as _pack_keys, \
     unpack_kv as _unpack_kv
-from ..osdmap import OSDMap, ceph_stable_mod, pg_t
+from ..osdmap import OSDMap, ceph_stable_mod, crush_memo, pg_t
 from ..trace.oplat import stamp_client
 
 MAX_ATTEMPTS = 8
@@ -259,7 +261,8 @@ class RadosClient(Dispatcher):
         raw = self.osdmap.map_to_pg(pool_id, oid)
         ps = ceph_stable_mod(raw.ps, pool.pg_num, pool.pg_num_mask)
         pg = pg_t(pool_id, ps)
-        *_, acting, primary = self.osdmap.pg_to_up_acting_osds(pg)
+        *_, acting, primary = self.osdmap.pg_to_up_acting_osds(
+            pg, crush_memo(self.osdmap.crush))
         return (pool_id, ps), primary
 
     def _submit(self, pool_id: int, oid: str, op: str = "",
@@ -356,7 +359,7 @@ class RadosClient(Dispatcher):
             if self.osdmap.get_pg_pool(pgid[0]) is None:
                 raise _ioerror("op", f"pool {pgid[0]}", -2)
             *_, acting, primary = self.osdmap.pg_to_up_acting_osds(
-                pg_t(*pgid))
+                pg_t(*pgid), crush_memo(self.osdmap.crush))
             self._tid += 1
             tid = self._tid
             if primary >= 0:

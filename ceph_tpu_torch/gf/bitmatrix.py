@@ -99,6 +99,29 @@ def matrix_to_bitmatrix(matrix: np.ndarray, w: int) -> np.ndarray:
     return out
 
 
+def gf2_invert(mat: np.ndarray) -> np.ndarray:
+    """Invert a square 0/1 matrix over GF(2) (Gaussian elimination)."""
+    n = mat.shape[0]
+    a = mat.astype(np.uint8).copy()
+    inv = np.eye(n, dtype=np.uint8)
+    for col in range(n):
+        piv = None
+        for r in range(col, n):
+            if a[r, col]:
+                piv = r
+                break
+        if piv is None:
+            raise np.linalg.LinAlgError("GF(2) matrix is singular")
+        if piv != col:
+            a[[col, piv]] = a[[piv, col]]
+            inv[[col, piv]] = inv[[piv, col]]
+        rows = np.nonzero(a[:, col])[0]
+        rows = rows[rows != col]
+        a[rows] ^= a[col]
+        inv[rows] ^= inv[col]
+    return inv
+
+
 # ---- coefficient-matrix constructions --------------------------------------
 
 def cauchy_original_matrix(k: int, m: int, w: int) -> np.ndarray:

@@ -268,7 +268,7 @@ class _Block:
     """One coded row-block in flight on one chip."""
 
     __slots__ = ("bid", "chip", "vec", "out", "event", "member",
-                 "erased", "systematic", "t_launch", "t_ready")
+                 "erased", "systematic", "t_launch", "t_done", "t_ready")
 
     def __init__(self, bid: int, chip: int, vec: np.ndarray,
                  systematic: bool):
@@ -281,10 +281,26 @@ class _Block:
         self.erased = False
         self.systematic = systematic
         self.t_launch = 0.0      # stamped at THIS block's dispatch
+        self.t_done = None       # the CPU route: launch + its call's CPU time
         self.t_ready = 0.0       # stamped at readiness observation
 
     def elapsed_us(self, now: float) -> float:
         return (now - self.t_launch) * 1e6
+
+    def ready_at(self, now: float, delay_until: Dict[int, float]) -> float:
+        """When this block, observed ready at ``now``, completed: on the
+        card the observation itself (its event fired since the last
+        poll); on the CPU, where the launch loop runs each call to its
+        end on the host thread before the drain polls, the later of its
+        launch plus the CPU time its call took and the end of an
+        injected hold.  Stamping the observation there would charge
+        every block the launch loop's later calls, and stamping the
+        call's return would charge it the time a loaded host gave other
+        processes."""
+        if self.t_done is None:
+            return now
+        return max(self.t_done,
+                   self.t_launch + delay_until.get(self.chip, 0.0) / 1e6)
 
 
 class RatelessCoder:
@@ -411,9 +427,12 @@ class RatelessCoder:
             with mem.launching():
                 dev_in = torch.from_numpy(src).to(mem.device)
                 bl.t_launch = time.perf_counter()
+                cpu0 = time.thread_time()
                 bl.out = gf_bit_matmul_kernel(
                     dev_in, rplan.bits_for(mem.device))
                 bl.event = mem.record()
+                if bl.event is None:
+                    bl.t_done = bl.t_launch + (time.thread_time() - cpu0)
         # chip_failures counts CHIPS (the counter's contract); the
         # drain adds fetch-time failures for chips not already counted
         counted_chips = failed | {bl.chip for bl in blocks
@@ -493,7 +512,7 @@ class RatelessCoder:
                 now = time.perf_counter()
                 if not self._block_ready(bl, now, delay_until):
                     continue
-                bl.t_ready = now
+                bl.t_ready = bl.ready_at(now, delay_until)
                 pending.remove(bl)
                 ready.append(bl)
                 chip_pending[bl.chip] -= 1
@@ -567,7 +586,7 @@ class RatelessCoder:
             for bl in list(pending):
                 now = time.perf_counter()
                 if self._block_ready(bl, now, delay_until):
-                    bl.t_ready = now
+                    bl.t_ready = bl.ready_at(now, delay_until)
                     pending.remove(bl)
                     if all(p.chip != bl.chip for p in pending):
                         chip_done_us.setdefault(

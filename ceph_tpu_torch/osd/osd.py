@@ -41,7 +41,7 @@ from ..msg import (
     MOSDRepScrub, MOSDRepScrubMap, Message, Network,
 )
 from ..os_store import MemStore, Transaction, hobject_t
-from ..osdmap import OSDMap, pg_t
+from ..osdmap import OSDMap, crush_memo, pg_t
 from .ec_backend import HINFO_ATTR, SIZE_ATTR
 from .pg import PG
 from .pg_log import LogEntry, OP_DELETE
@@ -106,8 +106,9 @@ class OSD(Dispatcher):
         load_builtin_classes()      # osd_class_load_list='*'
 
         self.osdmap = OSDMap()
-        # (epoch, {pg_id: pg_to_up_acting_osds}) of ``pg_mapping``
-        self._mapping: Tuple[int, Dict] = (-1, {})
+        # (epoch, {pg_id: pg_to_up_acting_osds}, ``crush_memo``) of
+        # ``pg_mapping``
+        self._mapping: Tuple[int, Dict, Dict] = (-1, {}, {})
         self.pgs: Dict[Tuple[int, int], PG] = {}
         self._ec_impls: Dict[str, object] = {}
         self.last_ping_reply: Dict[int, float] = {}
@@ -345,19 +346,22 @@ class OSD(Dispatcher):
 
     def pg_mapping(self, pg_id: Tuple[int, int]
                    ) -> Tuple[List[int], int, List[int], int]:
-        """``self.osdmap.pg_to_up_acting_osds`` of ``pg_id``, through
-        CRUSH once per PG and epoch.  The map changes only by whole
-        epochs (``apply_incremental``), and each epoch asks for every PG
-        from ``_consume_map``, each PG's ``advance_map`` and every
-        tick's stray scan.  Each call gets lists of its own (the same
-        one for up and acting where the map returns one for both)."""
-        epoch, memo = self._mapping
+        """``self.osdmap.pg_to_up_acting_osds`` of ``pg_id``, once per PG
+        and epoch, and through CRUSH once per crush map content and
+        CRUSH input (``crush_memo``, looked up when the epoch changes).
+        The map changes only by whole epochs (``apply_incremental``), and
+        each epoch asks for every PG from ``_consume_map``, each PG's
+        ``advance_map`` and every tick's stray scan.  Each call gets lists
+        of its own (the same one for up and acting where the map returns
+        one for both)."""
+        epoch, memo, raw = self._mapping
         if epoch != self.osdmap.epoch:
-            epoch, memo = self._mapping = (self.osdmap.epoch, {})
+            epoch, memo, raw = self._mapping = (
+                self.osdmap.epoch, {}, crush_memo(self.osdmap.crush))
         got = memo.get(pg_id)
         if got is None:
             got = memo[pg_id] = self.osdmap.pg_to_up_acting_osds(
-                pg_t(*pg_id))
+                pg_t(*pg_id), raw)
         up, upp, acting, actp = got
         u = list(up)
         return u, upp, (u if acting is up else list(acting)), actp

@@ -6,7 +6,7 @@ from .types import (
 )
 from .osdmap import (
     CEPH_OSD_DEFAULT_PRIMARY_AFFINITY, CEPH_OSD_IN, CEPH_OSD_OUT,
-    Incremental, OSDMap,
+    Incremental, OSDMap, crush_memo,
 )
 from .mapping import OSDMapMapping, PoolMapping, pool_pps
 

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from ..crush import CrushWrapper
+from ..crush.binfmt import encode_crushmap
 from ..crush.constants import CRUSH_ITEM_NONE
 from ..crush.hash import crush_hash32_2
 from .types import pg_pool_t, pg_t
@@ -31,6 +32,26 @@ CEPH_OSD_DEFAULT_PRIMARY_AFFINITY = 0x10000
 # osd_state bits (include/rados.h)
 CEPH_OSD_EXISTS = 1
 CEPH_OSD_UP = 2
+
+# CRUSH's answers by the crush map's content (``crush_memo``).  The key is
+# the map's encoding, which holds every field ``do_rule`` reads, so a map
+# edited in place, by a tool, a test or a monitor, keys answers of its
+# own.  The newest ``_CRUSH_MEMOS_KEPT`` maps keep their answers.
+_crush_memos: Dict[bytes, dict] = {}
+_CRUSH_MEMOS_KEPT = 8
+
+
+def crush_memo(crush: CrushWrapper) -> dict:
+    """The memo of ``crush``'s ``do_rule`` answers as the map reads now,
+    shared by every caller whose map reads the same; pass it to
+    ``OSDMap.pg_to_up_acting_osds``."""
+    key = encode_crushmap(crush)
+    memo = _crush_memos.get(key)
+    if memo is None:
+        memo = _crush_memos.setdefault(key, {})
+        for old in list(_crush_memos)[:-_CRUSH_MEMOS_KEPT]:
+            _crush_memos.pop(old, None)
+    return memo
 
 
 @dataclass
@@ -182,17 +203,35 @@ class OSDMap:
     object_locator_to_pg = map_to_pg
 
     # ---- pg → osds pipeline (OSDMap.cc:1936-2185) -------------------------
-    def _pg_to_raw_osds(self, pool: pg_pool_t, pg: pg_t
+    def _pg_to_raw_osds(self, pool: pg_pool_t, pg: pg_t,
+                        raw_memo: Optional[dict] = None
                         ) -> Tuple[List[int], int]:
+        """CRUSH's answer for ``pg``.  ``raw_memo``, when given, is the
+        ``crush_memo`` of ``self.crush``: ``do_rule``'s answers by every
+        input it reads besides the crush map itself (weights and
+        choose_args, then rule, pps and size)."""
         pps = pool.raw_pg_to_pps(pg)
         size = pool.size
         ruleno = self.crush.find_rule(pool.crush_rule, pool.type, size)
         osds: List[int] = []
         if ruleno >= 0:
-            osds = self.crush.do_rule(
-                ruleno, pps, size, self.osd_weight,
-                choose_args_index=pg.pool
-                if pg.pool in self.crush.crush.choose_args else None)
+            ca = pg.pool if pg.pool in self.crush.crush.choose_args else None
+            if raw_memo is None:
+                osds = self.crush.do_rule(ruleno, pps, size,
+                                          self.osd_weight,
+                                          choose_args_index=ca)
+            else:
+                weights = (tuple(self.osd_weight), ca)
+                by_input = raw_memo.get(weights)
+                if by_input is None:
+                    by_input = raw_memo.setdefault(weights, {})
+                hit = by_input.get((ruleno, pps, size))
+                if hit is None:
+                    hit = by_input[ruleno, pps, size] = tuple(
+                        self.crush.do_rule(ruleno, pps, size,
+                                           self.osd_weight,
+                                           choose_args_index=ca))
+                osds = list(hit)
         self._remove_nonexistent_osds(pool, osds)
         return osds, pps
 
@@ -314,15 +353,16 @@ class OSDMap:
         up, primary = self._apply_primary_affinity(pps, pool, up, primary)
         return up, primary
 
-    def pg_to_up_acting_osds(self, pg: pg_t
+    def pg_to_up_acting_osds(self, pg: pg_t, raw_memo: Optional[dict] = None
                              ) -> Tuple[List[int], int, List[int], int]:
         """Returns (up, up_primary, acting, acting_primary)
-        (OSDMap.cc:2154-2185)."""
+        (OSDMap.cc:2154-2185); ``raw_memo`` as ``_pg_to_raw_osds`` takes
+        it."""
         pool = self.get_pg_pool(pg.pool)
         if pool is None or pg.ps >= pool.pg_num:
             return [], -1, [], -1
         acting, acting_primary = self._get_temp_osds(pool, pg)
-        raw, pps = self._pg_to_raw_osds(pool, pg)
+        raw, pps = self._pg_to_raw_osds(pool, pg, raw_memo)
         raw = self._apply_upmap(pool, pg, raw)
         up = self._raw_to_up_osds(pool, raw)
         up_primary = self._pick_primary(up)

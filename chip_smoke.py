@@ -437,6 +437,31 @@ phases run as they did):
    sample, the device's busy share where the profiler sees it.
    ``python3 chip_smoke.py --rgw`` runs 4z alone after phases 1-2.
 
+The RADOS features that the case twins hold to the JAX package's own
+cases (``tests/test_torch_rados_cases.py`` and its siblings) add, after
+4z (the earlier phases run as they did):
+
+4r (rados features; not 4r the resident write above). An erasure-coded
+   pool through a monitor failover, an OSD flap, a PG split and a
+   self-managed snapshot (``rados_features_slice``): a ``MiniCluster`` of
+   3 monitors and 12 OSDs, a ``cuda`` k=8 m=4 pool of 32 PGs, objects of
+   4 MiB.  (a) 32 ``write_full``; the leader monitor killed, ticks until
+   ``mon.1`` leads; 16 writes and a pool created under the new leader;
+   the monitor revived: K1 launches once per write (48).  (b) One OSD
+   killed and marked down; 16 writes and 16 unaligned partial overwrites
+   while it is away; revived and recovered: recovery pushes exactly one
+   shard per object changed in its absence (the PG log's delta, not the
+   PGs' contents), and K1 decodes the pushed data shards.  (c) ``pg_num``
+   then ``pgp_num`` 32 -> 64; every object read back byte-exact; an OSD
+   holding a data shard of a child PG's object killed: its degraded
+   reads decode on K1.  (d) A self-managed snapshot, 8 overwrites under
+   its write context (each clones the old bytes as an EC object of its
+   own: K1 twice per write), every object read at the snap equal to its
+   old bytes and at head to its new ones.
+   Every read is byte-exact, and a missing reply or a non-zero answer
+   fails the leg.  ``python3 chip_smoke.py --rados-features`` runs 4r
+   alone after phases 1-2.
+
 Each phase's seconds are printed.  Prints the ``{"kernels": [...]}`` line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``.
 Full results also go to ``chiprun_out/chip_smoke.json``, and every line
@@ -6944,6 +6969,298 @@ def rgw_alone(dev) -> None:
         json.dump(out, f, indent=1, default=str)
 
 
+RF_MONS = 3                       # a quorum that survives its leader
+RF_FILL = 32                      # (a) objects written before the failover
+RF_LATE = 16                      #     and after it
+RF_PATCHES = 16                   # (b) unaligned partial overwrites
+RF_PATCH_BYTES = 65536 + 4321     #     crossing stripe boundaries
+RF_SPLIT_PG_NUM = 64              # (c) pg_num and pgp_num 32 -> 64
+RF_SNAP_WRITES = 8                # (d) overwrites that clone
+
+
+def rados_features_slice(dev, obj_bytes: int = OBJ_BYTES,
+                         pg_num: int = SMOKE_PG_NUM,
+                         split_pg_num: int = RF_SPLIT_PG_NUM,
+                         n_fill: int = RF_FILL, n_late: int = RF_LATE,
+                         n_patch: int = RF_PATCHES,
+                         patch_bytes: int = RF_PATCH_BYTES,
+                         n_snap: int = RF_SNAP_WRITES) -> dict:
+    """4r: the RADOS features of an erasure-coded pool that the case
+    twins hold to the JAX package's own cases, at full width: a
+    ``MiniCluster`` of ``RF_MONS`` monitors and 12 OSDs, one per host, and
+    a ``cuda`` k=8 m=4 pool of ``pg_num`` PGs with objects of
+    ``obj_bytes``.  Legs, K1's count set to 0 just before each and read
+    just after:
+
+    (a) ``n_fill`` writes; the leader killed (after
+        ``tests/test_multimon.py:34``) and the cluster ticked until
+        ``mon.1`` leads; ``n_late`` writes and a replicated pool created
+        under it; the old leader revived.  K1 once per write.
+    (b) a non-primary OSD killed and marked down; ``n_late`` writes and
+        ``n_patch`` unaligned overwrites of ``patch_bytes`` while it is
+        away; revived and recovered (after ``tests/test_pg_log.py:71``
+        and ``tests/test_rmw.py:151``): the recovery pushes exactly one
+        shard per object changed meanwhile, and decodes on K1.
+    (c) ``pg_num``, then ``pgp_num``, to ``split_pg_num`` (after
+        ``tests/test_pg_split.py:83`` and ``:202``), every object read
+        back; an OSD holding a data shard of objects in child PGs killed
+        and marked down, those objects read degraded: K1 decodes.
+    (d) the OSD revived; a self-managed snapshot, ``n_snap`` overwrites
+        under its write context (after
+        ``tests/test_selfmanaged_snaps.py:50``): K1 twice per write, once
+        for the clone (``PG.with_clone`` writes the old bytes as an
+        object of its own, a full EC write) and once for the head; each
+        read at the snap equals the old bytes, at head the new.
+
+    Every read must equal a numpy model, and every op must answer 0
+    within ``OSD_PATH_DEADLINE_S``.  On the CPU (a rehearsal at small
+    sizes) the codec takes ``backend=host`` and the launch counts are
+    not checked."""
+    from ceph_tpu_torch.cluster import MiniCluster
+    from ceph_tpu_torch.common.config import g_conf
+    from ceph_tpu_torch.dispatch import g_dispatcher
+    from ceph_tpu_torch.osdmap import pg_t
+    on_card = dev.type == "cuda"
+    extra = {} if on_card else {"backend": "host"}
+    gate = OpGate()
+    total = {"gf_bit_matmul": 0}
+    out = {"legs": {}, "config": {
+        "mons": RF_MONS, "osds": OSD_PATH_OSDS, "pg_num": pg_num,
+        "split_pg_num": split_pg_num, "k": K, "m": M, "plugin": "cuda",
+        "extra_profile": extra, "object_bytes": obj_bytes,
+        "fill": n_fill, "late": n_late, "patches": n_patch,
+        "patch_bytes": patch_bytes, "snap_writes": n_snap}}
+    t_slice = time.perf_counter()
+
+    def need(cond, what):
+        if on_card and not cond:
+            raise AssertionError(f"4r: {what}")
+
+    g_dispatcher.flush()
+    for name in ("os_memstore_device_bytes_max", "ec_pipeline_depth",
+                 "ec_dispatch_batch_window_us", "ec_dispatch_batch_max",
+                 "osd_op_num_threads", "osd_op_queue_batch_intake"):
+        g_conf.rm_val(name)
+    rng = np.random.default_rng(SEED + 18)
+    model = {}
+
+    def body():
+        return rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes()
+
+    def write(oid, data):
+        gate.call(f"write_full {oid}", cl.write_full, "ec", oid, data)
+        model[oid] = data
+
+    def check(oids, what, snap=None, want=None):
+        for oid in oids:
+            expect = (want or model)[oid]
+            got = gate.call(f"{what} read {oid}",
+                            lambda: cl.read("ec", oid, snap=snap))
+            if got != expect:
+                raise AssertionError(f"4r {what}: read of {oid} differs")
+
+    counted = k1_legs("4r", dev, out, total)
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=OSD_PATH_OSDS, n_mons=RF_MONS)
+    c.create_ec_pool("ec", k=K, m=M, pg_num=pg_num, plugin="cuda",
+                     extra_profile=extra)
+    cl = c.client("client.rf")
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"4r: MiniCluster of {RF_MONS} mons, {OSD_PATH_OSDS} OSDs and a "
+        f"pool of {pg_num} PGs up in {out['boot_s']:.1f} s")
+    try:
+        # -- (a) a monitor failover under writes ------------------------------
+        fill = [f"a{i}" for i in range(n_fill)]
+        late = [f"f{i}" for i in range(n_late)]
+
+        def failover():
+            nonlocal cl
+            for oid in fill:
+                write(oid, body())
+            epoch = c.mon.osdmap.epoch
+            c.kill_mon(0)
+            ticks = 0
+            while c.mon.name != "mon.1" or not c.mon.is_leader():
+                if ticks == 12:
+                    raise AssertionError("4r (a): no election after the "
+                                         "leader died")
+                c.tick(dt=6.0)
+                ticks += 1
+            leader = c.mon
+            if 0 in leader.quorum or leader.osdmap.epoch < epoch:
+                raise AssertionError(f"4r (a): quorum {leader.quorum}, "
+                                     f"epoch {leader.osdmap.epoch}")
+            cl = c.client("client.rf2")      # a session with the new leader
+            for oid in late:
+                write(oid, body())
+            c.create_replicated_pool("after_failover", 3, 8)
+            gate.call("write_full after_failover", cl.write_full,
+                      "after_failover", "marker", b"new leader")
+            c.revive_mon(0)
+            cl = c.client("client.rf3")  # and with the quorum it rejoined
+            return {"election_ticks": ticks, "leader": leader.name,
+                    "leader_after_revive": c.mon.name,
+                    "writes": len(fill) + len(late)}
+
+        leg = counted("a_failover", failover)
+        need(leg["k1_launches"] == n_fill + n_late,
+             f"(a) K1 launches {leg['k1_launches']} for "
+             f"{n_fill + n_late} writes")
+        if gate.call("read after_failover", cl.read, "after_failover",
+                     "marker") != b"new leader":
+            raise AssertionError("4r (a): the new pool's object differs")
+        counted("a_read", lambda: check(fill + late, "(a)"))
+
+        # -- (b) an OSD flap: writes and partial overwrites meanwhile --------
+        victim = acting_of(c, cl, "ec", fill[0])[1]    # not the primary
+        patched = fill[:n_patch]
+        flap_new = [f"b{i}" for i in range(n_late)]
+
+        def pushes():
+            return sum(o.perf["recovery_push"] for o in c.osds.values())
+
+        placed = {oid: acting_of(c, cl, "ec", oid)
+                  for oid in flap_new + patched}
+
+        def flap_writes():
+            c.kill_osd(victim)
+            c.mark_osd_down(victim)
+            for oid in flap_new:
+                write(oid, body())
+            for i, oid in enumerate(patched):
+                off = 4097 + 7919 * i
+                patch = rng.integers(0, 256, patch_bytes,
+                                     dtype=np.uint8).tobytes()
+                gate.call(f"write {oid} at {off}", cl.write, "ec", oid,
+                          patch, off)
+                new = bytearray(model[oid])
+                new[off:off + patch_bytes] = patch
+                model[oid] = bytes(new)
+            return {"victim": victim, "writes": len(flap_new),
+                    "overwrites": len(patched)}
+
+        counted("b_flap_writes", flap_writes)
+        changed = {oid for oid, acting in placed.items() if victim in acting}
+        data_lost = sum(1 for oid in changed
+                        if victim in placed[oid][:K])
+        p0 = pushes()
+
+        def flap_recover():
+            c.revive_osd(victim)
+            c.run_recovery()
+            return {"pushes": pushes() - p0,
+                    "changed_objects": len(changed),
+                    "data_shards_pushed": data_lost,
+                    "objects": len(model)}
+
+        leg = counted("b_flap_recovery", flap_recover)
+        if leg["pushes"] != len(changed):
+            raise AssertionError(
+                f"4r (b): recovery pushed {leg['pushes']} shards for "
+                f"{len(changed)} objects changed during the flap")
+        need(leg["k1_launches"] >= 1 and data_lost >= 1,
+             f"(b) K1 launches {leg['k1_launches']} for {data_lost} data "
+             "shards pushed")
+        counted("b_read", lambda: check(list(model), "(b)"))
+
+        # -- (c) a PG split with pgp migration -------------------------------
+        pid = c.mon.osdmap.lookup_pg_pool_name("ec")
+
+        def split():
+            c.mon.set_pool_pg_num("ec", split_pg_num)
+            c.publish()
+            c.mon.set_pool_pgp_num("ec", split_pg_num)
+            c.publish()
+            ticks = 0
+            while c.mon.osdmap.pg_temp:
+                if ticks == 12:
+                    raise AssertionError(
+                        f"4r (c): pg_temp pins never cleared: "
+                        f"{dict(c.mon.osdmap.pg_temp)}")
+                c.tick(dt=1.0)
+                for _ in range(3):
+                    c.network.pump()
+                    c.run_recovery()
+                ticks += 1
+            pool = c.mon.osdmap.pools[pid]
+            if pool.pg_num != split_pg_num or \
+                    pool.pgp_num != split_pg_num:
+                raise AssertionError(f"4r (c): pg_num {pool.pg_num}, "
+                                     f"pgp_num {pool.pgp_num}")
+            check(list(model), "(c)")
+            return {"pg_num": pool.pg_num, "pgp_num": pool.pgp_num,
+                    "migration_ticks": ticks}
+
+        counted("c_split", split)
+        pool = c.mon.osdmap.pools[pid]
+        children = [oid for oid in model if pool.raw_pg_to_pg(
+            c.mon.osdmap.map_to_pg(pid, oid)).ps >= pg_num]
+        if not children:
+            raise AssertionError("4r (c): no object landed in a child PG")
+        child0 = pool.raw_pg_to_pg(c.mon.osdmap.map_to_pg(pid, children[0]))
+        acting = [int(o) for o in c.mon.osdmap.pg_to_up_acting_osds(
+            pg_t(pid, child0.ps))[2]]
+        split_victim = acting[1]
+        degraded = [oid for oid in children
+                    if split_victim in acting_of(c, cl, "ec", oid)[:K]]
+
+        def child_degraded():
+            c.kill_osd(split_victim)
+            c.mark_osd_down(split_victim)
+            check(degraded, "(c) degraded")
+            return {"victim": split_victim, "child_objects": len(children),
+                    "objects_missing_a_data_shard": len(degraded)}
+
+        leg = counted("c_degraded", child_degraded)
+        need(leg["k1_launches"] >= 1,
+             f"(c) K1 launches {leg['k1_launches']} for {len(degraded)} "
+             "degraded child-PG objects")
+        c.revive_osd(split_victim)
+        c.run_recovery()
+
+        # -- (d) self-managed snapshot clones ----------------------------------
+        snapped = list(model)[:n_snap]
+        old = {oid: model[oid] for oid in snapped}
+
+        def snapshot():
+            sid = cl.selfmanaged_snap_create("ec")
+            cl.set_write_ctx("ec", sid, [sid])
+            for oid in snapped:
+                write(oid, body())
+            return {"snap": sid, "writes": len(snapped)}
+
+        leg = counted("d_snapshot", snapshot)
+        need(leg["k1_launches"] == 2 * n_snap,
+             f"(d) K1 launches {leg['k1_launches']} for {n_snap} writes "
+             "and their clones")
+        sid = leg["snap"]
+
+        def snap_reads():
+            check(snapped, "(d) snap", snap=sid, want=old)
+            check(snapped, "(d) head")
+
+        counted("d_read", snap_reads)
+    finally:
+        for osd in c.osds.values():
+            osd.shutdown()
+    out["launches"] = total
+    out["slowest_op_s"] = gate.slowest_s
+    out["ops"] = gate.ops
+    out["seconds"] = time.perf_counter() - t_slice
+    log(f"4r: {gate.ops} ops, slowest {gate.slowest_s:.2f} s; launches "
+        + json.dumps(total) + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def rados_features_alone(dev) -> None:
+    """``--rados-features``: 4r alone after phases 1-2, its record written
+    to ``chiprun_out/rados_features.json``."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = rados_features_slice(dev)
+    with open(os.path.join("chiprun_out", "rados_features.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7025,12 +7342,13 @@ def main() -> int:
                         ("--mesh", mesh_alone),
                         ("--rbd", rbd_alone),
                         ("--cephfs", cephfs_alone),
-                        ("--rgw", rgw_alone)):
+                        ("--rgw", rgw_alone),
+                        ("--rados-features", rados_features_alone)):
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
                     "--cluster", "--vstart", "--mesh", "--rbd",
-                    "--cephfs", "--rgw"):
+                    "--cephfs", "--rgw", "--rados-features"):
             turns(dev)
         else:
             turns(sys.argv[sys.argv.index(flag) + 1], dev)
@@ -7406,6 +7724,13 @@ def main() -> int:
     results["rgw"] = rgw_rec
     phase_done("4z rgw")
 
+    # -- 4r. an erasure-coded pool through a monitor failover, an OSD flap,
+    # a PG split and self-managed snapshot clones, after the earlier slices'
+    # phases, which run as they did --------------------------------------------
+    rf_rec = rados_features_slice(dev)
+    results["rados_features"] = rf_rec
+    phase_done("4r rados features")
+
     enc = times["encode"]
     k4, k5 = times["crc32c"], times["fused_encode_crc"]
     k7 = ct["u_firstn"]
@@ -7434,7 +7759,8 @@ def main() -> int:
                      + rbd_rec["launches"]["gf_bit_matmul"]
                      + harness_n["gf_bit_matmul"]
                      + fs_rec["launches"]["gf_bit_matmul"]
-                     + rgw_rec["launches"]["gf_bit_matmul"]),
+                     + rgw_rec["launches"]["gf_bit_matmul"]
+                     + rf_rec["launches"]["gf_bit_matmul"]),
         "max_abs_err": max_err,
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -7582,6 +7908,14 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
+    log("rados_features " + json.dumps(
+        {"seconds": rf_rec["seconds"], "ops": rf_rec["ops"],
+         "slowest_op_s": rf_rec["slowest_op_s"],
+         "legs": {n: {k: v for k, v in leg.items() if k in (
+             "wall_s", "k1_launches", "pushes", "changed_objects",
+             "data_shards_pushed", "objects_missing_a_data_shard",
+             "election_ticks", "migration_ticks")}
+             for n, leg in rf_rec["legs"].items()}}))
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

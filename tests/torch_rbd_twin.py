@@ -5,7 +5,9 @@ stored (the rbd, journal and rbd tool twin tests).
 ``ceph_tpu`` import turned into ``ceph_tpu_torch``: the same cases, the
 same inputs, on the port.  ``run_both(mod, name, tmp_path, capsys)`` runs
 the case ``name`` (its module fixtures, ``tmp_path`` and ``capsys``
-supplied) once on each package with:
+supplied, with ``monkeypatch``, ``request`` and the module's
+autouse and chained fixtures, and the values of one parametrised
+variant from ``case_variants``) once on each package with:
 
 - ``uuid.uuid4`` drawn from one seeded sequence, restarted for each
   package, so image ids and lock cookies agree;
@@ -23,7 +25,13 @@ supplied) once on each package with:
   real clock;
 - the port's EC pools given ``backend=host`` (its codecs' default
   ``cuda`` backend asks for the card; the JAX pools run ``tpu`` or
-  ``isa`` on its CPU);
+  ``isa`` on its CPU), and every codec the port's registry makes: a
+  profile that names the JAX plugin ``tpu`` gets the port's ``cuda``,
+  and one that names no backend, or JAX's ``tpu``, gets ``host``, so a
+  case's own
+  ``create_erasure_code`` and profile tables run as they do in JAX;
+- the port's mesh given ``MESH_MEMBERS`` members on the CPU, as many
+  as JAX's virtual devices (``tests/conftest.py``);
 - every ``MiniCluster`` the case builds recorded, so that afterwards
   each cluster's stores (bodies, xattrs, omaps of every object on every
   OSD) can be compared with its twin's.
@@ -41,6 +49,7 @@ import types
 import uuid
 
 import pytest
+from _pytest.fixtures import FixtureFunctionDefinition
 
 from torch_daemon_twin import reset_both, store_state
 
@@ -48,13 +57,19 @@ JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
 UUID_SEED = 20260807
 FS_CLOCK_START = 1786000000.0      # the fake clock's first second
 FS_CLOCK_STEP = 0.001
+MESH_MEMBERS = 8                   # JAX's virtual CPU devices
 
 
-def port_module(mod, without=()):
+def port_module(mod, without=(), edits=()):
     """``mod``'s source with the JAX package's imports made the port's.
     The import lines of the JAX subpackages named in ``without`` (not
-    ported yet) are left out, and with them the cases that use them."""
+    ported yet) are left out, and with them the cases that use them.
+    Each ``(old, new)`` of ``edits`` replaces text that must be in the
+    source (a JAX default the port asks for by name)."""
     src = inspect.getsource(mod)
+    for old, new in edits:
+        assert old in src, (mod.__name__, old)
+        src = src.replace(old, new)
     for sub in without:
         src = re.sub(rf"^from ceph_tpu\.{sub}\b.*\n", "", src,
                      flags=re.M)
@@ -133,62 +148,161 @@ def _patch(mp, pkg, run, rgw_start=None, case=()):
                                          "backend": "host"}, **kw)
 
         mp.setattr(cluster_cls, "create_ec_pool", host_ec_pool)
+        registry = import_module(pkg + ".ec.registry").instance
+        factory = registry.factory
+
+        def host_factory(name, profile):
+            if name == "tpu":
+                name = "cuda"
+                profile = {**profile, "plugin": "cuda"}
+            if profile.get("backend", "tpu") == "tpu":
+                profile = {**profile, "backend": "host"}
+            return factory(name, profile)
+
+        mp.setattr(registry, "factory", host_factory)
     mp.setattr(uuid, "uuid4", seeded_uuid4())
     mp.setattr(secrets, "randbits", seeded_randbits())
     mp.setattr(secrets, "token_hex", seeded_token_hex())
     mp.setattr(time, "time", fs_clock(rgw_start=rgw_start, case=case))
 
 
-def _call(mod, name, tmp_path, capsys):
+class _Request:
+    """The ``request`` fixture as the cases use it."""
+
+    def __init__(self, resolve):
+        self.getfixturevalue = resolve
+
+
+def _fixtures(mod):
+    return {n: v for n, v in vars(mod).items()
+            if isinstance(v, FixtureFunctionDefinition)}
+
+
+def _call(mod, name, tmp_path, capsys, params=None):
+    """The case ``name`` with its fixtures: the module's own (autouse
+    ones first, each chained to the fixtures it takes, each made once),
+    ``tmp_path``, ``capsys``, ``monkeypatch`` (undone afterwards),
+    ``request`` and the parametrised values ``params``.  Generator
+    fixtures finish in reverse order."""
     fn = getattr(mod, name)
-    kwargs, gens = {}, []
-    for arg in inspect.signature(fn).parameters:
-        if arg == "tmp_path":
-            kwargs[arg] = tmp_path
+    fixtures = _fixtures(mod)
+    params = dict(params or {})
+    made, gens = {}, []
+    mp = pytest.MonkeyPatch()
+
+    def resolve(arg):
+        if arg in made:
+            return made[arg]
+        if arg in params:
+            value = params[arg]
+        elif arg == "tmp_path":
+            value = tmp_path
         elif arg == "capsys":
-            kwargs[arg] = capsys
+            value = capsys
+        elif arg == "monkeypatch":
+            value = mp
+        elif arg == "request":
+            value = _Request(resolve)
         else:
-            value = getattr(mod, arg)._get_wrapped_function()()
+            f = fixtures[arg]._get_wrapped_function()
+            value = f(**{a: resolve(a) for a in _arg_names(f)})
             if inspect.isgenerator(value):
                 gens.append(value)
                 value = next(value)
-            kwargs[arg] = value
+        made[arg] = value
+        return value
+
     try:
-        fn(**kwargs)
+        for n, fix in fixtures.items():
+            if fix._fixture_function_marker.autouse:
+                resolve(n)
+        fn(**{a: resolve(a) for a in _arg_names(fn)})
     finally:
-        for g in gens:
+        for g in reversed(gens):
             next(g, None)
+        mp.undo()
 
 
-def run_one(mod, name, pkg, tmp_path, capsys, rgw_start=None):
-    """The case ``name`` of ``mod`` (already the ``pkg`` package's); the
-    gateway's and the case's clock starts at ``rgw_start`` (default:
-    now)."""
+def _arg_names(fn):
+    """The parameters pytest fills: those without a default."""
+    return [n for n, p in inspect.signature(fn).parameters.items()
+            if p.default is inspect.Parameter.empty]
+
+
+def case_variants(mod, name):
+    """``[(id, params)]`` of the case ``name``: one per combination of
+    its ``parametrize`` marks (``[("", {})]`` when it has none)."""
+    out = [("", {})]
+    for mark in getattr(getattr(mod, name), "pytestmark", ()):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[:2]
+        names = [n.strip() for n in names.split(",")] \
+            if isinstance(names, str) else list(names)
+        ids = mark.kwargs.get("ids")
+        rows = []
+        for i, v in enumerate(values):
+            v = v.values if hasattr(v, "values") else (
+                (v,) if len(names) == 1 else tuple(v))
+            rid = ids[i] if ids else "-".join(
+                str(x) if isinstance(x, (str, int, float, bool)) or
+                x is None else f"{n}{i}" for n, x in zip(names, v))
+            rows.append((str(rid), dict(zip(names, v))))
+        out = [(f"{rid}-{oid}" if oid else rid, {**p, **op})
+               for oid, op in out for rid, p in rows]
+    return out
+
+
+def run_one(mod, name, pkg, tmp_path, capsys, rgw_start=None,
+            params=None, torch_threads=None):
+    """The case ``name`` of ``mod`` (already the ``pkg`` package's) with
+    the parametrised values ``params``; the gateway's and the case's
+    clock starts at ``rgw_start`` (default: now).  ``torch_threads``
+    sets torch's intra-op threads for the port's run, as each daemon of
+    the process cluster sets them (``vstart._daemon_start``): a mesh
+    member slowed on purpose then stands out to the scoreboard while
+    other test workers load every core."""
+    import torch
+    from ceph_tpu_torch.mesh import members_per_device, \
+        set_members_per_device
     run = Run(pkg)
+    members = members_per_device()
+    threads = torch.get_num_threads()
+    if pkg == PORT:
+        set_members_per_device(MESH_MEMBERS)
+        if torch_threads:
+            torch.set_num_threads(torch_threads)
     reset_both(collect=False)
     d = tmp_path / pkg
     d.mkdir()
     capsys.readouterr()
     if rgw_start is None:
         rgw_start = time.time()
-    with pytest.MonkeyPatch.context() as mp:
-        _patch(mp, pkg, run, rgw_start, case=(mod.__name__,))
-        try:
-            _call(mod, name, d, capsys)
-        finally:
-            cap = capsys.readouterr()
-            run.out, run.err = cap.out, cap.err
-    reset_both(collect=False)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            _patch(mp, pkg, run, rgw_start, case=(mod.__name__,))
+            try:
+                _call(mod, name, d, capsys, params)
+            finally:
+                cap = capsys.readouterr()
+                run.out, run.err = cap.out, cap.err
+        reset_both(collect=False)
+    finally:
+        set_members_per_device(members)
+        torch.set_num_threads(threads)
     return run
 
 
-def run_both(mod, name, tmp_path, capsys, port=None):
-    """``mod``'s case ``name`` on the JAX package, then on the port
-    (``port`` is ``port_module(mod)`` when the caller holds one)."""
+def run_both(mod, name, tmp_path, capsys, port=None, params=None,
+             torch_threads=None):
+    """``mod``'s case ``name`` (with the parametrised values ``params``)
+    on the JAX package, then on the port (``port`` is
+    ``port_module(mod)`` when the caller holds one; ``torch_threads`` as
+    ``run_one`` takes it)."""
     start = time.time()
-    j = run_one(mod, name, JAX, tmp_path, capsys, start)
+    j = run_one(mod, name, JAX, tmp_path, capsys, start, params)
     p = run_one(port or port_module(mod), name, PORT, tmp_path, capsys,
-                start)
+                start, params, torch_threads)
     return j, p
 
 
