@@ -333,6 +333,9 @@ class Monitor(Dispatcher):
             inc = incremental_from_dict(d)
             if inc.epoch != self.osdmap.epoch + 1:
                 continue
+            fl = self._inflight
+            if fl is not None and inc.epoch >= fl["epoch"]:
+                self._requeue_inflight()
             if self._uncommitted is not None and \
                     inc.epoch >= self._uncommitted[1]:
                 # the round our staged value hoped to win is decided
@@ -340,6 +343,41 @@ class Monitor(Dispatcher):
             self.osdmap.apply_incremental(inc)
             self.incrementals.append(inc)
             self._apply_service(inc)
+        if self.is_leader():
+            self._try_begin()
+
+    def _up_after_pending(self, osd: int) -> bool:
+        """Whether ``osd`` is up once the proposals in flight and queued
+        commit: a mark already proposed is not proposed again, as the
+        reference's OSDMonitor folds reports into its one pending_inc.
+        With peers a proposal commits a round trip later, and the OSDs'
+        repeated failure reports and boots would each add an epoch (the
+        JAX monitor reads only the committed map: 4v's 12 OSDs under 3
+        mons went through ~900 epochs in their first minute).  A lone
+        mon commits at once, so its answer is the map's."""
+        up = self.osdmap.is_up(osd)
+        props = ([self._inflight["inc"]] if self._inflight else []) + \
+            [p["inc"] for p in self._pending_proposals]
+        for inc in props:
+            up = inc.new_up.get(osd, up)
+        return up
+
+    def _requeue_inflight(self) -> None:
+        """Committed values learned from a peer (a collect's LAST, a
+        commit) decided the epoch our in-flight proposal was for, so its
+        accepts no longer count.  A delta goes back to the head of the
+        queue, to be proposed at the next epoch; a topology snapshot (the
+        working map mutated in place) is demoted to a staged value, which
+        the decided epoch then discards, the working map rebuilt from the
+        committed history.  (The JAX monitor commits the stale proposal
+        on its next accept, and ``apply_incremental`` raises.)"""
+        fl = self._inflight
+        if fl["topology"]:
+            self._demote_inflight()
+            return
+        self._inflight = None
+        self._pending_proposals.insert(0, {"inc": fl["inc"],
+                                           "topology": False})
 
     def _handle_paxos(self, msg: MMonPaxos) -> None:
         from ..osdmap.encoding import incremental_from_dict, \
@@ -1505,7 +1543,7 @@ class Monitor(Dispatcher):
             # (OSDMonitor::preprocess_boot/prepare_boot)
             if self.is_leader() or not self.peers:
                 if 0 <= msg.osd < self.osdmap.max_osd and \
-                        not self.osdmap.is_up(msg.osd):
+                        not self._up_after_pending(msg.osd):
                     self.mark_osd_up(msg.osd)
             elif self.is_peon():
                 name = self._peer_name(self.leader_rank)
@@ -1553,7 +1591,7 @@ class Monitor(Dispatcher):
                 return
             # OSDMonitor::check_failure quorum: distinct reporters must
             # agree before the mark (mon_osd_min_down_reporters)
-            if not self.osdmap.is_up(msg.target_osd):
+            if not self._up_after_pending(msg.target_osd):
                 return
             reporters = self._failure_reports.setdefault(
                 msg.target_osd, set())

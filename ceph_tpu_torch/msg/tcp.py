@@ -23,7 +23,7 @@ import socket
 import struct
 import time
 from collections import deque
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .messenger import Network
 from .messages import Message
@@ -63,9 +63,17 @@ class TcpAuth:
     Caveat vs the reference: a process authenticates as ONE principal,
     so inbound src names are enforced at service granularity
     (client.* may not claim osd.*), not per-entity.
+
+    The mons of a multi-mon cluster pass their roster as ``quorum``: every
+    one of them is a KDC, and they share the rotating service secrets, as
+    the reference's AuthMonitor replicates them through paxos; here each
+    derives them from the roster's mon keys, which the full keyring holds.
+    So a ticket any of them issues verifies on every daemon, whichever mon
+    leads.
     """
 
-    def __init__(self, entity: str, keyring_path: str, kdc: bool = False):
+    def __init__(self, entity: str, keyring_path: str, kdc: bool = False,
+                 quorum: Tuple[str, ...] = ()):
         from ..auth import (CephxClient, CephxServer,
                             CephxServiceVerifier, Keyring, entity_service)
         keyring = Keyring.load(keyring_path)
@@ -79,6 +87,13 @@ class TcpAuth:
         self.verifier: Optional[CephxServiceVerifier] = None
         if kdc:
             self.server = CephxServer(keyring)
+            if quorum:
+                from ..auth.crypto import SECRET_LEN, hmac_tag
+                seed = b"".join(keyring.get(m) for m in sorted(quorum))
+                for svc, secrets in self.server.rotating.items():
+                    for sid, (_sec, exp) in list(secrets.items()):
+                        secrets[sid] = (hmac_tag(seed, svc.encode(),
+                                                 SECRET_LEN), exp)
             # the mon authenticates itself against its own KDC in-memory
             ch = self.server.get_challenge(entity)
             cch, proof = self.client.make_proof(ch)
@@ -384,15 +399,14 @@ class TcpNetwork(Network):
         KDC if needed, then present an authorizer for dst's service."""
         from ..auth import AuthError, entity_service
         a = self.auth
-        mon_addr = tuple(self.directory.get("mon", ("", 0)))
+        kdcs = self._kdc_names()
         if a.client.needs_renewal():
             # missing OR near-expiry tickets: (re)run the KDC exchange
-            # — on this socket if it goes to the mon, else over a fresh
+            # — on this socket if it goes to a mon, else over a fresh
             # mon connection (expired tickets would otherwise lock the
             # daemon out of every reconnect forever)
-            if addr != mon_addr:
-                self._drop_conn(mon_addr)
-                self._peer(mon_addr, "mon")
+            if addr not in [tuple(self.directory[n]) for n in kdcs]:
+                self._kdc_connect(kdcs)
             else:
                 self._kdc_exchange(s)
         service = entity_service(dst) if dst else "mon"
@@ -438,13 +452,36 @@ class TcpNetwork(Network):
         a.client.handle_reply(body["blob"])
         a.ensure_verifier()
 
+    def _kdc_names(self) -> List[str]:
+        """The mons that answer a KDC exchange: ``mon``, or each
+        ``mon.<rank>`` of a multi-mon cluster in rank order."""
+        if "mon" in self.directory:
+            return ["mon"]
+        return sorted((n for n in self.directory if n.startswith("mon.")),
+                      key=lambda n: int(n.split(".", 1)[1]))
+
+    def _kdc_connect(self, kdcs: List[str]) -> None:
+        """A fresh connection to the first of ``kdcs`` that answers (the
+        MonClient's hunt), which runs the KDC exchange; the last error
+        when none does."""
+        err: Exception = _AuthFailed("no mon in the directory")
+        for name in kdcs:
+            addr = tuple(self.directory[name])
+            self._drop_conn(addr)
+            try:
+                self._peer(addr, name)
+                return
+            except (_AuthFailed, OSError) as e:
+                err = e
+        raise err
+
     def authenticate(self) -> bool:
         """Force the KDC exchange now (daemon boot path), so inbound
         authorizers can be verified before any outbound traffic."""
         if self.auth is None or self.auth.client.authenticated():
             return True
         try:
-            self._peer(tuple(self.directory["mon"]), "mon")
+            self._kdc_connect(self._kdc_names())
             return True
         except (_AuthFailed, OSError, KeyError):
             return False

@@ -32,8 +32,8 @@ there; every part the JAX module jits is a kernel of
    every row equals ``crush_do_rule`` and no x is recomputed on the host.
 
 Per epoch, ``map_batch`` fetches only the rows that changed since the last
-weight vector (K7c, ``_delta``: a cumsum/scatter compaction in torch, no
-host sync before the one device-to-host copy).
+weight vector: ``crush_delta`` (K7c) compacts them on the device into one
+flat buffer, with no host sync before the one device-to-host copy.
 
 The device-flow profiler accounts the uploads of x and weights and the
 row fetches at the JAX package's sites (``crush.candidates``,
@@ -43,11 +43,11 @@ rows, 4 bytes more than the JAX package's.
 
 A CUDA tensor goes to the kernels or raises; only tensors on the CPU take
 the plain versions (``crush_descend_plain``, ``crush_resolve_plain``,
-``crush_rule_plain``).  ``FastRule(..., plain=True)`` runs the plain
-versions on any device: it is the reference run that chip_smoke.py holds
-the kernels against, never a default.  ``descend_launches.n`` /
-``resolve_launches.n`` (and ``crush_kernels.rule_launches.n`` for K6)
-count launches.
+``crush_rule_plain``, ``crush_delta_plain``).  ``FastRule(...,
+plain=True)`` runs the plain versions on any device: it is the reference
+run that chip_smoke.py holds the kernels against, never a default.
+``descend_launches.n`` / ``resolve_launches.n`` / ``delta_launches.n``
+(and ``crush_kernels.rule_launches.n`` for K6) count launches.
 
 Scope as in the JAX module: straw2 maps, layered hierarchies, jewel-style
 tunables for firstn chooseleaf (stable = 1), no local tries, at most two
@@ -89,6 +89,8 @@ UNDEF = CRUSH_ITEM_UNDEF
 
 descend_launches = LaunchCounter()    # K7a
 resolve_launches = LaunchCounter()    # K7b
+delta_launches = LaunchCounter()      # K7c
+DELTA_ROWS = 1024                     # K7c: rows of one block (kDeltaRows)
 
 # plain descent: lanes per chunk times the widest bucket, in int64 words
 _PLAIN_CHUNK_WORDS = 1 << 25
@@ -650,6 +652,66 @@ def crush_resolve(spec: ResolveSpec, cand: torch.Tensor,
     return (out, risky) if mode == 1 else out
 
 
+def crush_delta_plain(packed: torch.Tensor, prev: torch.Tensor, cap: int,
+                      n_flagged: torch.Tensor) -> torch.Tensor:
+    """The plain version of K7c; the same contract as ``crush_delta``: a
+    cumsum and a scatter, rows past the cap or unchanged parked in slots
+    of their own past it."""
+    X = packed.shape[0]
+    changed = (packed != prev).any(1)
+    pos = torch.cumsum(changed, 0) - 1
+    ar = torch.arange(X, device=packed.device)
+    dest = torch.where(changed & (pos < cap), pos, cap + ar)
+    idx = torch.zeros(cap + X, dtype=torch.int32, device=packed.device)
+    idx.scatter_(0, dest, ar.to(torch.int32))
+    idx = idx[:cap]
+    counts = torch.cat([changed.sum(dtype=torch.int32).reshape(1),
+                        n_flagged.reshape(1)])
+    return torch.cat([counts, idx, packed[idx.long()].reshape(-1)])
+
+
+def crush_delta(packed: torch.Tensor, prev: torch.Tensor, cap: int,
+                n_flagged: torch.Tensor) -> torch.Tensor:
+    """K7c: the rows of ``packed`` that differ from ``prev`` (both (X,
+    R+1) int32 on one device), as one flat int32 buffer ``[n_changed,
+    n_flagged, idx[cap], rows[cap * (R+1)]]``: the first ``min(n_changed,
+    cap)`` changed rows' indices in ascending order and their rows, index
+    0 and row 0 in the slots past them; ``n_changed`` counts every
+    changed row, past the cap too.  A CPU tensor takes
+    ``crush_delta_plain``; a CUDA tensor launches the kernel on the
+    current stream or raises."""
+    if packed.shape != prev.shape or packed.dim() != 2:
+        raise ValueError(f"row tables {tuple(packed.shape)} and "
+                         f"{tuple(prev.shape)} differ or are not 2-D")
+    X, W = packed.shape
+    if not 1 <= cap <= X:
+        raise ValueError(f"cap {cap} outside 1..{X}")
+    if packed.device.type == "cpu":
+        return crush_delta_plain(packed, prev, cap, n_flagged)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"crush_delta: no kernel for device "
+                           f"{packed.device}")
+    for t in (packed, prev, n_flagged):
+        if t.device != packed.device or not t.is_contiguous() or \
+                t.dtype != torch.int32:
+            raise ValueError("delta inputs must be contiguous int32 on "
+                             "one device")
+    n_blocks = -(-X // DELTA_ROWS)
+    dev = packed.device
+    mask = torch.empty(n_blocks * 32, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    out = torch.empty(2 + cap * (W + 1), dtype=torch.int32, device=dev)
+    lib = _build.load("crush_fast", _SIGNATURES)
+    rc = lib.crush_delta_launch(
+        packed.data_ptr(), prev.data_ptr(), X, W, cap, mask.data_ptr(),
+        counts.data_ptr(), n_flagged.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"crush_delta_launch failed: cudaError {rc}")
+    delta_launches.add(1)
+    return out
+
+
 # ---- the compiled rule ------------------------------------------------------------
 
 class FastRule:
@@ -818,6 +880,7 @@ class FastRule:
         self._descend = crush_descend_plain if plain else crush_descend
         self._resolve = crush_resolve_plain if plain else crush_resolve
         self._rule = crush_rule_plain_into if plain else crush_rule
+        self._delta = crush_delta_plain if plain else crush_delta
         self._xd: Optional[torch.Tensor] = None
         self._n_flagged: Optional[torch.Tensor] = None
         self._cand_key: Optional[bytes] = None
@@ -1001,26 +1064,6 @@ class FastRule:
         idx = torch.empty(2 * X, dtype=torch.int32, device=packed.device)
         idx.scatter_(0, torch.where(flagged, pos, X + ar).long(), ar)
         return idx, flagged.sum(dtype=torch.int32).reshape(1)
-
-    def _delta(self, packed: torch.Tensor, prev: torch.Tensor,
-               cap: int, n_flagged: torch.Tensor) -> torch.Tensor:
-        """Changed-row extraction against the previous epoch (K7c) over
-        exact rows.  Returns one flat int32 buffer ``[n_changed,
-        n_flagged, idx[cap], rows[cap * (R+1)]]``, built by a cumsum and a
-        scatter on the device (no sync), so the epoch costs one
-        device-to-host copy."""
-        X = packed.shape[0]
-        changed = (packed != prev).any(1)
-        pos = torch.cumsum(changed, 0) - 1
-        ar = torch.arange(X, device=packed.device)
-        # rows past the cap or unchanged park in slots of their own past it
-        dest = torch.where(changed & (pos < cap), pos, cap + ar)
-        idx = torch.zeros(cap + X, dtype=torch.int32, device=packed.device)
-        idx.scatter_(0, dest, ar.to(torch.int32))
-        idx = idx[:cap]
-        counts = torch.cat([changed.sum(dtype=torch.int32).reshape(1),
-                            n_flagged.reshape(1)])
-        return torch.cat([counts, idx, packed[idx.long()].reshape(-1)])
 
     # ---- public -----------------------------------------------------------
     def prepare_candidates(self, xs: np.ndarray) -> None:

@@ -82,6 +82,8 @@ _SIGNATURES = {
         [_VP, _VP, _VP, _LL, _VP, _VP, _LL, _I,
          _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
          _VP, _I, _VP, _I, _I, _VP], _I),
+    "crush_delta_launch": (
+        [_VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP, _VP], _I),
 }
 
 rule_launches = LaunchCounter()       # K6

@@ -16,7 +16,11 @@ continue_recovery_op flow, ECBackend.cc:535-743.
 Port of ``ceph_tpu/osd/osd.py``: EC profiles default to the ``cuda``
 plugin, ``tick`` has no mesh chip-health kick (the port has no mesh
 yet), and each PG's CRUSH mapping is computed once per map epoch
-(``pg_mapping``) where the JAX package computes it on every call.
+(``pg_mapping``) where the JAX package computes it on every call.  A
+map whose first epoch is past the next one (the epochs between were lost
+with the mon that queued them) makes the OSD subscribe to its sender
+again for the history, as the reference's OSD does on a gap; the JAX OSD
+drops such a map and waits.
 """
 from __future__ import annotations
 
@@ -327,6 +331,23 @@ class OSD(Dispatcher):
                                 MOSDBoot(osd=self.osd_id,
                                          epoch=self.osdmap.epoch), mon)
                 self._consume_map()
+        if msg.incrementals and \
+                msg.incrementals[0].epoch > self.osdmap.epoch + 1:
+            # a gap: the epochs between ours and this map's never came
+            # (a mon that queued them died before it could deliver
+            # them).  Ask the sender, which holds them, for the history
+            # (OSD::handle_osd_map's osdmap_subscribe(newest + 1)),
+            # rate-limited with the heartbeat catch-up below.
+            self._request_maps(msg.src)
+
+    def _request_maps(self, *mons: str) -> None:
+        """Subscribe to ``mons`` again for the whole map history, at most
+        once every 2 s of this OSD's clock."""
+        if self.now - getattr(self, "_map_catchup_at", -1e9) > 2.0:
+            self._map_catchup_at = self.now
+            from ..msg.messages import MMonSubscribe
+            for mon in mons:
+                self.messenger.send_message(MMonSubscribe(), mon)
 
     def _persist_incremental(self, inc) -> None:
         """Store every applied map epoch in the meta collection
@@ -1121,11 +1142,7 @@ class OSD(Dispatcher):
             # history (OSD::osdmap_subscribe on a detected gap).
             # Rate-limited by time, not epoch, so a lost subscribe or
             # reply just retries on the next heartbeat round.
-            if self.now - getattr(self, "_map_catchup_at", -1e9) > 2.0:
-                self._map_catchup_at = self.now
-                from ..msg.messages import MMonSubscribe
-                for mon in self.mon_names:
-                    self.messenger.send_message(MMonSubscribe(), mon)
+            self._request_maps(*self.mon_names)
 
     # ---- tier client (Objecter-lite for promote/flush) ---------------------
     def tier_submit(self, pool_id: int, oid: str, ops,

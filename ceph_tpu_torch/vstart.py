@@ -87,14 +87,16 @@ def mon_main(args) -> None:
     from .msg.tcp import TcpNetwork
 
     directory = json.loads(args.directory)
+    peers = [p for p in args.peers.split(",") if p]
     auth = None
     if args.keyring:
         from .msg.tcp import TcpAuth
-        auth = TcpAuth(args.name, args.keyring, kdc=True)
+        auth = TcpAuth(args.name, args.keyring, kdc=True,
+                       quorum=tuple(sorted({args.name, *peers}))
+                       if peers else ())
     net = TcpNetwork(("127.0.0.1", args.port),
                      {k: tuple(v) for k, v in directory.items()},
                      auth=auth, entity=args.name)
-    peers = [p for p in args.peers.split(",") if p]
     if args.mon_grace:
         monitor_mod.MON_PING_GRACE = args.mon_grace
     if args.mds_grace:

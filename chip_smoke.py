@@ -143,9 +143,22 @@ kept for a whole list of x) adds:
    beside the flagged launch (``exact_packed``), which is the warp form;
 5c. K6 over all x in both forms, in turns; the most straw2 items one
    flagged x draws (``crush_rule_plain``'s ``draws``);
-   K7c (the changed-row extraction, torch) over epoch 10 against epoch 9
-   by graph replay, against its byte bound; K6's ptxas registers, stack
-   and spill in the ``kernels`` line.
+   K7c over epoch 10 against epoch 9 by graph replay, against its byte
+   bound; K6's ptxas registers, stack and spill in the ``kernels`` line.
+
+K7c by hand (``crush_delta``, ``csrc/crush_fast.cu``: the changed rows of
+an epoch, two launches) adds:
+
+4c. the K7c count must move on every delta epoch of the drive, and is in
+   the main path's counts;
+3c. after the drive (``k7c_checks``), per configuration ((u) and (n),
+   firstn and EC), K7c's flat buffer equals ``crush_delta_plain``'s
+   exactly on epoch 10 against epoch 9, on an all-equal epoch and with a
+   cap of half the changed rows (an overflow); then ``map_batch`` with a
+   cap of 1 overflows on epoch 9, takes its refetch path (the cap
+   doubles) and equals the plain versions on every x;
+5c. K7c and its plain version by graph replay in turns, in the
+   ``kernels`` line as ``crush_delta``.
 
 The legacy slice (K8, ``csrc/crush_legacy.cu``: the legacy-tunables mapper
 of ``ops/crush_legacy.py``) adds, after 5c, on (L): 1000
@@ -344,6 +357,16 @@ The process slice (``msg/tcp.py``, ``auth/``, ``compressor/``,
    both and its own K1 launches (the sum must move in every leg); the
    device memory the 12 processes took is the contexts' size.  ``python3 chip_smoke.py --vstart`` runs 4v
    alone after phases 1-2.
+
+The mon failover over TCP adds to 4v: three mon processes (``mon_grace``
+8 s), the client bound to the peon ``mon.1``, and after (c) a leg (d): three
+self-managed snapshot ids, a relayed ``selfmanaged_snap_create`` in flight
+and the leader ``mon.0`` SIGKILLed; ``quorum_status`` until rank 1 leads a
+quorum of two without rank 0; a snapshot id above every earlier one; 8
+writes of 4 MiB (the OSD processes' K1 sum must move by at least 8); every
+object of (a)-(d) read back byte-exact; a second client on ``mon.2`` at the
+same epoch and snapshot sequence.  The election's seconds and the leg's
+wall are logged.  (--vstart's proof kill now follows (d).)
 
 The mesh slice adds, after 4v (the earlier phases run as they did):
 
@@ -1721,9 +1744,13 @@ def crush_drive(configs, dev):
             a0 = cf.descend_launches.n
             b0 = cf.resolve_launches.n
             c0 = ck.rule_launches.n
+            d0 = cf.delta_launches.n
             t0 = time.perf_counter()
             res, cnt = fr.map_batch(xs, w)
             walls.append(time.perf_counter() - t0)
+            if e and cf.delta_launches.n == d0:
+                raise AssertionError(f"{name}: K7c did not launch on delta "
+                                     f"epoch {e}")
             if e and cf.descend_launches.n != a0:
                 raise AssertionError(f"{name}: K7a launched on delta epoch "
                                      f"{e} (candidates not cached)")
@@ -2005,7 +2032,9 @@ def crush_times(drive_rules, dev, wide_ops=0):
         rows10 = fr.exact_packed(wd).clone()
         n_fl = fr._n_flagged.clone()
         cap = min(fr.delta_cap, CRUSH_X)
-        k7c_ms = graph_ms(lambda: fr._delta(rows10, prev, cap, n_fl))
+        k7c_ms, k7c_plain_ms = graph_turns_ms([
+            lambda: cf.crush_delta(rows10, prev, cap, n_fl),
+            lambda: cf.crush_delta_plain(rows10, prev, cap, n_fl)])
         k7c_changed = int((rows10 != prev).any(1).sum())
         k7c_bytes = 2 * rows10.numel() * 4 + (2 + cap * (fr.result_max + 2)) * 4
         del prev, rows10
@@ -2064,7 +2093,8 @@ def crush_times(drive_rules, dev, wide_ops=0):
             "k6_all_draws": draws_all,
             "k6_all_bound_ms": draws_all * OPS_PER_DRAW / INSTR_PER_S * 1e3,
             "resolve_epoch_ms": epoch_ms,
-            "k7c_ms": k7c_ms, "k7c_changed_rows": k7c_changed,
+            "k7c_ms": k7c_ms, "k7c_plain_ms": k7c_plain_ms,
+            "k7c_changed_rows": k7c_changed,
             "k7c_cap": cap, "k7c_bytes": k7c_bytes,
             "k7c_bound_ms": k7c_bytes / HBM_BYTES_PER_S * 1e3}
         log(f"time crush {name} " + json.dumps(times[name]))
@@ -2109,6 +2139,102 @@ def tester_phase(cw, rules, dev) -> dict:
     return out
 
 
+def k7c_checks(drive_rules, plain_rules, dev):
+    """K7c against its plain version, buffer for buffer, per configuration
+    of the drive: epoch 10's rows against epoch 9's at the rule's cap, an
+    all-equal epoch (epoch 10 against itself), and a cap of half the
+    changed rows (an overflow: the count past the cap, the slots full).
+    Then ``map_batch``'s refetch path: with a cap of 1, epoch 9 after
+    epoch 10 overflows, must equal the plain versions' rows on every x and
+    double the cap (restored afterwards).  Returns (max_abs_err, the
+    cases' caps and counts)."""
+    from ceph_tpu_torch.ops import crush_fast as cf
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    w9 = np.full(CRUSH_OSDS, 0x10000, np.uint32)
+    w9[(7 * (CRUSH_EPOCHS - 1) + 3) % CRUSH_OSDS] = 0
+    err, cases = 0, {}
+    for name, (fr, _, _, w) in drive_rules.items():
+        prev = fr.exact_packed(
+            torch.from_numpy(w9.view(np.int32)).to(dev)).clone()
+        rows = fr.exact_packed(
+            torch.from_numpy(w.view(np.int32)).to(dev)).clone()
+        n_fl = fr._n_flagged.clone()
+        n_changed = int((rows != prev).any(1).sum())
+        if not n_changed:
+            raise AssertionError(f"K7c {name}: epochs 9 and 10 map alike")
+        cap = min(fr.delta_cap, CRUSH_X)
+        for case, (a, b, c) in {
+                "epoch10_vs_9": (rows, prev, cap),
+                "all_equal": (rows, rows, cap),
+                "overflow": (rows, prev, max(1, n_changed // 2))}.items():
+            got = cf.crush_delta(a, b, c, n_fl)
+            want = cf.crush_delta_plain(a, b, c, n_fl)
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"K7c {name} {case}: the buffer != "
+                                     "the plain version's")
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            cases[f"{name} {case}"] = {"cap": c, "n_changed": int(got[0])}
+        cap0 = fr.delta_cap
+        fr.delta_cap = 1
+        res, cnt = fr.map_batch(xs, w9)
+        rp, cp = plain_rules[name].map_batch(xs, w9)
+        cols = np.arange(res.shape[1])[None, :]
+        if not (np.array_equal(cnt, cp) and np.array_equal(
+                np.where(cols < cnt[:, None], res, -1),
+                np.where(cols < cp[:, None], rp, -1))):
+            raise AssertionError(f"K7c {name}: the refetch epoch != plain")
+        if fr.delta_cap != 2:
+            raise AssertionError(f"K7c {name}: cap 1 did not overflow")
+        cases[f"{name} refetch"] = {"cap": 1, "n_changed": n_changed}
+        fr.delta_cap = cap0
+        del prev, rows
+    log(f"check K7c: every buffer equals the plain version's "
+        f"(max_abs_err {err}): " + json.dumps(cases))
+    return err, cases
+
+
+def k7c_alone(dev) -> None:
+    """``--k7c``: K7c alone after the build, against its plain version
+    buffer for buffer on row tables made from the seed: 100000 rows of 4
+    and of 13 words, 1000 rows and 1 row, with no row, 0.6%, half and
+    every row changed, each at a cap of 1, of 8192 and of every row; then
+    both timed by graph replay at 100000 x 4 with 0.6% changed."""
+    from ceph_tpu_torch.ops import crush_fast as cf
+    g = torch.Generator().manual_seed(SEED)
+    n_flagged = torch.tensor([7], dtype=torch.int32, device=dev)
+    cases = 0
+    for X, W in ((100000, 4), (100000, 13), (1000, 4), (1, 2)):
+        prev = torch.randint(0, 1 << 20, (X, W), generator=g,
+                             dtype=torch.int32)
+        for frac in (0.0, 0.006, 0.5, 1.0):
+            rows = prev.clone()
+            n = int(round(X * frac))
+            pick = torch.randperm(X, generator=g)[:n]
+            rows[pick, torch.randint(0, W, (n,), generator=g)] += 1
+            a, b = rows.to(dev), prev.to(dev)
+            for cap in sorted({1, min(8192, X), X}):
+                got = cf.crush_delta(a, b, cap, n_flagged)
+                want = cf.crush_delta_plain(a, b, cap, n_flagged)
+                if got.shape != want.shape or not torch.equal(got, want):
+                    raise AssertionError(f"K7c X={X} W={W} changed {n} "
+                                         f"cap {cap}: != plain")
+                cases += 1
+    X, W, cap = 100000, 4, 8192
+    prev = torch.randint(0, 1 << 20, (X, W), generator=g,
+                         dtype=torch.int32)
+    rows = prev.clone()
+    rows[torch.randperm(X, generator=g)[:600], 0] += 1
+    a, b = rows.to(dev), prev.to(dev)
+    ms, plain_ms = graph_turns_ms([
+        lambda: cf.crush_delta(a, b, cap, n_flagged),
+        lambda: cf.crush_delta_plain(a, b, cap, n_flagged)])
+    nbytes = 2 * X * W * 4 + (2 + cap * (W + 1)) * 4
+    log("k7c " + json.dumps({
+        "cases_equal": cases, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "x": X, "w": W,
+        "cap": cap, "changed": 600}))
+
+
 def crush_slice(dev, sass, sm_count) -> dict:
     """Phases 3h, 3c, 4c and 5c of the CRUSH slice on ``dev``; returns what
     they measured ("launches", "max_abs_err", "times", "hash_probe",
@@ -2136,11 +2262,13 @@ def crush_slice(dev, sass, sm_count) -> dict:
     # -- 4c. the CRUSH main path: crushtool-style epochs, then OSDMap ---------
     crush_fast.descend_launches.reset()
     crush_fast.resolve_launches.reset()
+    crush_fast.delta_launches.reset()
     crush_kernels.rule_launches.reset()
     drive, jobs, drive_rules = crush_drive(configs, dev)
     osd_drive, osd_jobs, osd_lanes = osdmap_drive(*maps["u"], dev)
     crush_launches = {"crush_descend": crush_fast.descend_launches.n,
                       "crush_resolve": crush_fast.resolve_launches.n,
+                      "crush_delta": crush_fast.delta_launches.n,
                       "crush_rule": crush_kernels.rule_launches.n}
     log(f"main crush: launches {crush_launches}")
     if 0 in crush_launches.values():
@@ -2157,6 +2285,8 @@ def crush_slice(dev, sass, sm_count) -> dict:
             raise AssertionError(f"{name}: epoch 10 != plain version")
     log(f"main crush: epoch 10 of {sorted(drive_rules)} equals the "
         f"plain versions on all {CRUSH_X} x")
+    crush_err["crush_delta"], k7c_cases = k7c_checks(drive_rules,
+                                                     plain_rules, dev)
     del plain_rules
     # the OSDMap drive's own lanes (hashed pps, many at or above 2^31):
     # its cached candidates and the last epoch's packed rows against the
@@ -2192,7 +2322,8 @@ def crush_slice(dev, sass, sm_count) -> dict:
         f"({time.perf_counter() - t_check:.1f} s in {CHECK_PROCS} workers)")
     crush = {"launches": crush_launches, "drive": drive,
              "osdmap": osd_drive, "checked_rows": n_rows,
-             "max_abs_err": crush_err, "straw2_host_us": straw2_host_times()}
+             "max_abs_err": crush_err, "k7c_cases": k7c_cases,
+             "straw2_host_us": straw2_host_times()}
     crush["tester"] = tester_phase(*maps["u"], dev)
 
     # -- 5c. CRUSH kernel times -------------------------------------------------
@@ -5153,6 +5284,9 @@ VSTART_OSDS = 12                  # one per host, crush-failure-domain=host
 VSTART_PG_NUM = 32
 VSTART_OBJ = 32                   # objects of OBJ_BYTES written in (a)
 VSTART_LATE = 8                   # objects written while two OSDs are down
+VSTART_MONS = 3                   # (d) SIGKILLs the leader, rank 0
+VSTART_MON_GRACE = 8.0            # the JAX multi-mon case's mon_grace
+VSTART_FAILOVER_OBJ = 8           # objects written under the new quorum
 VSTART_COUNT_EVERY_S = 0.5        # the OSD launcher's count-file period
 VSTART_ATTEMPT_S = 10.0           # an op's reply wait before a map refresh
 VSTART_SETTLE_S = 10.0            # recovery pushes still this long: done
@@ -5282,6 +5416,8 @@ class WireOps:
         self.c, self.cl, self.msgs = cluster, cl, messages
         self.pool_id = cl.lookup_pool(pool)
         self.lat = {}
+        # kind -> (s, oid, its last attempts) of the slowest op so far
+        self.slowest = {}
 
     def refresh(self):
         self.cl.mon.send_full_map(self.cl.name)
@@ -5314,6 +5450,8 @@ class WireOps:
             if reply is not None and reply.result != -11:
                 dt = time.perf_counter() - t0
                 self.lat.setdefault(kind, []).append(dt)
+                if dt > self.slowest.get(kind, (0.0,))[0]:
+                    self.slowest[kind] = (dt, oid, seen[-12:])
                 if reply.result != 0:
                     raise AssertionError(f"4v: {kind} {oid} answered "
                                          f"{reply.result}")
@@ -5324,9 +5462,13 @@ class WireOps:
                              f"result) {seen[-12:]}")
 
     def stats(self, kind: str, n_bytes: int) -> dict:
+        """The ops of ``kind`` since the last call: count, wall, GiB/s,
+        p50, p99, and the slowest op's attempts as (primary, epoch,
+        result) (None: no reply within ``VSTART_ATTEMPT_S``)."""
         lat = sorted(self.lat.pop(kind, []))
         wall = sum(lat)
-        return {"ops": len(lat), "wall_s": wall,
+        slowest = self.slowest.pop(kind, None)
+        return {"ops": len(lat), "wall_s": wall, "slowest": slowest,
                 "GiBps": n_bytes / wall / 2**30 if wall else None,
                 "p50_s": lat[len(lat) // 2] if lat else None,
                 "p99_s": lat[min(len(lat) - 1, int(len(lat) * 0.99))]
@@ -5336,13 +5478,14 @@ class WireOps:
 def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
                  obj_bytes: int = OBJ_BYTES, n_obj: int = VSTART_OBJ,
                  n_late: int = VSTART_LATE,
+                 n_failover: int = VSTART_FAILOVER_OBJ,
                  pg_num: int = VSTART_PG_NUM, proof: bool = True) -> dict:
-    """4v: the port's process cluster (``ceph_tpu_torch.vstart``), one mon
-    process and ``n_osds`` OSD processes over the TCP messenger with cephx
-    on, each OSD on its own ``WALStore`` in a temporary ``data_root``, an
-    isa k=8 m=4 pool of ``pg_num`` PGs (``crush-failure-domain=host``;
-    the codec on the card, ``backend`` by default) and a client in this
-    process:
+    """4v: the port's process cluster (``ceph_tpu_torch.vstart``), three
+    mon processes (``mon_grace`` 8 s) and ``n_osds`` OSD processes over
+    the TCP messenger with cephx on, each OSD on its own ``WALStore`` in a
+    temporary ``data_root``, an isa k=8 m=4 pool of ``pg_num`` PGs
+    (``crush-failure-domain=host``; the codec on the card, ``backend`` by
+    default) and a client in this process bound to the peon ``mon.1``:
 
     (a) ``n_obj`` objects of ``obj_bytes`` made from the seed written,
         then read back;
@@ -5351,10 +5494,22 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
         degraded, then ``n_late`` more objects written with the two down;
     (c) one of them restarted on its data directory, then the other, then
         ``wait_healthy``; once recovery's pushes stop moving, every object
-        read; then, with ``proof``, ``m`` other OSDs SIGKILLed, so that
-        each late object's read needs the restarted disks' recovered
-        shards, and the late objects read again (the whole smoke leaves
-        this proof to ``--vstart``, for its time limit).
+        read;
+    (d) three self-managed snapshot ids allocated through the peon; a
+        relayed ``selfmanaged_snap_create`` sent and the leader ``mon.0``
+        SIGKILLed at once; ``quorum_status`` polled until rank 1 leads a
+        quorum of two without rank 0; a snapshot id strictly above every
+        one from before the kill; ``n_failover`` objects of ``obj_bytes``
+        written (K1's sum in the OSD processes must move by at least
+        ``n_failover``); every object of (a)-(d) read back; a second
+        client bound to ``mon.2`` reaches the first one's epoch and
+        snapshot sequence.  The election's seconds (kill to the first
+        ``quorum_status`` that shows it, polled every 0.5 s) and the leg's
+        wall are logged;
+    then, with ``proof``, ``m`` OSDs other than (b)'s SIGKILLed, so that
+    each late object's read needs the restarted disks' recovered shards,
+    and the late objects read again (the whole smoke leaves this proof to
+    ``--vstart``, for its time limit).
 
     Every op answers 0 within ``OSD_PATH_DEADLINE_S`` and every read is
     byte-exact.  Each OSD process opens the card and loads K1 before it
@@ -5383,9 +5538,14 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
     late = {f"late{i}": rng.integers(0, 256, obj_bytes,
                                      dtype=np.uint8).tobytes()
             for i in range(n_late)}
+    after = {f"failover{i}": rng.integers(0, 256, obj_bytes,
+                                          dtype=np.uint8).tobytes()
+             for i in range(n_failover)}
     out = {"legs": {}, "config": {
-        "osds": n_osds, "pg_num": pg_num, "profile": profile,
-        "objects": n_obj, "late_objects": n_late, "object_bytes": obj_bytes,
+        "osds": n_osds, "mons": VSTART_MONS, "mon_grace": VSTART_MON_GRACE,
+        "pg_num": pg_num, "profile": profile,
+        "objects": n_obj, "late_objects": n_late,
+        "failover_objects": n_failover, "object_bytes": obj_bytes,
         "auth": True, "device": dev.type}}
     t_slice = time.perf_counter()
 
@@ -5430,6 +5590,40 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
                     raise
                 c.pump_for(0.2)
 
+    def snap_create(timeout=120.0):
+        """A self-managed snapshot id through the client's mon, retried
+        across an election window."""
+        end = time.monotonic() + timeout
+        while True:
+            try:
+                return cl.selfmanaged_snap_create("ec")
+            except (IOError, ValueError) as e:
+                if time.monotonic() > end:
+                    raise AssertionError(f"4v (d): snapshot create never "
+                                         f"answered: {e!r}")
+                c.pump_for(0.5)
+
+    def new_leader(dead_rank, timeout=150.0):
+        """``quorum_status`` polled until a decided election seats a
+        leader other than ``dead_rank`` with a quorum of two or more
+        without it."""
+        end = time.monotonic() + timeout
+        last = None
+        while time.monotonic() < end:
+            try:
+                last = cl.mon_command("quorum_status")
+            except (IOError, ValueError) as e:
+                last = e
+                c.pump_for(0.5)
+                continue
+            if (last["leader_rank"] >= 0 and last["leader_rank"] != dead_rank
+                    and last["election_epoch"] % 2 == 0
+                    and dead_rank not in last["quorum"]
+                    and len(last["quorum"]) >= 2):
+                return last
+            c.pump_for(0.5)
+        raise AssertionError(f"4v (d): no leader after the kill: {last!r}")
+
     def recovery_pushes():
         total = 0
         for i in range(n_osds):
@@ -5458,14 +5652,19 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
         # not heard from yet) sooner than Ceph's 6 s
         heartbeat_interval=2.0, heartbeat_grace=20.0,
         down_out_interval=3600.0,       # the downed disks come back
+        n_mons=VSTART_MONS, mon_grace=VSTART_MON_GRACE,
+        client_names=("client.x", "client.y"),
         device="cuda" if on_card else "cpu")
     try:
-        cl = c.client()
+        # bound to a peon, as the JAX multi-mon case's client: its
+        # commands cross the relay, and its map feed outlives the leader
+        cl = c.client("client.x", mon_name="mon.1")
         c.wait_healthy(cl, timeout=120.0)
         ops = WireOps(c, cl, "ec")
         # the first op waits out the PGs' first peering: part of the boot
         ops.op("write", "warmup", b"warmup")
         ops.lat.clear()
+        ops.slowest.clear()
         out["boot_s"] = time.perf_counter() - t0
         k1_total, recs = k1_sum()
         first = {f"osd.{r_['osd']}": r_ for r_ in recs}
@@ -5572,6 +5771,75 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
             if ops.op("read", oid).data != body:
                 raise AssertionError(f"4v (c): read of {oid} differs")
         r = ops.stats("read", (n_obj + n_late) * obj_bytes)
+        n1, _ = k1_sum()
+        need(n1 - n0 > 0, f"(c) recovery launched K1 {n1 - n0} times")
+        leg("c_restart_recover", first_up_s=first_up_s,
+            healthy_s=healthy_s, recovered_s=recovered_s,
+            recovery_pushes=pushes, read=r, k1=n1 - n0)
+        k1_leg["c"] = n1 - n0
+
+        # -- (d) the leader mon SIGKILLed mid-command: an election, then
+        # snapshot ids, writes and reads under the new quorum ----------------
+        from ceph_tpu_torch.msg.messages import MMonCommand
+        t_d = time.perf_counter()
+        n0, _ = k1_sum()
+        pre_ids = [snap_create() for _ in range(3)]
+        if pre_ids != sorted(pre_ids) or len(set(pre_ids)) != 3:
+            raise AssertionError(f"4v (d): snapshot ids {pre_ids}")
+        c.network.send(cl.name, "mon.1", MMonCommand(
+            tid=990001, cmd="selfmanaged_snap_create",
+            args={"pool_name": "ec"}))
+        c.kill_mon(0)
+        t_kill = time.perf_counter()
+        st = new_leader(dead_rank=0)
+        election_s = time.perf_counter() - t_kill
+        if st["leader_rank"] != 1:
+            raise AssertionError(f"4v (d): rank {st['leader_rank']} leads, "
+                                 "not rank 1")
+        post_id = snap_create(timeout=150.0)
+        if post_id <= max(pre_ids):
+            raise AssertionError(f"4v (d): snapshot id {post_id} after the "
+                                 f"kill, not above {pre_ids}")
+        for oid, body in after.items():
+            ops.op("write", oid, body)
+        w = ops.stats("write", n_failover * obj_bytes)
+        n1, _ = k1_sum()
+        need(n1 - n0 >= n_failover, f"(d) the OSD processes launched K1 "
+                                    f"{n1 - n0} times in {n_failover} "
+                                    "writes")
+        for oid, body in {**objs, **late, **after}.items():
+            if ops.op("read", oid).data != body:
+                raise AssertionError(f"4v (d): read of {oid} differs")
+        r = ops.stats("read", (n_obj + n_late + n_failover) * obj_bytes)
+        cl2 = c.client("client.y", mon_name="mon.2")
+        end = time.monotonic() + 90.0
+        while True:
+            for x in (cl, cl2):
+                x.mon.send_full_map(x.name)
+            c.pump_for(0.3)
+            p1 = cl.osdmap.pools.get(cl.osdmap.lookup_pg_pool_name("ec"))
+            p2 = cl2.osdmap.pools.get(cl2.osdmap.lookup_pg_pool_name("ec"))
+            if (p1 is not None and p2 is not None
+                    and cl.osdmap.epoch == cl2.osdmap.epoch
+                    and p1.snap_seq == p2.snap_seq >= post_id):
+                break
+            if time.monotonic() > end:
+                raise AssertionError(
+                    f"4v (d): the survivors' clients diverge: epochs "
+                    f"{cl.osdmap.epoch}/{cl2.osdmap.epoch}, snap_seq "
+                    f"{getattr(p1, 'snap_seq', None)}/"
+                    f"{getattr(p2, 'snap_seq', None)}, want >= {post_id}")
+        n2, _ = k1_sum()
+        wall_d = time.perf_counter() - t_d
+        leg("d_mon_failover", pre_kill_snap_ids=pre_ids,
+            post_kill_snap_id=post_id, quorum=st, election_s=election_s,
+            write=w, k1_writes=n1 - n0, read=r, k1_reads=n2 - n1,
+            epoch=cl.osdmap.epoch, snap_seq=p1.snap_seq, wall_s=wall_d)
+        k1_leg["d"] = n2 - n0
+        log(f"4v (d): rank 1 leads {election_s:.3f} s after mon.0's "
+            f"SIGKILL; the leg took {wall_d:.3f} s")
+
+        n0, _ = k1_sum()
         others, proof_read = [], None
         if proof:
             # the proof: with m other OSDs gone, every late object's read
@@ -5587,13 +5855,12 @@ def vstart_slice(dev, n_osds: int = VSTART_OSDS, k: int = K, m: int = M,
                     raise AssertionError(f"4v (c): {oid} read through the "
                                          "restarted disks differs")
             proof_read = ops.stats("read", n_late * obj_bytes)
-        n1, _ = k1_sum()
-        need(n1 - n0 > 0, f"(c) recovery launched K1 {n1 - n0} times")
-        leg("c_restart_recover", first_up_s=first_up_s,
-            healthy_s=healthy_s, recovered_s=recovered_s,
-            recovery_pushes=pushes, read=r, killed_for_proof=others,
-            proof_read=proof_read, k1=n1 - n0)
-        k1_leg["c"] = n1 - n0
+            n1, _ = k1_sum()
+            need(n1 - n0 > 0, f"(c) the proof's reads launched K1 "
+                              f"{n1 - n0} times")
+            leg("c_proof", killed_for_proof=others, proof_read=proof_read,
+                k1=n1 - n0)
+            k1_leg["c"] += n1 - n0
     finally:
         c.close()
         shutil.rmtree(data_root, ignore_errors=True)
@@ -6058,6 +6325,21 @@ def k1_legs(phase: str, dev, out: dict, total: dict):
     return counted
 
 
+def shard_pair(shard_sets, replica_sets) -> list:
+    """Two OSDs holding data shards of one object, from the first of
+    ``shard_sets`` (each an object's data-shard OSDs, the leg's first
+    object first) that has such a pair, whose loss leaves every PG in
+    ``replica_sets`` (a replicated pool's acting sets) two of its three
+    copies.  An image's or bucket's id is random, so the first object's
+    PG can have no such pair."""
+    for data in shard_sets:
+        for i, a in enumerate(data):
+            for b in data[i + 1:]:
+                if not any({a, b} <= set(held) for held in replica_sets):
+                    return [a, b]
+    raise AssertionError("no two data-shard OSDs spare the replicated pool")
+
+
 def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
               pg_num: int = OSD_PATH_PG_NUM,
               rep_pg_num: int = RBD_REP_PG_NUM,
@@ -6240,7 +6522,8 @@ def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
     out["shard_check_s"] = time.perf_counter() - t0
 
     # -- (d) two OSDs down: degraded exports -----------------------------------
-    # two OSDs that hold data shards of the first object, picked so that
+    # two OSDs that hold data shards of one object (the first that has
+    # such a pair, ``shard_pair``), picked so that
     # every object of the replicated pool (headers, the directory, the
     # journal) keeps two of its three copies, its min_size: the journal
     # stays writable for (e)'s mirror, as the reference requires of a
@@ -6251,9 +6534,8 @@ def rbd_slice(dev, order: int = RBD_ORDER, n_obj: int = RBD_OBJECTS,
         for cid in osd.store.list_collections()
         if cid.startswith(f"{rep_pid}.") and not cid.endswith("_meta")
         for ho in osd.store.list_objects(cid)})]
-    data = acting_of(c, cl, "ecdata", img._obj(0))[1:K]
-    victims = next([a, b] for i, a in enumerate(data) for b in data[i + 1:]
-                   if not any({a, b} <= held for held in rep_sets))
+    victims = shard_pair((acting_of(c, cl, "ecdata", img._obj(i))[1:K]
+                          for i in range(n_obj)), rep_sets)
     lost = {i for i in range(n_obj)
             if set(acting_of(c, cl, "ecdata", img._obj(i))[:K])
             & set(victims)}
@@ -6563,9 +6845,8 @@ def cephfs_slice(dev, big_files: int = CEPHFS_BIG_FILES,
 
     namespace = fs_names(fs_walk(fb))
     objects = [file_oid(namespace[p][1], 0) for p in sorted(model)]
-    data = data_acting(file_oid(namespace[big[0]][1], 0))[1:K]
-    victims = next([a, b] for i, a in enumerate(data) for b in data[i + 1:]
-                   if not any({a, b} <= set(held) for held in meta_sets))
+    victims = shard_pair((data_acting(file_oid(namespace[p][1], 0))[1:K]
+                          for p in big), meta_sets)
     lost = sum(1 for oid in objects
                if set(data_acting(oid)[:K]) & set(victims))
     if not lost:
@@ -6924,10 +7205,8 @@ def rgw_slice(dev, big_objects: int = RGW_BIG_OBJECTS,
 
         chunks = sorted(live_chunks())
         first = f"{g.get_bucket('big')['id']}_o_{bigs[0]}"
-        data = data_acting(first)[1:K]
-        victims = next([a, b] for i, a in enumerate(data)
-                       for b in data[i + 1:]
-                       if not any({a, b} <= set(held) for held in meta_sets))
+        victims = shard_pair((data_acting(oid)[1:K]
+                              for oid in [first, *chunks]), meta_sets)
         lost = sum(1 for oid in chunks
                    if set(data_acting(oid)[:K]) & set(victims))
         if not lost:
@@ -7339,6 +7618,7 @@ def main() -> int:
                         ("--osd-path", osd_path_alone),
                         ("--cluster", cluster_alone),
                         ("--vstart", vstart_alone),
+                        ("--k7c", k7c_alone),
                         ("--mesh", mesh_alone),
                         ("--rbd", rbd_alone),
                         ("--cephfs", cephfs_alone),
@@ -7347,7 +7627,7 @@ def main() -> int:
         if flag not in sys.argv:
             continue
         if flag in ("--k7a-forms", "--dispatch-scan", "--osd-path",
-                    "--cluster", "--vstart", "--mesh", "--rbd",
+                    "--cluster", "--vstart", "--k7c", "--mesh", "--rbd",
                     "--cephfs", "--rgw", "--rados-features"):
             turns(dev)
         else:
@@ -7841,6 +8121,21 @@ def main() -> int:
                                          for n, t in ct.items()},
         "host_launch_ms_by_config": {n: t["k7b_host_launch_ms"]
                                      for n, t in ct.items()}}, {
+        "name": "crush_delta", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_fast.cu",
+        "replaces": "ceph_tpu/ops/crush_fast.py:931",
+        "launches": crush_launches["crush_delta"],
+        "max_abs_err": crush_err["crush_delta"],
+        "ms": k7["k7c_ms"], "plain_ms": k7["k7c_plain_ms"],
+        "bound_ms": k7["k7c_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "changed_rows": k7["k7c_changed_rows"],
+        "cap": k7["k7c_cap"],
+        "ms_by_config": {n: t["k7c_ms"] for n, t in ct.items()},
+        "plain_ms_by_config": {n: t["k7c_plain_ms"] for n, t in ct.items()},
+        "bound_ms_by_config": {n: t["k7c_bound_ms"] for n, t in ct.items()},
+        "changed_rows_by_config": {n: t["k7c_changed_rows"]
+                                   for n, t in ct.items()},
+        "checks": crush["k7c_cases"]}, {
         "name": "crush_rule", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_fast.cu",
         "replaces": "ceph_tpu/ops/crush_kernels.py:436",

@@ -27,3 +27,24 @@ def test_incident_case_equal(mod, name, vid, params, tmp_path, capsys):
 
 def test_incident_cases_all_twinned():
     assert len(CASES) == 10
+
+
+def test_twins_leave_the_jax_mesh_counters_as_found():
+    """The mesh counter loggers are process-global.  A twin's JAX side
+    runs JAX code, and a degraded-read fallback it counted stayed in the
+    worker, where ``test_counter_coverage.py``'s canary (``mesh_decode``
+    ``fallbacks == 0``) then failed, in the JAX file and in its twin
+    here alike, whenever ``test_torch_mesh_decode.py`` had run earlier
+    in the same worker.  Each twin now runs against zeroed counters on
+    both packages and leaves them as it found them."""
+    from ceph_tpu.mesh import mesh_decode_perf_counters as jax_mdec
+    from ceph_tpu.mesh.runtime import l_mdec_fallbacks as jax_fb
+    from ceph_tpu_torch.mesh import mesh_decode_perf_counters as mdec
+    from ceph_tpu_torch.mesh.runtime import l_mdec_fallbacks as fb
+    from torch_daemon_twin import fresh_mesh_counters
+    before = jax_mdec().get(jax_fb), mdec().get(fb)
+    with fresh_mesh_counters():
+        assert (jax_mdec().get(jax_fb), mdec().get(fb)) == (0, 0)
+        jax_mdec().inc(jax_fb)
+        mdec().inc(fb)
+    assert (jax_mdec().get(jax_fb), mdec().get(fb)) == before

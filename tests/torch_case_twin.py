@@ -29,6 +29,13 @@ CUDA_CODEC = "The autotune and the storylines run `ErasureCodeCuda` (PR 20)."
 SILENT_SITE = "The `device_error` leg's site is silent in the port (PR 20)."
 CPU_BY_NAME = "The case twins ask for the CPU by name (PR 24)."
 NO_GUARD = "The fault package has no guard and no breaker (PR 13)."
+MESH_MEMBERS = "The mesh is one process with explicit members."
+ANALYZER = "The analyzer names the port's device calls."
+TORCH_VALUES = "A case's jax values are torch tensors on the port."
+FENCE_TENSORS = "The bench fence drains tensors."
+TORCH_SYNCS = "The zero-sync gate counts torch's syncs."
+NVCC_COMPILES = "A compile is an nvcc run."
+EXACT_DRAWS = "The port's CRUSH draws are always exact."
 
 _CUDA_IMPORT = (
     "from ceph_tpu.ec.tpu_plugin import ErasureCodeTpu",
@@ -88,6 +95,129 @@ BY_DESIGN = {
         ('mapping.last_backend[pid] == "device"',
          'mapping.last_backend[pid] == "cpu"', CPU_BY_NAME),
     ],
+    "test_lrc": [
+        ('backend_name == "tpu" for l in dev.layers',
+         'backend_name == "host" for l in dev.layers', CPU_BY_NAME),
+    ],
+    "test_bench_harness": [
+        ("    import jax\n"
+         "    import jax.numpy as jnp\n\n"
+         "    f = jax.jit(lambda x, s: x * s)\n"
+         "    x = jnp.arange(1024, dtype=jnp.int32)\n"
+         "    timing = fence.fenced_time(lambda i: f(x, jnp.int32(i + 1)), 4)\n",
+         "    import torch\n\n"
+         "    def f(x, s):\n"
+         "        return x * s\n"
+         "    x = torch.arange(1024, dtype=torch.int32)\n"
+         "    timing = fence.fenced_time(lambda i: f(x, i + 1), 4,\n"
+         "                               rtt_s=fence.measure_rtt(device=\"cpu\"))\n",
+         TORCH_VALUES),
+        ("    rtt = fence.measure_rtt(lambda: np.ones(8, dtype=np.int32), "
+         "repeats=3)\n",
+         "    import torch\n"
+         "    rtt = fence.measure_rtt(lambda: torch.ones(8, dtype=torch.int32), "
+         "repeats=3)\n", FENCE_TENSORS),
+        ('    assert mmesh["n_devices"] == 8\n',
+         '    assert mmesh["n_devices"] == 1\n', MESH_MEMBERS),
+        ("workloads.measure_encode(matrix, batch, target_seconds=0.2,\n"
+         "                                     repeats=2, warmup=1)",
+         "workloads.measure_encode(matrix, batch, target_seconds=0.2,\n"
+         "                                     repeats=2, warmup=1, "
+         "device=\"cpu\")", CPU_BY_NAME),
+        ("workloads.measure_decode(matrix, batch, target_seconds=0.2,\n"
+         "                                      repeats=2, warmup=1)",
+         "workloads.measure_decode(matrix, batch, target_seconds=0.2,\n"
+         "                                      repeats=2, warmup=1, "
+         "device=\"cpu\")", CPU_BY_NAME),
+        ("workloads.parity_check(matrix) is True",
+         "workloads.parity_check(matrix, device=\"cpu\") is True",
+         CPU_BY_NAME),
+        ("        n_requests=4, object_bytes=16384, target_seconds=0.1,\n"
+         "        repeats=2, warmup=1)",
+         "        n_requests=4, object_bytes=16384, target_seconds=0.1,\n"
+         "        repeats=2, warmup=1, device=\"cpu\")", CPU_BY_NAME),
+    ],
+    "test_observability": [
+        ("    import jax\n", "    import torch\n", TORCH_SYNCS),
+        ("    real = jax.block_until_ready\n\n"
+         "    def counting(x):\n"
+         "        calls[\"n\"] += 1\n"
+         "        return real(x)\n\n"
+         "    monkeypatch.setattr(jax, \"block_until_ready\", counting)\n",
+         "    real = torch.cuda.synchronize\n\n"
+         "    def counting(*a, **kw):\n"
+         "        calls[\"n\"] += 1\n"
+         "        return real(*a, **kw)\n\n"
+         "    monkeypatch.setattr(torch.cuda, \"synchronize\", counting)\n"
+         "    for cls in (torch.cuda.Event, torch.cuda.Stream):\n"
+         "        monkeypatch.setattr(cls, \"synchronize\", counting)\n"
+         "    from ceph_tpu.bench import fence\n"
+         "    monkeypatch.setattr(fence, \"drain\", counting)\n",
+         TORCH_SYNCS),
+        ("    from ceph_tpu.fault import fault_perf_counters, g_breakers, "
+         "g_faults\n",
+         "    from ceph_tpu.fault import fault_perf_counters, g_faults\n",
+         NO_BREAKERS),
+        ("    assert g_breakers.degraded() == []\n", "", NO_BREAKERS),
+        ("    r = run_seed(24)\n", "    r = run_seed(24, device=\"cpu\")\n",
+         CPU_BY_NAME),
+    ],
+    "test_parallel": [
+        ("import jax.numpy as jnp\n", "import jax.numpy as jnp\nimport torch\n",
+         TORCH_VALUES),
+        ("    out = sharded.reshard_stripes_to_chunks(jnp.asarray(allc))\n"
+         "    assert np.array_equal(np.asarray(out), allc)\n",
+         "    out = sharded.reshard_stripes_to_chunks(torch.from_numpy(allc))\n"
+         "    assert np.array_equal(out.numpy(), allc)\n", TORCH_VALUES),
+        ("    want = NamedSharding(sharded.mesh, P(None, STRIPE_AXIS, None))\n"
+         "    assert out.sharding.is_equivalent_to(want, ndim=3)\n",
+         "    assert out.spec == (None, STRIPE_AXIS, None)\n", TORCH_VALUES),
+        ("            jnp.zeros((8, 5, 64), jnp.uint8))",
+         "            torch.zeros((8, 5, 64), dtype=torch.uint8))",
+         TORCH_VALUES),
+        ("    with mesh:\n"
+         "        chunks, digests = jax.jit(pipeline_step)(*args)\n"
+         "    chunks = np.asarray(chunks)\n"
+         "    data = np.asarray(args[0])\n",
+         "    chunks, digests = pipeline_step(*args, mesh=mesh)\n"
+         "    chunks = chunks.numpy()\n"
+         "    data = args[0].numpy()\n", TORCH_VALUES),
+        ("    assert len(packed.sharding.device_set) == 8\n",
+         "    assert len(packed.addressable_shards) == 8\n", MESH_MEMBERS),
+        ("    assert sf.fr._exact64        # non-uniform weights: "
+         "exact64 is on\n", "", EXACT_DRAWS),
+        ("    out = sharded.encode_device(jnp.asarray(data))\n",
+         "    out = sharded.encode_device(torch.from_numpy(data))\n",
+         TORCH_VALUES),
+        ("    assert np.asarray(out).tobytes() == \\\n",
+         "    assert out.numpy().tobytes() == \\\n", TORCH_VALUES),
+        ("    mesh = make_mesh(8)\n"
+         "    single = validate_reading(",
+         "    from ceph_tpu.mesh.topology import Member\n"
+         "    mesh = make_mesh(devices=[Member(i, torch.device(\"cpu\", i), 0)\n"
+         "                              for i in range(8)])\n"
+         "    single = validate_reading(", MESH_MEMBERS),
+    ],
+    "test_static_analysis": [
+        (r"import jax\n", r"import torch\n", ANALYZER),
+        ("jax.block_until_ready(x)", "torch.cuda.synchronize(x)", ANALYZER),
+        ("x.block_until_ready()", "x.synchronize()", ANALYZER),
+        ("jax.device_get(x)", "x.cpu()", ANALYZER),
+        ("    return np.asarray(dev)", "    return dev.numpy()", ANALYZER),
+        ("jax.jit", "torch.compile", ANALYZER),
+        (r'"from numpy import asarray\n"', r'"from torch.cuda import synchronize\n"',
+         ANALYZER),
+        (r'"    return asarray(d)\n"', r'"    return synchronize(d)\n"',
+         ANALYZER),
+    ],
+    "test_chaos": [
+        ("from ceph_tpu.fault import fault_perf_counters, g_breakers, "
+         "g_faults\n",
+         "from ceph_tpu.fault import fault_perf_counters, g_faults\n",
+         NO_BREAKERS),
+        ("    g_breakers.reset()\n    for name in", "    for name in",
+         NO_BREAKERS),
+    ],
     "test_fault": [
         ("from ceph_tpu.ec.tpu_plugin import ErasureCodeTpu\n", "",
          NO_GUARD),
@@ -115,6 +245,15 @@ NOT_RUN = {
         "test_jerasure_family_guard_parity",
         "test_degraded_health_warning_and_prometheus",
         "test_retry_and_trip_span_events")}
+NOT_RUN.update({
+    ("test_regenerating", "test_breaker_open_falls_back_byte_identical"):
+        NO_BREAKERS,
+    ("test_bench_harness", "test_fenced_timer_waits_for_materialization"):
+        FENCE_TENSORS,
+    ("test_bench_harness", "test_drain_touches_host_bytes"): FENCE_TENSORS,
+    ("test_devprof", "test_compile_detection_attributes_to_stage"):
+        NVCC_COMPILES,
+})
 
 
 # Cases whose stores follow the wall clock: open-loop traffic under a

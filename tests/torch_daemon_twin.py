@@ -8,6 +8,7 @@ seeds and sizes.  The JAX side runs ``plugin=tpu`` on its CPU platform;
 the port side ``plugin=cuda, backend=host`` (the kernels' plain PyTorch
 versions on CPU tensors).
 """
+import contextlib
 import gc
 import struct
 
@@ -65,13 +66,49 @@ def reset_both(collect: bool = True) -> None:
     jax_breakers.reset()
 
 
+MESH_LOGGERS = ("mesh_perf_counters", "mesh_decode_perf_counters",
+                "rateless_perf_counters", "membership_perf_counters",
+                "mesh_chip_perf_counters")
+
+
+@contextlib.contextmanager
+def fresh_mesh_counters():
+    """Both packages' mesh counter loggers (process-global, never reset by
+    a cluster) at zero for the body, as a fresh process has them, and
+    back to their values afterwards.  A twin's JAX side runs JAX code: a
+    degraded-read fallback it counts would otherwise stay in the worker,
+    where a later JAX case (``test_counter_coverage.py``'s canary:
+    ``mesh_decode`` ``fallbacks == 0``) reads it."""
+    from importlib import import_module
+    saved = []
+    for pkg in ("ceph_tpu", "ceph_tpu_torch"):
+        mesh = import_module(pkg + ".mesh")
+        for name in MESH_LOGGERS:
+            pc = getattr(mesh, name)()
+            saved.append((pc, {i: (c.value, c.sum, c.count)
+                               for i, c in pc._by_idx.items()}))
+    try:
+        for pc, _ in saved:
+            for c in pc._by_idx.values():
+                c.value, c.sum, c.count = 0, 0.0, 0
+        yield
+    finally:
+        for pc, values in saved:
+            for i, (v, sm, n) in values.items():
+                c = pc._by_idx[i]
+                c.value, c.sum, c.count = v, sm, n
+
+
 @pytest.fixture
 def clean():
     """Reset before and after each test: a file that ran earlier in the
-    same worker may have left options set or faults armed."""
+    same worker may have left options set or faults armed; the mesh
+    counters start at zero and are left as they were found
+    (``fresh_mesh_counters``)."""
     reset_both()
-    yield
-    reset_both()
+    with fresh_mesh_counters():
+        yield
+        reset_both()
 
 
 @pytest.fixture

@@ -32,6 +32,8 @@ variant from ``case_variants``) once on each package with:
   ``create_erasure_code`` and profile tables run as they do in JAX;
 - the port's mesh given ``MESH_MEMBERS`` members on the CPU, as many
   as JAX's virtual devices (``tests/conftest.py``);
+- both packages' mesh counters at zero, as in a fresh process, and
+  restored afterwards (``fresh_mesh_counters``);
 - every ``MiniCluster`` the case builds recorded, so that afterwards
   each cluster's stores (bodies, xattrs, omaps of every object on every
   OSD) can be compared with its twin's.
@@ -50,8 +52,9 @@ import uuid
 
 import pytest
 from _pytest.fixtures import FixtureFunctionDefinition
+from _pytest.mark.structures import ParameterSet
 
-from torch_daemon_twin import reset_both, store_state
+from torch_daemon_twin import fresh_mesh_counters, reset_both, store_state
 
 JAX, PORT = "ceph_tpu", "ceph_tpu_torch"
 UUID_SEED = 20260807
@@ -242,7 +245,7 @@ def case_variants(mod, name):
         ids = mark.kwargs.get("ids")
         rows = []
         for i, v in enumerate(values):
-            v = v.values if hasattr(v, "values") else (
+            v = v.values if isinstance(v, ParameterSet) else (
                 (v,) if len(names) == 1 else tuple(v))
             rid = ids[i] if ids else "-".join(
                 str(x) if isinstance(x, (str, int, float, bool)) or
@@ -259,9 +262,10 @@ def run_one(mod, name, pkg, tmp_path, capsys, rgw_start=None,
     the parametrised values ``params``; the gateway's and the case's
     clock starts at ``rgw_start`` (default: now).  ``torch_threads``
     sets torch's intra-op threads for the port's run, as each daemon of
-    the process cluster sets them (``vstart._daemon_start``): a mesh
-    member slowed on purpose then stands out to the scoreboard while
-    other test workers load every core."""
+    the process cluster sets them (``vstart._daemon_start``), and
+    ``OMP_NUM_THREADS`` for the processes it starts: a mesh member slowed
+    on purpose then stands out to the scoreboard while other test
+    workers load every core."""
     import torch
     from ceph_tpu_torch.mesh import members_per_device, \
         set_members_per_device
@@ -279,8 +283,13 @@ def run_one(mod, name, pkg, tmp_path, capsys, rgw_start=None,
     if rgw_start is None:
         rgw_start = time.time()
     try:
-        with pytest.MonkeyPatch.context() as mp:
+        with pytest.MonkeyPatch.context() as mp, fresh_mesh_counters():
             _patch(mp, pkg, run, rgw_start, case=(mod.__name__,))
+            if pkg == PORT and torch_threads:
+                # and the processes the case starts (the bench CLI's
+                # ``--smoke``): with torch's default pool, beside the other
+                # test workers, the port's smoke took 109 s, one thread 13
+                mp.setenv("OMP_NUM_THREADS", str(torch_threads))
             try:
                 _call(mod, name, d, capsys, params)
             finally:
